@@ -1,0 +1,87 @@
+"""Port CLI on the CPU (``--device cpu``): planner and sweep protocol
+lines, CG through the planner, clean errors, and no JAX at import."""
+
+import json
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import tpu_spmv_torch as tt
+from tpu_spmv_torch import utils
+from tpu_spmv_torch.cli import main
+
+torch.set_num_threads(1)
+
+
+def test_cli_auto_psdia(capsys):
+    assert main(["--synthetic", "laplacian:32", "--auto", "--device", "cpu",
+                 "--iters", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "planner: strategy=pdia_stream" in out
+    assert "### PSDIA CPU-AUTO GFLOPS =" in out
+
+
+@pytest.mark.parametrize("solver", ["cg", "pcg"])
+def test_cli_solve_json(capsys, solver):
+    assert main(["--synthetic", "laplacian:12", "--device", "cpu",
+                 "--formats", "csr", "--iters", "2", "--solve", solver,
+                 "--tol", "1e-6", "--json"]) == 0
+    recs = [json.loads(l) for l in capsys.readouterr().out.splitlines()
+            if l.startswith("{")]
+    solve = [r for r in recs if r.get("solver") == solver]
+    assert solve and solve[0]["converged"]
+    assert solve[0]["rel_residual"] < 1e-5
+    assert solve[0]["strategy"] == "pdia_stream"
+
+
+def test_cli_file_sweep_float64(tmp_path, capsys):
+    path = tmp_path / "m.mtx"
+    tt.write_matrix(path, utils.laplacian_2d(6, 5))
+    assert main([str(path), "--formats", "coo,csr,dia", "--device", "cpu",
+                 "--iters", "2", "--dtype", "float64", "--json"]) == 0
+    recs = [json.loads(l) for l in capsys.readouterr().out.splitlines()
+            if l.startswith("{")]
+    assert [r["format"] for r in recs] == ["COO", "CSR", "DIA"]
+    assert all(r["mode"] == "CPU" and r["rel_err"] <= 1e-10
+               and r["roofline_fraction"] is None for r in recs)
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--synthetic", "laplacian:4", "--formats", "bogus"], "unknown format"),
+    (["/does/not/exist.mtx"], "not found"),
+    (["--synthetic", "bogus:1"], "unknown synthetic"),
+])
+def test_cli_clean_errors(argv, match):
+    with pytest.raises(SystemExit, match=match):
+        main(argv + ["--device", "cpu"])
+
+
+def test_cli_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        main(["--synthetic", "laplacian:4"])
+
+
+def test_cli_drops_explosive_dia():
+    import scipy.sparse as sp
+
+    from tpu_spmv_torch.cli import _drop_explosive_formats
+
+    n = 200_000
+    hub = sp.coo_matrix((np.ones(50_000), (np.zeros(50_000, np.int64),
+                                           np.arange(50_000))), shape=(n, n))
+    assert _drop_explosive_formats(["csr", "dia", "coo"], hub, 8) == \
+        ["csr", "coo"]
+    band = utils.banded(500, 3).tocoo()
+    assert _drop_explosive_formats(["dia"], band, 8) == ["dia"]
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, tpu_spmv_torch, tpu_spmv_torch.cli; "
+            "assert 'jax' not in sys.modules; "
+            "assert 'tpu_spmv' not in sys.modules")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -1,0 +1,42 @@
+"""tpu_spmv_torch — the PyTorch and CUDA port of tpu_spmv for NVIDIA Hopper.
+
+The port mirrors the JAX reference package ``tpu_spmv`` module for module
+and is held against it in the tests.  It imports neither JAX nor the
+reference package.
+
+- **Formats** (:mod:`.formats`): COO, CSR, DIA as dataclasses of tensors.
+- **Ops** (:mod:`.ops`): deterministic SpMV per format, BLAS-1, and the
+  planner :func:`plan_spmv` that picks and packs the operator.
+- **Kernels** (:mod:`.kernels`): hand-written CUDA kernels for the
+  streaming DIA operators (``csrc/``), built at first use, each beside its
+  plain PyTorch version.
+- **Solvers** (:mod:`.solvers`): CG.
+- **I/O** (:mod:`.io`): MatrixMarket read/write.
+- **Bench** (:mod:`.bench`): the ``### <FMT> <MODE> GFLOPS`` protocol and
+  a roofline against the card's measured copy bandwidth.
+- **Interop** (:mod:`.interop`): operators packed by the reference carried
+  over unchanged.
+"""
+
+from __future__ import annotations
+
+from . import solvers
+from .formats import COO, CSR, DIA, FORMATS, convert, to_coo
+from .interop import from_reference
+from .io import read_matrix, write_matrix
+from .kernels import PSDIA, SDIA, pack_psdia, pack_sdia
+from .ops import (SpmvPlan, allclose, analyze, axpby, axpy, check_vector,
+                  dot, fill, fill_random, norm2, plan_spmv, scale, shift,
+                  spmv)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "COO", "CSR", "DIA", "FORMATS", "convert", "to_coo",
+    "SDIA", "PSDIA", "pack_sdia", "pack_psdia",
+    "spmv", "plan_spmv", "analyze", "SpmvPlan",
+    "dot", "axpby", "axpy", "fill", "fill_random", "scale", "shift",
+    "norm2", "check_vector", "allclose",
+    "read_matrix", "write_matrix", "from_reference", "solvers",
+    "__version__",
+]

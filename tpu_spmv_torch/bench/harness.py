@@ -1,0 +1,155 @@
+"""Benchmark harness: the reference's measurement protocol on a CUDA card.
+
+Counterpart of ``tpu_spmv/bench/harness.py``.  The grep-able result line
+stays ``### <FMT> <MODE> GFLOPS = <value>``; every benchmarked product is
+checked against a float64 scipy oracle first (1e-10 for float64, 2e-5 for
+float32).  Timing runs a chained loop ``v ← A·v·scale`` and takes the
+median over repeats after warm-up: CUDA events on the card, the host clock
+on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import statistics
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..formats import COO, CSR, DIA, convert, to_coo
+from ..kernels.dia_stream import PSDIA, SDIA
+from ..ops.spmv import spmv
+from .roofline import measured_copy_gbps, roofline
+
+__all__ = ["DEFAULT_ITERS", "TimingResult", "format_name", "time_fn",
+           "time_chained", "verify_against_oracle", "bench_spmv",
+           "bench_format_sweep"]
+
+#: timed iterations per measurement (the reference's count)
+DEFAULT_ITERS = 50
+
+_NAMES = {COO: "COO", CSR: "CSR", DIA: "DIA", SDIA: "SDIA", PSDIA: "PSDIA"}
+
+
+def format_name(A) -> str:
+    return _NAMES.get(type(A), type(A).__name__)
+
+
+@dataclasses.dataclass(frozen=True)
+class TimingResult:
+    median_s: float             # per call, median over repeats
+    best_s: float               # per call, best repeat
+    iters: int                  # calls per repeat
+
+
+def _timed(run: Callable, on_cuda: bool, repeats: int) -> list[float]:
+    """Seconds of each of ``repeats`` runs of ``run()``."""
+    times = []
+    for _ in range(repeats):
+        if on_cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            run()
+            times.append(time.perf_counter() - t0)
+    return times
+
+
+def _result(times: list[float], iters: int) -> TimingResult:
+    return TimingResult(median_s=statistics.median(times) / iters,
+                        best_s=min(times) / iters, iters=iters)
+
+
+def time_fn(fn: Callable, *args, iters: int = DEFAULT_ITERS,
+            warmup: int = 2, repeats: int = 5) -> TimingResult:
+    """Per-call time of ``fn(*args)`` (``iters`` calls per repeat)."""
+    for _ in range(max(warmup, 1)):
+        out = fn(*args)
+    on_cuda = out.is_cuda
+
+    def run():
+        for _ in range(iters):
+            fn(*args)
+
+    return _result(_timed(run, on_cuda, repeats), iters)
+
+
+def time_chained(step: Callable, v0: torch.Tensor, *,
+                 iters: int = DEFAULT_ITERS, warmup: int = 2,
+                 repeats: int = 5) -> TimingResult:
+    """Per-step time of the dependent chain ``v ← step(v)``."""
+    v = v0
+    for _ in range(warmup):
+        v = step(v)
+
+    def run():
+        nonlocal v
+        for _ in range(iters):
+            v = step(v)
+
+    return _result(_timed(run, v0.is_cuda, repeats), iters)
+
+
+def verify_against_oracle(A, x, y, rtol: float = 1e-10,
+                          oracle=None) -> float:
+    """Max relative error of ``y`` against float64 scipy ``A @ x``; raises
+    above the gate (``rtol`` for float64 output, 2e-5 for float32).
+    ``oracle`` supplies the scipy matrix for packed formats."""
+    sp_mat = (oracle.tocsr() if oracle is not None
+              else to_coo(A).to_scipy()).astype(np.float64)
+    y_ref = sp_mat @ x.detach().cpu().double().numpy()
+    y_np = y.detach().cpu().double().numpy()
+    rel = float(np.max(np.abs(y_np - y_ref))) / max(
+        float(np.max(np.abs(y_ref))), 1e-300)
+    gate = rtol if y.dtype == torch.float64 else max(rtol, 2e-5)
+    if rel > gate:
+        raise AssertionError(
+            f"{format_name(A)} SpMV verification failed: rel err {rel:.3e} "
+            f"> {gate:.0e}")
+    return rel
+
+
+def bench_spmv(A, x: torch.Tensor, *, mode: str, iters: int = DEFAULT_ITERS,
+               check: bool = True, quiet: bool = False,
+               spmv_fn: Callable | None = None, oracle=None) -> dict:
+    """Benchmark one format's SpMV and print the protocol line.
+
+    Square operands time the chain ``v ← (A v) / ||A||_inf``; others time
+    repeated calls.  On the card the roofline divides by the measured copy
+    bandwidth; a CPU run reports none."""
+    fn = spmv_fn or spmv
+    rel = (verify_against_oracle(A, x, fn(A, x), oracle=oracle)
+           if check else float("nan"))
+    nrow, ncol = A.shape
+    if nrow == ncol:
+        host = oracle.tocsr() if oracle is not None else to_coo(A).to_scipy()
+        scale = 1.0 / max(float(abs(host).sum(axis=1).max()), 1e-300)
+        t = time_chained(lambda v: fn(A, v) * scale, x, iters=iters)
+    else:
+        t = time_fn(fn, A, x, iters=iters)
+    peak = measured_copy_gbps(x.device) if x.is_cuda else None
+    rf = roofline(A, t.median_s, x_dtype=x.dtype, peak_gbps=peak)
+    name = format_name(A)
+    if not quiet:
+        print(f"### {name} {mode} GFLOPS = {rf.gflops:.5f}")
+        print(f"    {name} {mode}: {rf.summary()} | rel_err={rel:.2e}")
+    return {"format": name, "mode": mode, "gflops": rf.gflops,
+            "seconds": rf.seconds, "bytes": rf.bytes, "bw_gbps": rf.bw_gbps,
+            "roofline_fraction": rf.fraction, "rel_err": rel,
+            "iters": iters}
+
+
+def bench_format_sweep(coo: COO, x: torch.Tensor, *, formats, mode: str,
+                       iters: int = DEFAULT_ITERS, check: bool = True,
+                       quiet: bool = False) -> list[dict]:
+    """The reference's per-format sweep: one :func:`bench_spmv` each."""
+    return [bench_spmv(convert(coo, name), x, mode=mode, iters=iters,
+                       check=check, quiet=quiet) for name in formats]

@@ -1,0 +1,102 @@
+"""Memory-bandwidth roofline model for the sparse kernels.
+
+Counterpart of ``tpu_spmv/bench/roofline.py``.  SpMV is memory-bound, so
+the efficiency metric is achieved bytes/s against the card's bandwidth.
+Byte counts are the minimum-traffic model: each matrix byte read once, x
+read once, y written once.  The bandwidth is the card's own, measured as a
+device-to-device copy (:func:`measured_copy_gbps`), not a table of
+published figures; a CPU run has no roofline.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import statistics
+
+import torch
+
+__all__ = ["spmv_bytes", "measured_copy_gbps", "Roofline", "roofline"]
+
+
+def spmv_bytes(A, x_dtype=None) -> int:
+    """Minimum device-memory traffic of one ``y = A @ x``."""
+    from ..formats import COO, CSR, DIA
+    from ..kernels.dia_stream import PSDIA, SDIA
+
+    val = A.dtype.itemsize
+    xval = (x_dtype or A.dtype).itemsize
+    idx = 4  # int32
+    nrow, ncol = A.shape
+    vec = ncol * xval + nrow * xval  # x read + y write
+    if isinstance(A, COO):
+        return A.nnz * (val + 2 * idx) + vec
+    if isinstance(A, CSR):
+        return A.nnz * (val + 2 * idx) + (nrow + 1) * idx + vec
+    if isinstance(A, (DIA, SDIA)):
+        return A.data.numel() * val + vec
+    if isinstance(A, PSDIA):
+        # the pattern is read once and then served from cache: the
+        # per-SpMV stream is x + y plus one pattern read
+        return A.pattern.numel() * val + vec
+    raise TypeError(f"unsupported sparse type {type(A).__name__}")
+
+
+@functools.cache
+def measured_copy_gbps(device) -> float:
+    """The card's copy bandwidth in GB/s: ``2·bytes / t`` of a 256 MiB
+    device-to-device ``copy_`` (far past the 50 MB L2), timed with CUDA
+    events, median of 10 runs of 20 copies after warm-up."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"copy bandwidth is measured on a CUDA device, "
+                         f"not {device}")
+    src = torch.rand(1 << 26, device=device)
+    dst = torch.empty_like(src)
+    for _ in range(3):
+        dst.copy_(src)
+    times = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            dst.copy_(src)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3 / 20)
+    return 2 * src.numel() * src.element_size() / statistics.median(times) / 1e9
+
+
+@dataclasses.dataclass(frozen=True)
+class Roofline:
+    """Achieved against the measured bandwidth for one timed kernel."""
+
+    seconds: float
+    bytes: int
+    flops: int
+    bw_gbps: float              # achieved GB/s of the byte model
+    peak_gbps: float | None     # measured copy bandwidth; None on the CPU
+    fraction: float | None      # bw / peak
+    gflops: float
+
+    def summary(self) -> str:
+        head = (f"{self.gflops:8.3f} GFLOP/s | {self.bw_gbps:8.2f} GB/s "
+                f"model")
+        if self.peak_gbps is None:
+            return head + " | roofline not measured (no card)"
+        return (head + f" | {100 * self.fraction:5.1f}% of "
+                f"{self.peak_gbps:.0f} GB/s measured copy")
+
+
+def roofline(A, seconds: float, *, x_dtype=None,
+             peak_gbps: float | None = None) -> Roofline:
+    """A :class:`Roofline` from one measured per-call time; FLOPs are
+    ``2·nnz`` with the true nnz."""
+    nnz = A.nnz
+    nbytes = spmv_bytes(A, x_dtype)
+    bw = nbytes / seconds / 1e9
+    return Roofline(seconds=seconds, bytes=nbytes, flops=2 * nnz,
+                    bw_gbps=bw, peak_gbps=peak_gbps,
+                    fraction=None if peak_gbps is None else bw / peak_gbps,
+                    gflops=2 * nnz / seconds / 1e9)

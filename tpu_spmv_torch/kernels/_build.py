@@ -1,0 +1,112 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+The sources have a plain C interface and are compiled with ``nvcc`` into
+one shared library, loaded with :mod:`ctypes` — no PyTorch headers, so a
+build takes seconds.  The build runs at first use, into
+``build/tpu_spmv_torch/`` beside the package, keyed by a hash of the
+sources and flags: a changed source rebuilds, an unchanged one loads the
+library already built.  A failed build raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["NVCC_FLAGS", "build_dir", "library_path", "load", "check"]
+
+#: compile flags; ``sm_90a`` is Hopper with its architecture-specific
+#: features (wgmma, setmaxnreg) available to later kernels
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_PKG = Path(__file__).resolve().parent.parent
+_SOURCES = ("dia_stream.cu",)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+#: C signature of every exported function: name -> argtypes (restype int)
+_SIGNATURES = {
+    "tsp_sdia_spmv_f32": [_P, _P, _I, _P, _P, _I64, _P],
+    "tsp_sdia_spmv_f64": [_P, _P, _I, _P, _P, _I64, _P],
+    "tsp_psdia_spmv_f32": [_P, _P, _I, _I64, _P, _P, _I64, _I64, _I64, _P],
+    "tsp_psdia_spmv_f64": [_P, _P, _I, _I64, _P, _P, _I64, _I64, _I64, _P],
+}
+
+
+def build_dir() -> Path:
+    """``build/tpu_spmv_torch/`` at the root of the checkout."""
+    return _PKG.parent / "build" / "tpu_spmv_torch"
+
+
+def _sources() -> list[Path]:
+    return [_PKG / "csrc" / name for name in _SOURCES]
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return build_dir() / f"libtpu_spmv_torch_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (put the CUDA toolkit's bin/ on PATH "
+                       "or set CUDA_HOME); the CUDA kernels cannot be built")
+
+
+def _compile(out: Path) -> None:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    # compile to a temporary name, then rename: a concurrent builder never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; raises on failure."""
+    path = library_path()
+    if not path.exists():
+        _compile(path)
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.tsp_error_string.argtypes = [ctypes.c_int]
+    lib.tsp_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, name: str, code: int) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if code != 0:
+        msg = lib.tsp_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({code}): {msg}")

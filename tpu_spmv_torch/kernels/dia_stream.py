@@ -1,0 +1,421 @@
+"""Streaming DIA SpMV — the main-path kernels K1 (SDIA) and K2 (PSDIA).
+
+Counterpart of ``tpu_spmv/kernels/dia_stream.py`` (forward part).  The
+packs keep the reference's padded-row-space contract and dataclass fields,
+so a JAX pack carries over unchanged (:mod:`..interop`):
+
+- ``xpad[k] = x[k - L]``; the front pad ``L`` and the back pad are whole
+  row tiles of ``rb`` rows, and every row ``k`` of ``[L, L + nrow)`` reads
+  ``xpad[k + off]`` inside ``[0, npad)``;
+- :class:`SDIA` streams explicit diagonal data, zero on pad rows and
+  out-of-range slots; :class:`PSDIA` holds one row tile of a periodic
+  pattern (grid stencils) and zeroes the rows outside ``[L, L + nrow)``;
+- the pads of y stay exactly zero, so padded products chain.
+
+On a CUDA tensor the wrappers launch the hand-written Hopper kernels of
+``csrc/dia_stream.cu`` (built at first use, :mod:`._build`) and count the
+launch in :data:`LAUNCHES`; on a CPU tensor they run the plain PyTorch
+versions beside them (``*_ref``), which compute the same function with
+per-diagonal zero-filled shifts.  Nothing falls back from one to the other.
+
+The row-tile size ``rb`` keeps the reference's rule (``_auto_rb`` and the
+``pack_psdia`` rb block, derived from TPU VMEM budgets) so the packs are
+identical; on Hopper it only decides the padding.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..formats.base import sparse_dataclass
+from ..formats.dia import DIA
+from . import _build
+
+__all__ = ["SDIA", "PSDIA", "LAUNCHES", "pack_sdia", "supports_sdia",
+           "detect_period", "pack_psdia", "pad_x", "unpad_y",
+           "spmv_sdia_padded", "spmv_sdia_padded_ref", "spmv_sdia",
+           "spmv_psdia_padded", "spmv_psdia_padded_ref", "spmv_psdia"]
+
+#: floor rows per row tile (the reference's rule, see module docstring)
+RB = 16384
+RB_MAX = 131072
+#: per-buffer budget for the reference's [ndiags, rb] data block
+_DATA_BLOCK_BUDGET = 3 << 20
+#: kernel launches by the wrappers on CUDA tensors (plain-version calls on
+#: CPU tensors are not counted)
+LAUNCHES = {"sdia": 0, "psdia": 0}
+#: the kernels keep the offsets in 48 KB of shared memory
+_MAX_DIAGS = 12288
+#: largest period :func:`detect_period` tries
+_MAX_PERIOD = 1 << 20
+
+
+def _roundup(a: int, m: int) -> int:
+    return -(-a // m) * m
+
+
+@sparse_dataclass
+class SDIA:
+    """DIA matrix in padded row space for the streaming kernel.
+
+    ``data[d, k]`` is diagonal ``offsets[d]`` at global row ``k - L``
+    (zero for pad rows and out-of-range slots)."""
+
+    data: torch.Tensor                    # [ndiags, npad]
+    offsets: tuple[int, ...]
+    shape: tuple[int, int]
+    nnz: int
+    L: int                                # front pad rows (multiple of rb)
+    rb: int = RB
+
+    @property
+    def npad(self) -> int:
+        return int(self.data.shape[1])
+
+    @property
+    def ndiags(self) -> int:
+        return int(self.data.shape[0])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+
+@sparse_dataclass
+class PSDIA:
+    """Periodic DIA matrix for the streaming kernel.
+
+    ``pattern[d, i]`` holds diagonal ``offsets[d]`` at global row
+    ``i mod period``, tiled to one row tile ``[ndiags, rb]``; rows outside
+    ``[L, L + nrow)`` are masked to zero."""
+
+    pattern: torch.Tensor                 # [ndiags, rb]
+    offsets: tuple[int, ...]
+    shape: tuple[int, int]
+    nnz: int
+    L: int                                # front pad rows (multiple of rb)
+    period: int
+    rb: int = RB
+
+    @property
+    def npad(self) -> int:
+        hi = max(0, max(self.offsets))
+        U = _roundup(hi, self.rb) if hi else 0
+        return self.L + _roundup(self.shape[0], self.rb) + U
+
+    @property
+    def ndiags(self) -> int:
+        return int(self.pattern.shape[0])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.pattern.dtype
+
+
+# ---------------------------------------------------------------------------
+# packing (host analysis, the reference's rules)
+# ---------------------------------------------------------------------------
+
+
+def _auto_rb(ndiags: int, offsets, nrow: int, itemsize: int = 4) -> int | None:
+    """The reference's row-tile rule: as fat as its data-block budget
+    allows, shrunk for small matrices, raised (within 2x budget) when the
+    band needs it.  ``None`` = no feasible tile."""
+    need = _roundup(max(max(abs(int(o)) for o in offsets), 1), 1024)
+    rb = 65536
+    while rb > RB and ndiags * rb * itemsize > _DATA_BLOCK_BUDGET:
+        rb //= 2
+    while rb > RB and rb >= 4 * nrow:
+        rb //= 2
+    if need > rb:
+        rb = need
+        if rb > RB_MAX or ndiags * rb * itemsize > 2 * _DATA_BLOCK_BUDGET:
+            return None
+    return rb
+
+
+def supports_sdia(offsets, shape, rb: int | None = None, *,
+                  itemsize: int = 4) -> bool:
+    """Feasibility probe for :func:`pack_sdia` (same rule, same itemsize)."""
+    if shape[0] != shape[1]:
+        return False
+    if rb is None:
+        return _auto_rb(len(offsets), offsets, shape[0],
+                        itemsize=itemsize) is not None
+    return max(abs(int(o)) for o in offsets) <= rb
+
+
+def pack_sdia(dia: DIA, rb: int | None = None, *, device=None) -> SDIA:
+    """Lay a DIA matrix out in padded row space on ``device`` (default:
+    the DIA's device); ``rb=None`` picks the tile with :func:`_auto_rb`."""
+    nrow, _ = dia.shape
+    if rb is None:
+        rb = _auto_rb(dia.ndiags, dia.offsets, nrow,
+                      itemsize=dia.data.element_size())
+    if rb is None or not supports_sdia(dia.offsets, dia.shape, rb):
+        raise ValueError(
+            f"sdia needs a square matrix with a feasible row tile "
+            f"(max |offset| <= rb <= {RB_MAX}), got shape {dia.shape}, "
+            f"offsets [{min(dia.offsets)}, {max(dia.offsets)}]")
+    lo = max(0, -min(dia.offsets))
+    hi = max(0, max(dia.offsets))
+    L = _roundup(lo, rb) if lo else 0
+    U = _roundup(hi, rb) if hi else 0
+    npad = L + _roundup(nrow, rb) + U
+    data = F.pad(dia.data.to(device), (L, npad - L - nrow)).contiguous()
+    return SDIA(data=data, offsets=tuple(dia.offsets), shape=dia.shape,
+                nnz=dia.nnz, L=L, rb=rb)
+
+
+def detect_period(dia: DIA) -> int | None:
+    """Smallest period P (from the offset-derived candidates) such that
+    every diagonal is P-periodic over its in-range rows — host analysis;
+    ``None`` for device-resident data (no readback during planning; pass
+    ``period=`` to :func:`pack_psdia`, which verifies it).
+
+    Candidates: 1 (constant diagonals) and each distinct ``|offset| > 1``
+    ascending — the minor grid dimension of a separable stencil is one of
+    its offsets."""
+    if dia.data.device.type != "cpu":
+        return None
+    data = dia.data.numpy()
+    nrow = dia.shape[0]
+    cands = [1] + sorted({abs(int(o)) for o in dia.offsets} - {0, 1})
+    for P in cands:
+        if P > _MAX_PERIOD or 2 * P > nrow:
+            continue
+        ok = True
+        for d, off in enumerate(dia.offsets):
+            off = int(off)
+            seg = data[d, max(0, -off):nrow - max(0, off)]
+            if seg.size > P and not np.array_equal(seg[P:], seg[:-P]):
+                ok = False
+                break
+        if ok:
+            return P
+    return None
+
+
+def _pattern_budget(nd: int) -> int:
+    """The reference's budget for the resident [ndiags, rb] pattern."""
+    return (8 << 20) if nd <= 5 else (2 << 20)
+
+
+def _periodic(data: torch.Tensor, pat: torch.Tensor, offsets,
+              nrow: int) -> bool:
+    """True iff ``data`` equals the tiled ``pat`` at every in-range slot
+    (out-of-range slots multiply the zero x pads — don't care)."""
+    P = pat.shape[1]
+    full = pat.repeat(1, -(-nrow // P))[:, :nrow]
+    i = torch.arange(nrow, device=data.device)
+    offs = torch.tensor(offsets, device=data.device)[:, None]
+    valid = (i[None, :] + offs >= 0) & (i[None, :] + offs < nrow)
+    return bool(torch.all((data == full) | ~valid))
+
+
+def pack_psdia(dia: DIA, period: int | None = None, *, rb: int | None = None,
+               verify: bool = True, device=None) -> PSDIA:
+    """Build the periodic streaming operator on ``device`` (default: the
+    DIA's device).
+
+    ``period=None`` detects it on host data (:func:`detect_period`).  With
+    ``verify=True`` the claim is checked against every in-range entry, on
+    the device that holds the DIA data, and a mismatch raises."""
+    nrow, ncol = dia.shape
+    if nrow != ncol:
+        raise ValueError("psdia needs a square matrix")
+    if period is None:
+        period = detect_period(dia)
+        if period is None:
+            raise ValueError(
+                "no periodic diagonal structure detected"
+                + (" (device-resident diagonals are not scanned — pass "
+                   "period= explicitly; it is verified on device)"
+                   if dia.data.device.type != "cpu" else ""))
+    P = int(period)
+    nd = dia.ndiags
+    offsets = tuple(int(o) for o in dia.offsets)
+    lo = max(0, -min(offsets))
+    hi = max(0, max(offsets))
+    if rb is None:
+        # period-aligned and 1024-aligned, as fat as the reference's
+        # resident-pattern budget allows, not past the matrix
+        unit = P * 1024 // math.gcd(P, 1024)
+        if unit > RB_MAX:
+            raise ValueError("period too large for any feasible row tile")
+        isz = dia.data.element_size()
+        cap = min(RB_MAX, max(_pattern_budget(nd) // (isz * nd), 1))
+        rb = max(unit, cap - cap % unit)
+        small = _roundup(max(nrow, lo, hi, 1), unit)
+        rb = min(rb, max(small, unit))
+        if max(lo, hi, 1) > rb:         # wide band: raise rb to cover it
+            rb = _roundup(max(lo, hi), unit)
+    if rb % P or rb > RB_MAX or max(lo, hi, 1) > rb:
+        raise ValueError(
+            f"psdia needs rb a multiple of period={P} covering the band, "
+            f"<= {RB_MAX}; got rb={rb}")
+    # the first period window that is in range for EVERY diagonal (its
+    # phase k0*P = 0 mod P keeps the alignment)
+    k0 = -(-lo // P)
+    if (k0 + 1) * P > nrow - hi:
+        raise ValueError("matrix too small to extract an in-range period")
+    pat = dia.data[:, k0 * P:(k0 + 1) * P]
+    if verify and not _periodic(dia.data, pat, offsets, nrow):
+        raise ValueError(f"diagonals are not periodic with period {P}")
+    pattern = pat.to(device).repeat(1, rb // P).contiguous()
+    L = _roundup(lo, rb) if lo else 0
+    return PSDIA(pattern=pattern, offsets=offsets, shape=dia.shape,
+                 nnz=dia.nnz, L=L, period=P, rb=rb)
+
+
+# ---------------------------------------------------------------------------
+# padded row space
+# ---------------------------------------------------------------------------
+
+
+def pad_x(A, x: torch.Tensor) -> torch.Tensor:
+    """``xpad[k] = x[k - L]``, zero elsewhere (``[nrow] -> [npad]``)."""
+    return F.pad(x, (A.L, A.npad - A.L - x.shape[0]))
+
+
+def unpad_y(A, ypad: torch.Tensor) -> torch.Tensor:
+    """The valid rows of a padded product (``[npad] -> [nrow]``, a view)."""
+    return ypad[A.L:A.L + A.shape[0]]
+
+
+def _shift(xpad: torch.Tensor, off: int) -> torch.Tensor:
+    """``out[k] = xpad[k + off]``, zero where ``k + off`` leaves
+    ``[0, npad)``."""
+    n = xpad.shape[0]
+    out = torch.zeros_like(xpad)
+    if abs(off) < n:
+        if off >= 0:
+            out[:n - off] = xpad[off:]
+        else:
+            out[-off:] = xpad[:n + off]
+    return out
+
+
+def spmv_sdia_padded_ref(A: SDIA, xpad: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K1: per-diagonal zero-filled shifts of
+    ``xpad`` times the diagonal data, summed in ascending offset order."""
+    acc = A.data[0] * _shift(xpad, A.offsets[0])
+    for d, off in enumerate(A.offsets[1:], start=1):
+        acc = acc + A.data[d] * _shift(xpad, off)
+    return acc
+
+
+def spmv_psdia_padded_ref(A: PSDIA, xpad: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K2: the same sum with the pattern tiled
+    over the row tiles, then the row-validity mask."""
+    reps = A.npad // A.rb
+    acc = A.pattern[0].repeat(reps) * _shift(xpad, A.offsets[0])
+    for d, off in enumerate(A.offsets[1:], start=1):
+        acc = acc + A.pattern[d].repeat(reps) * _shift(xpad, off)
+    rows = torch.arange(A.npad, device=xpad.device)
+    valid = (rows >= A.L) & (rows < A.L + A.shape[0])
+    return torch.where(valid, acc, torch.zeros_like(acc))
+
+
+@functools.lru_cache(maxsize=64)
+def _offsets_on(offsets: tuple[int, ...], device: torch.device):
+    """The offsets as a device ``int32`` tensor, made once per pack."""
+    return torch.tensor(offsets, dtype=torch.int32, device=device)
+
+
+def _check(name: str, coef: torch.Tensor, A, xpad: torch.Tensor,
+           width: int) -> None:
+    """Raise on anything the kernels do not take."""
+    if xpad.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: x must be float32 or float64, "
+                        f"got {xpad.dtype}")
+    if coef.dtype != xpad.dtype:
+        raise TypeError(f"{name}: matrix is {coef.dtype} but x is "
+                        f"{xpad.dtype}")
+    if coef.device != xpad.device:
+        raise ValueError(f"{name}: matrix on {coef.device}, x on "
+                         f"{xpad.device}")
+    if xpad.dim() != 1 or xpad.shape[0] != A.npad:
+        raise ValueError(f"{name}: x must be [npad={A.npad}], got "
+                         f"{tuple(xpad.shape)}")
+    if tuple(coef.shape) != (len(A.offsets), width):
+        raise ValueError(f"{name}: coefficients {tuple(coef.shape)} do not "
+                         f"match [{len(A.offsets)}, {width}]")
+    if not (coef.is_contiguous() and xpad.is_contiguous()):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if len(A.offsets) > _MAX_DIAGS:
+        raise ValueError(f"{name}: {len(A.offsets)} diagonals exceed the "
+                         f"kernel's {_MAX_DIAGS}")
+
+
+def _fn(lib, kernel: str, dtype: torch.dtype):
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    return getattr(lib, f"tsp_{kernel}_spmv_{suffix}")
+
+
+def spmv_sdia_padded(A: SDIA, xpad: torch.Tensor) -> torch.Tensor:
+    """``ypad = A @ xpad`` in padded row space (``[npad] -> [npad]``,
+    chainable: the pads stay zero because the pad rows hold zero data).
+
+    CUDA tensor: launches K1 (``sdia_spmv`` in ``csrc/dia_stream.cu``);
+    CPU tensor: :func:`spmv_sdia_padded_ref`."""
+    _check("spmv_sdia_padded", A.data, A, xpad, A.npad)
+    if xpad.device.type == "cpu":
+        return spmv_sdia_padded_ref(A, xpad)
+    if xpad.device.type != "cuda":
+        raise ValueError(f"spmv_sdia_padded: no kernel for {xpad.device}")
+    lib = _build.load()
+    y = torch.empty_like(xpad)
+    offs = _offsets_on(A.offsets, xpad.device)
+    # the launch goes to the calling thread's current device: make it x's
+    with torch.cuda.device(xpad.device):
+        stream = torch.cuda.current_stream(xpad.device).cuda_stream
+        code = _fn(lib, "sdia", xpad.dtype)(
+            A.data.data_ptr(), offs.data_ptr(), A.ndiags, xpad.data_ptr(),
+            y.data_ptr(), A.npad, stream)
+    _build.check(lib, "sdia_spmv", code)
+    LAUNCHES["sdia"] += 1
+    return y
+
+
+def spmv_psdia_padded(A: PSDIA, xpad: torch.Tensor) -> torch.Tensor:
+    """``ypad = A @ xpad`` in padded row space — same contract as
+    :func:`spmv_sdia_padded`; the pads stay zero through the row mask.
+
+    CUDA tensor: launches K2 (``psdia_spmv`` in ``csrc/dia_stream.cu``);
+    CPU tensor: :func:`spmv_psdia_padded_ref`."""
+    _check("spmv_psdia_padded", A.pattern, A, xpad, A.rb)
+    if xpad.device.type == "cpu":
+        return spmv_psdia_padded_ref(A, xpad)
+    if xpad.device.type != "cuda":
+        raise ValueError(f"spmv_psdia_padded: no kernel for {xpad.device}")
+    lib = _build.load()
+    y = torch.empty_like(xpad)
+    offs = _offsets_on(A.offsets, xpad.device)
+    with torch.cuda.device(xpad.device):
+        stream = torch.cuda.current_stream(xpad.device).cuda_stream
+        code = _fn(lib, "psdia", xpad.dtype)(
+            A.pattern.data_ptr(), offs.data_ptr(), A.ndiags, A.rb,
+            xpad.data_ptr(), y.data_ptr(), A.npad, A.L, A.shape[0], stream)
+    _build.check(lib, "psdia_spmv", code)
+    LAUNCHES["psdia"] += 1
+    return y
+
+
+def spmv_sdia(A: SDIA, x: torch.Tensor,
+              y: torch.Tensor | None = None) -> torch.Tensor:
+    """``A @ x`` (+ ``y``) with plain ``[n]`` vectors (pads internally)."""
+    out = unpad_y(A, spmv_sdia_padded(A, pad_x(A, x)))
+    return out if y is None else y + out
+
+
+def spmv_psdia(A: PSDIA, x: torch.Tensor,
+               y: torch.Tensor | None = None) -> torch.Tensor:
+    """``A @ x`` (+ ``y``) with plain ``[n]`` vectors (pads internally)."""
+    out = unpad_y(A, spmv_psdia_padded(A, pad_x(A, x)))
+    return out if y is None else y + out

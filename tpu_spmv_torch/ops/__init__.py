@@ -1,0 +1,12 @@
+"""Compute ops: SpMV per format, the planner, BLAS-1 vector ops."""
+
+from .auto import PatternStats, SpmvPlan, analyze, plan_from_matrix, plan_spmv
+from .blas1 import (add2scaled, allclose, axpby, axpy, check_vector, dot,
+                    fill, fill_random, norm2, scale, shift)
+from .spmv import spmv, spmv_coo, spmv_csr, spmv_dia
+
+__all__ = ["spmv", "spmv_coo", "spmv_csr", "spmv_dia",
+           "PatternStats", "SpmvPlan", "analyze", "plan_spmv",
+           "plan_from_matrix",
+           "dot", "axpby", "axpy", "add2scaled", "fill", "fill_random",
+           "scale", "shift", "norm2", "check_vector", "allclose"]

@@ -1,0 +1,176 @@
+"""SpMV strategy planner — the analysis phase.
+
+Counterpart of ``tpu_spmv/ops/auto.py``.  :func:`plan_spmv` inspects the
+sparsity pattern once, on the host, and returns a plan: the operator packed
+for the kernel that fits it, on the device the caller names.  Calling the
+plan is ``plan(x)``.
+
+The DIA arm keeps the reference's order: when the DIA storage is at most
+4x nnz and no more than block-DIA storage,
+
+1. a periodic pattern (:func:`..kernels.dia_stream.detect_period`) gives
+   the periodic streaming DIA, ``"pdia_stream"`` (grid stencils);
+2. otherwise a feasible row tile gives the streaming DIA, ``"dia_stream"``;
+3. otherwise plain ``"dia"``.
+
+The streaming arms are taken at every size: the reference's switchover
+below a VMEM-residency threshold and its float64 reroute are TPU facts and
+are not ported.  Every other matrix gets ``"csr"`` until the
+general-sparsity kernels are ported (where the reference picks BDIA,
+packed ELL, GPR, BSR or ELL).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..formats import COO, CSR, DIA, convert, to_coo
+from ..kernels import dia_stream
+from .spmv import spmv
+
+__all__ = ["PatternStats", "SpmvPlan", "analyze", "plan_spmv",
+           "plan_from_matrix"]
+
+
+@dataclasses.dataclass(frozen=True)
+class PatternStats:
+    """Host-side sparsity-pattern statistics."""
+
+    nrow: int
+    ncol: int
+    nnz: int
+    ndiags: int                 # occupied scalar diagonals
+    nblockdiags_8: int          # occupied 8x8 block diagonals
+    max_row_nnz: int
+    avg_row_nnz: float
+    block_fill_8: float         # nnz / (8*8 * occupied 8x8 blocks)
+    ell_fill: float             # nnz / (nrow * max_row_nnz)
+
+
+def _host_coo(mat, dtype=None) -> COO:
+    """An unsorted host COO over ``mat``'s own arrays (zero-copy where
+    the dtypes allow).  A port-format input is read back once here."""
+    if not hasattr(mat, "tocoo"):          # a port format
+        mat = to_coo(mat).to_scipy()
+    m = mat.tocoo()
+    coo = COO(row=torch.from_numpy(m.row), col=torch.from_numpy(m.col),
+              data=torch.from_numpy(m.data), shape=m.shape,
+              rows_sorted=False)
+    return coo if dtype is None else coo.astype(dtype)
+
+
+def _stats(coo: COO) -> PatternStats:
+    row = coo.row.numpy().astype(np.int64, copy=False)
+    col = coo.col.numpy().astype(np.int64, copy=False)
+    nrow, ncol = coo.shape
+    nnz = int(row.shape[0])
+    if nnz == 0:
+        return PatternStats(nrow, ncol, 0, 0, 0, 0, 0.0, 0.0, 0.0)
+    # diagonal counts via bincount over the (nrow+ncol)-sized offset range
+    ndiags = int((np.bincount(col - row + nrow - 1,
+                              minlength=nrow + ncol - 1) > 0).sum())
+    max_row = int(np.bincount(row, minlength=nrow).max())
+    nbcol = -(-ncol // 8)
+    brow, bcol = row // 8, col // 8
+    blocks = len(np.unique(brow * nbcol + bcol))
+    nblockdiags = int((np.bincount(bcol - brow + (-(-nrow // 8)) - 1,
+                                   minlength=(-(-nrow // 8)) + nbcol - 1)
+                       > 0).sum())
+    return PatternStats(
+        nrow=nrow, ncol=ncol, nnz=nnz, ndiags=ndiags,
+        nblockdiags_8=nblockdiags,
+        max_row_nnz=max_row, avg_row_nnz=nnz / max(nrow, 1),
+        block_fill_8=nnz / (64.0 * max(blocks, 1)),
+        ell_fill=nnz / (float(nrow) * max(max_row, 1)))
+
+
+def analyze(mat) -> PatternStats:
+    """Pattern statistics of a scipy matrix or a port format."""
+    return _stats(_host_coo(mat))
+
+
+#: streaming strategy -> (plain-vector kernel, padded-row-space kernel)
+_KERNELS = {"pdia_stream": (dia_stream.spmv_psdia,
+                            dia_stream.spmv_psdia_padded),
+            "dia_stream": (dia_stream.spmv_sdia, dia_stream.spmv_sdia_padded)}
+
+
+@dataclasses.dataclass(frozen=True)
+class SpmvPlan:
+    """A chosen execution strategy: the packed matrix and its kernel."""
+
+    matrix: object              # the converted / packed format instance
+    strategy: str               # "pdia_stream" | "dia_stream" | "dia" | "csr"
+    stats: PatternStats | None = None
+    _kernel: Callable = spmv
+
+    def __call__(self, x: torch.Tensor,
+                 y: torch.Tensor | None = None) -> torch.Tensor:
+        return self._kernel(self.matrix, x, y)
+
+    def solver_space(self):
+        """``(encode, matvec, decode)`` for running whole solver loops in
+        the kernel's native vector space.
+
+        The streaming strategies compute in a padded row space; a solver
+        that calls the plan per iteration pays a pad and an unpad pass
+        every SpMV.  Solvers ``encode`` once, loop on ``matvec``
+        (shape-preserving; the pads stay exactly zero) and ``decode`` the
+        result.  Dots and norms over padded vectors are exact because the
+        pads are zero.  For every other strategy all three are identities
+        or the plan itself."""
+        if self.strategy in _KERNELS:
+            A = self.matrix
+            kern = _KERNELS[self.strategy][1]
+            return (lambda v: dia_stream.pad_x(A, v),
+                    lambda v: kern(A, v),
+                    lambda v: dia_stream.unpad_y(A, v))
+        return (lambda v: v), self, (lambda v: v)
+
+
+def plan_from_matrix(matrix, strategy: str,
+                     stats: PatternStats | None = None) -> SpmvPlan:
+    """An executable plan from an already converted or packed matrix."""
+    kernel = _KERNELS[strategy][0] if strategy in _KERNELS else spmv
+    return SpmvPlan(matrix, strategy, stats, kernel)
+
+
+def plan_spmv(mat, *, dtype=None, device) -> SpmvPlan:
+    """Analyze ``mat`` (scipy or a port format) on the host and return the
+    best-strategy plan with its operator on ``device``.
+
+    ``dtype=None`` keeps the matrix's own value type.  Float64 runs
+    natively through the kernels."""
+    hc = _host_coo(mat, dtype)
+    stats = _stats(hc)
+    device = torch.device(device)
+    if stats.nnz == 0:
+        return plan_from_matrix(CSR.from_coo(hc).to(device), "csr", stats)
+    dia_storage = stats.ndiags * stats.nrow
+    bdia_storage = stats.nblockdiags_8 * (-(-stats.nrow // 8)) * 64
+    # storage ratio is the only criterion: DIA streams at memory speed,
+    # so the 4x byte-inflation cap bounds the slowdown at 4x
+    if dia_storage <= 4 * stats.nnz and dia_storage <= bdia_storage:
+        hdata, hoffs = DIA.host_arrays(hc)
+        hdia = DIA(data=torch.from_numpy(hdata), offsets=hoffs,
+                   shape=hc.shape, nnz=stats.nnz)
+        period = dia_stream.detect_period(hdia)
+        if period is not None:
+            try:
+                # detect_period already proved periodicity on this data
+                return plan_from_matrix(
+                    dia_stream.pack_psdia(hdia, period=period, verify=False,
+                                          device=device),
+                    "pdia_stream", stats)
+            except ValueError:
+                pass
+        if dia_stream.supports_sdia(hoffs, hc.shape,
+                                    itemsize=hdata.dtype.itemsize):
+            return plan_from_matrix(dia_stream.pack_sdia(hdia, device=device),
+                                    "dia_stream", stats)
+        return plan_from_matrix(hdia.to(device), "dia", stats)
+    return plan_from_matrix(convert(hc, "csr").to(device), "csr", stats)
