@@ -1,4 +1,4 @@
-"""Chip smoke test: drive the port's main path once on one CUDA card.
+"""Chip smoke test: drive the port's main paths once on one CUDA card.
 
 Run from the root of a checkout, with no arguments::
 
@@ -8,21 +8,36 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. toolchain — Python, torch and CUDA versions, ``nvcc --version``, the
    card's name and power limit;
-2. build — ``nvcc`` compiles ``tpu_spmv_torch/csrc/dia_stream.cu`` for
-   ``sm_90a`` into ``build/tpu_spmv_torch/``;
+2. build — ``nvcc`` compiles ``tpu_spmv_torch/csrc/dia_stream.cu`` and
+   ``general.cu`` for ``sm_90a`` (one process each, started together) into
+   one library under ``build/tpu_spmv_torch/``;
 3. kernels against their plain PyTorch versions on small operands, f32 and
-   f64: K1 (SDIA) and K2 (PSDIA) against the plain version (rel 1e-6 f32,
-   1e-13 f64), against scipy float64 (2e-5 f32, 1e-10 f64), bitwise
-   reproducible, pads exactly zero;
-4. main path at full size, with the launch counters zeroed just before
-   and read just after: the 4096x4096-grid 2-D Poisson (16,777,216 rows,
-   83,869,696 nonzeros, float32) through ``plan_spmv`` to PSDIA, checked
-   against scipy float64; 50 fixed CG iterations on it; the same operand
-   forced to SDIA; the 128^3 7-point Poisson and a 1M-row 11-diagonal band
-   through the planner; f64 CG with the true-residual gate on the
-   256x256-grid Poisson;
-5. each kernel at the main path's shapes against its plain version, both
-   timed (CUDA events, median).
+   f64, each against the plain version (rel 1e-6 f32, 1e-13 f64), against
+   scipy float64 (2e-5 f32, 1e-10 f64) and for bitwise reproducibility:
+   K1 (SDIA) and K2 (PSDIA), pads exactly zero; ``gpr_spmv`` and
+   ``ell_spmv`` on ``bus420.mtx``, ``powerlaw800.mtx`` and
+   ``random_sparse(2000, 200000)``, the planner's pick and the other one
+   forced, with the virtual-row fold checked against a host fold;
+4. the main paths at full size, each with the launch counters zeroed just
+   before it and read just after:
+   a. streaming DIA: the 4096x4096-grid 2-D Poisson (16,777,216 rows,
+      83,869,696 nonzeros, float32) through ``plan_spmv`` to PSDIA,
+      checked against scipy float64; 50 fixed CG iterations on it; the
+      same operand forced to SDIA; the 128^3 7-point Poisson and a 1M-row
+      11-diagonal band through the planner; f64 CG with the true-residual
+      gate on the 256x256-grid Poisson;
+   b. general sparsity: ``random_sparse(100000, 100000, 7e-5)``,
+      ``power_law(400000, 400000, 13)``, ``random_sparse(2000000,
+      2000000, 8e-6)`` and a 2048x2048-grid Poisson in a shuffled node
+      order through ``plan_spmv`` (GPR or sliced ELL, never CSR), each
+      checked against scipy float64; 50 fixed CG iterations on the SPD
+      operator P + P^T + diag(row sums of |P + P^T| + 1) of the power-law
+      P and on the shuffled Poisson; f64 CG with the true-residual gate on
+      ``bus420.mtx``;
+5. each kernel at the main paths' shapes against its plain version, timed
+   (CUDA events, median) beside its bound and one cuSPARSE call
+   (``torch.sparse_csr_tensor @ x``) of the same product, a yardstick the
+   port never calls.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
@@ -60,10 +75,93 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-#: kernel-vs-plain limits (same summation order; FMA rounding may differ)
+#: kernel-vs-plain limits (the same sums, in another order for GPR and
+#: sliced ELL; FMA rounding may differ)
 PLAIN_TOL = {"float32": 1e-6, "float64": 1e-13}
 #: scipy float64 oracle gates
 ORACLE_TOL = {"float32": 2e-5, "float64": 1e-10}
+#: the bound's peak rates, from NVIDIA's H100 SXM data sheet: bytes/s of
+#: HBM3 and float32 FLOP/s outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+
+def bound(nbytes: int, flops: int) -> tuple[float, str]:
+    """The least time (ms) the card could take, and what sets it."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def library_ms(mat, x) -> float:
+    """One cuSPARSE call of the same product, ``torch.sparse_csr_tensor
+    @ x`` in the type of ``x`` (a yardstick; the port never calls it)."""
+    import warnings
+
+    import torch
+
+    from tpu_spmv_torch.bench.harness import time_fn
+
+    csr = mat.tocsr()
+    itype = torch.int32 if csr.nnz < 2**31 else torch.int64
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)    # "beta state"
+        A = torch.sparse_csr_tensor(
+            torch.from_numpy(csr.indptr).to(itype),
+            torch.from_numpy(csr.indices).to(itype),
+            torch.from_numpy(csr.data).to(x.dtype),
+            size=csr.shape).to(x.device)
+    return time_fn(torch.mv, A, x, iters=20).median_s * 1e3
+
+
+def read_fixture(name: str):
+    """A matrix of ``tests/fixtures`` as scipy CSR, read by the port's own
+    MatrixMarket reader."""
+    import scipy.sparse as sp
+
+    from tpu_spmv_torch.io.mmio import read_mtx_arrays
+
+    row, col, val, shape = read_mtx_arrays(ROOT / "tests" / "fixtures" / name,
+                                           use_native=False)
+    return sp.csr_matrix((val, (row, col)), shape=shape)
+
+
+def zero(*counters) -> None:
+    for c in counters:
+        for k in c:
+            c[k] = 0
+
+
+def check_general(name, m, A, kern, plain, full, dname, x64, x, host_fold):
+    """One general-arm kernel on a small operand: against its plain
+    version, the full product against scipy, bitwise reproducible, and
+    (GPR with hub rows) the fold against a host fold."""
+    import numpy as np
+    import torch
+
+    ref = m @ x64
+    y1, y2, yr, yf = kern(A, x), kern(A, x), plain(A, x), full(A, x)
+    torch.cuda.synchronize()
+    e_plain = float((y1 - yr).abs().max() / yr.abs().max())
+    e1 = rel_err(yf.cpu(), ref)
+    er = rel_err(full(A.to("cpu"), x.cpu()), ref)
+    extra = ""
+    if host_fold:
+        yi = y1.cpu().double().numpy()
+        n = A.shape[0]
+        folded = yi[:n].copy()
+        np.add.at(folded, A.hub_owner.cpu().numpy(), yi[n:])
+        e_fold = rel_err(yf.cpu(), folded)
+        extra = f" | fold of {A.nv} virtual rows vs host {e_fold:.2e}"
+        require(e_fold <= PLAIN_TOL[dname], f"{name} fold {e_fold:.2e}")
+    print(f"{A.__class__.__name__:9s} {name:24s} {dname}: rel vs plain "
+          f"{e_plain:.2e} | kernel vs scipy {e1:.2e} | plain vs scipy "
+          f"{er:.2e} | bitwise {torch.equal(y1, y2)}{extra}")
+    require(e_plain <= PLAIN_TOL[dname], f"{name} {dname} vs plain "
+            f"{e_plain:.2e}")
+    require(e1 <= ORACLE_TOL[dname] and er <= ORACLE_TOL[dname],
+            f"{name} {dname} vs scipy {e1:.2e}/{er:.2e}")
+    require(torch.equal(y1, y2), f"{name} not bitwise reproducible")
 
 
 def main() -> int:
@@ -78,6 +176,7 @@ def main() -> int:
             f"tpu_spmv_torch imported from {tpu_spmv_torch.__file__}, not "
             f"from this checkout")
     import numpy as np
+    import scipy.sparse as sp
 
     from tpu_spmv_torch import utils
     from tpu_spmv_torch.bench.harness import time_fn, verify_against_oracle
@@ -85,12 +184,15 @@ def main() -> int:
     from tpu_spmv_torch.formats import COO, DIA, convert
     from tpu_spmv_torch.kernels import _build
     from tpu_spmv_torch.kernels import dia_stream as ds
+    from tpu_spmv_torch.kernels import ell_packed as ell
+    from tpu_spmv_torch.kernels import gpr
     from tpu_spmv_torch.ops.auto import plan_spmv
     from tpu_spmv_torch.solvers.cg import cg, cg_runner
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = nvidia_smi()
+    t_start = time.perf_counter()
 
     # -- 1. toolchain -------------------------------------------------------
     print("== 1. toolchain")
@@ -106,8 +208,9 @@ def main() -> int:
     print("== 2. build")
     t0 = time.perf_counter()
     _build.load()
-    print(f"nvcc {' '.join(_build.NVCC_FLAGS)} tpu_spmv_torch/csrc/"
-          f"dia_stream.cu -> {_build.library_path().relative_to(ROOT)} "
+    print(f"nvcc {' '.join(_build.NVCC_FLAGS)} -c, one process per source "
+          f"of tpu_spmv_torch/csrc/{{{','.join(_build._SOURCES)}}}, then "
+          f"-shared -> {_build.library_path().relative_to(ROOT)} "
           f"in {time.perf_counter() - t0:.2f} s")
 
     # -- 3. kernels against plain versions, small operands ------------------
@@ -150,8 +253,40 @@ def main() -> int:
                         f"reproducible")
                 require(pads, f"{kname} {name} pads not zero")
 
-    # -- 4. main path at full size ------------------------------------------
-    print("== 4. main path (counters zeroed)")
+    general_small = {
+        "bus420.mtx": read_fixture("bus420.mtx"),
+        "powerlaw800.mtx": read_fixture("powerlaw800.mtx"),
+        "random_sparse(2000,200000)": utils.random_sparse(
+            2000, 200000, 8 / 200000)}
+    picks = {}
+    for name, m in general_small.items():
+        x64 = rng.random(m.shape[1])
+        for dt in (torch.float32, torch.float64):
+            dname = str(dt).removeprefix("torch.")
+            plan = plan_spmv(m, dtype=dt, device=dev)
+            require(plan.strategy in ("gpr", "pallas_ell"),
+                    f"{name} planned to {plan.strategy}")
+            picks[name] = plan.strategy
+            x = torch.tensor(x64, dtype=dt, device=dev)
+            packs = {"gpr": (gpr.spmv_gpr_rows, gpr.spmv_gpr_ref,
+                             gpr.spmv_gpr),
+                     "pallas_ell": (ell.spmv_ell_main,
+                                    ell.spmv_ell_packed_ref,
+                                    ell.spmv_ell_packed)}
+            for strategy, (kern, plain, full) in packs.items():
+                A = (plan.matrix if strategy == plan.strategy else
+                     (gpr.pack_gpr if strategy == "gpr" else ell.pack_ell)(
+                         m, dtype=dt, device=dev))
+                check_general(name, m, A, kern, plain, full, dname, x64, x,
+                              host_fold=strategy == "gpr" and A.nv > 0)
+            rel = rel_err(plan(x).cpu(), m @ x64)
+            require(rel <= ORACLE_TOL[dname], f"{name} plan {rel:.2e}")
+    print(f"planner picks: {picks}")
+    require(gpr.pack_gpr(general_small["powerlaw800.mtx"], device=dev).nv > 0,
+            "powerlaw800 has no virtual rows")
+
+    # -- 4a. streaming-DIA main path at full size ---------------------------
+    print("== 4a. streaming-DIA main path (counters zeroed)")
     GRID = 4096
     t0 = time.perf_counter()
     mat = utils.laplacian_2d(GRID)
@@ -161,8 +296,8 @@ def main() -> int:
     # b = A·x_true: a right-hand side whose residual CG shrinks from the
     # first iterations (for a random b the 2-norm residual rises first)
     b_host = mat @ rng.random(mat.shape[0])
-    for k in ds.LAUNCHES:
-        ds.LAUNCHES[k] = 0
+    counters = (ds.LAUNCHES, gpr.LAUNCHES, ell.LAUNCHES)
+    zero(*counters)
 
     t0 = time.perf_counter()
     plan = plan_spmv(mat, dtype=torch.float32, device=dev)
@@ -213,6 +348,7 @@ def main() -> int:
                       device=dev)
     rel3 = verify_against_oracle(plan3.matrix, x3, plan3(x3), oracle=mat3)
     print(f"laplacian_3d(128) plan(x) vs scipy f64: rel err {rel3:.2e}")
+    del plan3, x3
 
     band = utils.banded(1_000_000, 5, seed=1)
     planb = plan_spmv(band, dtype=torch.float32, device=dev)
@@ -222,6 +358,7 @@ def main() -> int:
     relb = verify_against_oracle(planb.matrix, xb, planb(xb), oracle=band)
     print(f"banded(1000000,5) -> {planb.strategy} rb={planb.matrix.rb}: "
           f"rel err {relb:.2e}")
+    del planb, xb
 
     m256 = utils.laplacian_2d(256)
     plan64 = plan_spmv(m256, dtype=torch.float64, device=dev)
@@ -240,43 +377,185 @@ def main() -> int:
 
     torch.cuda.synchronize()
     launches = dict(ds.LAUNCHES)
-    print(f"launch counts on the main path: {launches}")
+    print(f"launch counts on the streaming-DIA path: {launches}")
     require(launches["psdia"] > 0, "K2 (psdia) never launched")
     require(launches["sdia"] > 0, "K1 (sdia) never launched")
 
-    # -- 5. kernels vs plain at the main path's shapes, timed ---------------
-    print("== 5. kernels vs plain versions at the main path's shapes")
+    # -- 4b. general-sparsity main path at full size ------------------------
+    print("== 4b. general-sparsity main path (counters zeroed)")
+    t0 = time.perf_counter()
+    lap = utils.laplacian_2d(2048)
+    perm = np.random.default_rng(3).permutation(lap.shape[0])
+    general = {
+        "random_sparse(100000,7e-5)": utils.random_sparse(
+            100_000, 100_000, 7e-5, seed=2),
+        "power_law(400000,13)": utils.power_law(400_000, 400_000, 13,
+                                                alpha=1.5, seed=6),
+        "random_sparse(2000000,8e-6)": utils.random_sparse(
+            2_000_000, 2_000_000, 8e-6, seed=2),
+        "shuffled laplacian_2d(2048)": lap[perm][:, perm].tocsr(),
+    }
+    del lap, perm
+    plaw = general["power_law(400000,13)"]
+    sym = (plaw + plaw.T).tocsr()
+    spd = (sym + sp.diags(np.asarray(abs(sym).sum(axis=1)).ravel()
+                          + 1.0)).tocsr()
+    del sym
+    bus = read_fixture("bus420.mtx")
+    print(f"host build of the general operands {time.perf_counter() - t0:.1f} s")
+    zero(*counters)
+    gplans, gx = {}, {}
+    for name, m in general.items():
+        t0 = time.perf_counter()
+        p = plan_spmv(m, dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        require(p.strategy in ("gpr", "pallas_ell"),
+                f"{name} planned to {p.strategy}")
+        xg = torch.tensor(rng.random(m.shape[1]), dtype=torch.float32,
+                          device=dev)
+        relg = verify_against_oracle(p.matrix, xg, p(xg), oracle=m)
+        counts = np.diff(m.indptr)
+        A = p.matrix
+        shape = (f"nv={A.nv} class_rows={A.class_rows}"
+                 if p.strategy == "gpr" else
+                 f"slices={A.nslices} slots={A.slots} side={A.side.nnz}")
+        print(f"{name}: {m.shape[0]} rows, {m.nnz} nnz, largest row "
+              f"{counts.max()} -> {p.strategy} ({shape}); plan(x) vs scipy "
+              f"f64 rel err {relg:.2e} (host planning {plan_s:.2f} s)")
+        gplans[name], gx[name] = p, xg
+
+    plan_spd = plan_spmv(spd, dtype=torch.float32, device=dev)
+    require(plan_spd.strategy in ("gpr", "pallas_ell"),
+            f"SPD operator planned to {plan_spd.strategy}")
+    b = torch.tensor(spd @ rng.random(spd.shape[0]), dtype=torch.float32,
+                     device=dev)
+    run = cg_runner(plan_spd, iters=50, report_tol=1e-5)
+    run(b)                                   # warm-up
+    start.record()
+    res = run(b)
+    end.record()
+    end.synchronize()
+    cg_gen_ms = start.elapsed_time(end) / 50
+    r50 = float(torch.linalg.norm(b - plan_spd(res.x)) / torch.linalg.norm(b))
+    print(f"cg_runner(iters=50) f32 on P + P^T + diag ({spd.shape[0]} rows, "
+          f"{spd.nnz} nnz) via {plan_spd.strategy}: {cg_gen_ms:.4f} ms/iter | "
+          f"true rel residual 1.0 -> {r50:.3e}")
+    require(np.isfinite(r50) and r50 < 0.1, "general CG residual did not fall")
+    del plan_spd, b, res, run
+
+    name = "shuffled laplacian_2d(2048)"
+    plan_sh, m = gplans[name], general[name]
+    b = torch.tensor(m @ rng.random(m.shape[0]), dtype=torch.float32,
+                     device=dev)
+    run = cg_runner(plan_sh, iters=50, report_tol=1e-5)
+    run(b)                                   # warm-up
+    start.record()
+    res = run(b)
+    end.record()
+    end.synchronize()
+    cg_sh_ms = start.elapsed_time(end) / 50
+    r50 = float(torch.linalg.norm(b - plan_sh(res.x)) / torch.linalg.norm(b))
+    print(f"cg_runner(iters=50) f32 on the {name} via {plan_sh.strategy}: "
+          f"{cg_sh_ms:.4f} ms/iter | true rel residual 1.0 -> {r50:.3e}")
+    require(np.isfinite(r50) and r50 < 0.1, "shuffled CG residual did not fall")
+    del plan_sh, b, res, run
+
+    plan_bus = plan_spmv(bus, dtype=torch.float64, device=dev)
+    bb = rng.random(bus.shape[0])
+    res64 = cg(plan_bus, torch.tensor(bb, device=dev), tol=1e-11,
+               true_tol=1e-10, maxiter=10_000)
+    true_rel = float(np.linalg.norm(bb - bus @ res64.x.cpu().numpy())
+                     / np.linalg.norm(bb))
+    print(f"cg(true_tol=1e-10) f64 bus420.mtx via {plan_bus.strategy}: "
+          f"{res64.iterations} iterations, true rel residual {true_rel:.3e} "
+          f"(scipy), converged={bool(res64.converged)}")
+    require(true_rel <= 1e-10, f"bus420 f64 CG true residual {true_rel:.3e}")
+
+    torch.cuda.synchronize()
+    glaunches = {**gpr.LAUNCHES, **ell.LAUNCHES}
+    print(f"launch counts on the general path: {glaunches}")
+    require(glaunches["gpr"] > 0, "gpr_spmv never launched")
+    require(glaunches["ell"] > 0, "ell_spmv never launched")
+
+    # -- 5. kernels vs plain at the main paths' shapes, timed ---------------
+    print("== 5. kernels vs plain versions at the main paths' shapes")
     copy_gbps = measured_copy_gbps(dev)
     print(f"measured copy bandwidth: {copy_gbps:.1f} GB/s ({card})")
     records = []
-    for kname, A, kern, plain, src_line in (
-            ("psdia_spmv", P, ds.spmv_psdia_padded, ds.spmv_psdia_padded_ref,
-             "tpu_spmv/kernels/dia_stream.py:733"),
-            ("sdia_spmv", S, ds.spmv_sdia_padded, ds.spmv_sdia_padded_ref,
-             "tpu_spmv/kernels/dia_stream.py:221")):
-        xp = ds.pad_x(A, x)
-        yk, yp = kern(A, xp), plain(A, xp)
+
+    def timed(kname, A, kern, plain, xk, m, label):
+        """Time one kernel, its plain version and the cuSPARSE yardstick
+        at one shape; returns the record's numbers."""
+        yk, yp = kern(A, xk), plain(A, xk)
         torch.cuda.synchronize()
         err = float((yk - yp).abs().max())
         rel_p = err / float(yp.abs().max())
-        require(rel_p <= PLAIN_TOL["float32"], f"{kname} vs plain at full "
-                f"size {rel_p:.2e}")
-        ms = time_fn(kern, A, xp, iters=50).median_s * 1e3
-        plain_ms = time_fn(plain, A, xp, iters=10).median_s * 1e3
+        require(rel_p <= PLAIN_TOL["float32"], f"{kname} {label} vs plain "
+                f"at full size {rel_p:.2e}")
+        ms = time_fn(kern, A, xk, iters=50).median_s * 1e3
+        plain_ms = time_fn(plain, A, xk, iters=5).median_s * 1e3
+        lib_ms = library_ms(m, xk if xk.shape[0] == m.shape[1] else
+                            xk[A.L:A.L + m.shape[1]])
         nbytes = spmv_bytes(A, torch.float32)
-        gbps = nbytes / (ms * 1e-3) / 1e9
-        print(f"{kname} {mat.shape[0]} rows f32: {ms:.4f} ms "
+        bound_ms, bound_by = bound(nbytes, 2 * A.nnz)
+        copy_ms = nbytes / (copy_gbps * 1e9) * 1e3
+        print(f"{kname} {label} f32: {ms:.4f} ms "
               f"({2 * A.nnz / (ms * 1e-3) / 1e9:.1f} GFLOP/s, model "
-              f"{gbps:.1f} GB/s = {100 * gbps / copy_gbps:.1f}% of copy) | "
-              f"plain {plain_ms:.4f} ms | max abs err {err:.3e} "
-              f"(rel {rel_p:.2e})")
+              f"{nbytes / ms / 1e6:.1f} GB/s) | bound {bound_ms:.4f} ms "
+              f"({bound_by}, {100 * bound_ms / ms:.1f}%) | copy-rate bound "
+              f"{copy_ms:.4f} ms ({100 * copy_ms / ms:.1f}%) | plain "
+              f"{plain_ms:.4f} ms | cuSPARSE {lib_ms:.4f} ms "
+              f"(kernel/cuSPARSE {ms / lib_ms:.2f}) | max abs err "
+              f"{err:.3e} (rel {rel_p:.2e})")
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "copy_bound_ms": copy_ms, "library_ms": lib_ms}
+
+    for kname, A, kern, plain, src_line, key in (
+            ("psdia_spmv", P, ds.spmv_psdia_padded, ds.spmv_psdia_padded_ref,
+             "tpu_spmv/kernels/dia_stream.py:733", "psdia"),
+            ("sdia_spmv", S, ds.spmv_sdia_padded, ds.spmv_sdia_padded_ref,
+             "tpu_spmv/kernels/dia_stream.py:221", "sdia")):
+        nums = timed(kname, A, kern, plain, ds.pad_x(A, x), mat,
+                     f"{mat.shape[0]} rows")
         records.append({"name": kname, "route": "cuda",
                         "source": "tpu_spmv_torch/csrc/dia_stream.cu",
-                        "replaces": src_line,
-                        "launches": launches[kname.split("_")[0]],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "replaces": src_line, "launches": launches[key],
+                        **nums})
     plan_ms = time_fn(plan, x, iters=50).median_s * 1e3
     print(f"plan(x) end to end (pad + K2 + unpad): {plan_ms:.4f} ms")
+    del P, S, plan, x
+
+    # both general kernels on every general operand: the planner's pick
+    # and the other one forced, so the byte rule's choice can be judged
+    recorded = {"gpr_spmv": "random_sparse(2000000,8e-6)",
+                "ell_spmv": "shuffled laplacian_2d(2048)"}
+    for name, m in general.items():
+        p, xg = gplans[name], gx[name]
+        for kname, strategy, pack, kern, plain in (
+                ("gpr_spmv", "gpr", gpr.pack_gpr, gpr.spmv_gpr_rows,
+                 gpr.spmv_gpr_ref),
+                ("ell_spmv", "pallas_ell", ell.pack_ell, ell.spmv_ell_main,
+                 ell.spmv_ell_packed_ref)):
+            A = (p.matrix if p.strategy == strategy
+                 else pack(m, dtype=torch.float32, device=dev))
+            tag = "pick" if p.strategy == strategy else "forced"
+            nums = timed(kname, A, kern, plain, xg, m, f"{name} ({tag})")
+            if recorded[kname] == name:
+                records.append({
+                    "name": kname, "route": "cuda",
+                    "source": "tpu_spmv_torch/csrc/general.cu",
+                    "replaces": ("tpu_spmv/kernels/gpr.py:684"
+                                 if strategy == "gpr" else
+                                 "tpu_spmv/kernels/ell_pallas.py:299"),
+                    "launches": glaunches["gpr" if strategy == "gpr"
+                                          else "ell"],
+                    **nums})
+            del A
+        pms = time_fn(p, xg, iters=20).median_s * 1e3
+        print(f"plan(x) {name} via {p.strategy} end to end: {pms:.4f} ms")
+    print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": records}))
     print(nvidia_smi())

@@ -17,7 +17,7 @@ from tpu_spmv import utils
 from tpu_spmv.ops import auto as jauto
 from tpu_spmv_torch.bench.roofline import spmv_bytes
 from tpu_spmv_torch.interop import from_reference
-from tpu_spmv_torch.ops.auto import analyze, plan_spmv
+from tpu_spmv_torch.ops.auto import analyze, general_strategy, plan_spmv
 
 torch.set_num_threads(1)
 
@@ -88,22 +88,90 @@ def test_solver_space_round_trips(name):
 
 
 def test_general_arm_is_csr_until_ported():
-    """The reference plans a scattered pattern to BSR / ELL / CSR (or its
-    Pallas kernels on a TPU); the port's general arm is CSR until the
-    general-sparsity kernels are ported, so only the outputs compare."""
+    """The reference plans a scattered pattern to BSR / ELL / CSR on the
+    CPU (or its Pallas kernels on a TPU); the port's general arm runs its
+    own GPR or sliced-ELL kernels, so only the outputs compare.  Only an
+    empty matrix still plans to CSR, and a reference plan of an arm the
+    port lacks does not carry over."""
     m = utils.random_sparse(300, 300, 0.02, seed=3)
     plan_j = jauto.plan_spmv(m, dtype=np.float64)
     plan = plan_spmv(m, dtype=torch.float64, device="cpu")
-    assert plan.strategy == "csr"
+    assert plan.strategy in ("gpr", "pallas_ell")
     assert analyze(m) == plan.stats
     enc, matvec, dec = plan.solver_space()
     x = np.random.default_rng(2).standard_normal(300)
     y = plan(torch.from_numpy(x))
     assert _rel(y, np.asarray(plan_j(jnp.asarray(x)))) <= 1e-13
     assert torch.equal(dec(matvec(enc(torch.from_numpy(x)))), y)
+    import scipy.sparse as sp
+
+    assert plan_spmv(sp.csr_matrix((4, 4)), device="cpu").strategy == "csr"
     with pytest.raises(ValueError, match="not ported"):
-        from_reference(dataclasses.replace(plan_j, strategy="gpr"),
+        from_reference(dataclasses.replace(plan_j, strategy="bsr"),
                        device="cpu")
+
+
+def test_powerlaw_fixture_plans_gpr_in_both():
+    """Rows over 128 entries take GPR in both planners (the hub rule)."""
+    import os
+
+    import scipy.io as sio
+
+    m = sio.mmread(os.path.join(os.path.dirname(__file__), "fixtures",
+                                "powerlaw800.mtx")).tocsr()
+    plan_j = jauto.plan_spmv(m, use_pallas=True, dtype=np.float32)
+    plan = plan_spmv(m, dtype=torch.float32, device="cpu")
+    assert plan.strategy == plan_j.strategy == "gpr"
+    assert plan.matrix.nv == plan_j.matrix.nv > 0
+    x = np.random.default_rng(3).random(800).astype(np.float32)
+    assert _rel(plan(torch.from_numpy(x)), m @ x.astype(np.float64)) <= 2e-5
+    with pytest.raises(TypeError, match="re-plan"):
+        from_reference(plan_j, device="cpu")
+
+
+def test_irregular_plan_matches_reference():
+    """The operand where the reference picks its packed-ELL kernel: the
+    port picks by its own byte rule (GPR here) and computes the same y."""
+    m = utils.random_sparse(256, 256, 0.05, seed=20)
+    plan_j = jauto.plan_spmv(m, use_pallas=True, dtype=np.float32)
+    assert plan_j.strategy == "pallas_ell"
+    plan = plan_spmv(m, dtype=torch.float32, device="cpu")
+    counts = np.diff(m.indptr)
+    assert plan.strategy == general_strategy(counts, m.nnz, 4) == "gpr"
+    x = np.random.default_rng(2).random(256).astype(np.float32)
+    y_j = np.asarray(plan_j(jnp.asarray(x)))
+    y = plan(torch.from_numpy(x))
+    assert _rel(y, y_j) <= 1e-6
+    assert _rel(y, m @ x.astype(np.float64)) <= 2e-5
+    carried = from_reference(plan_j, device="cpu")
+    assert carried.strategy == "pallas_ell"
+    assert _rel(carried(torch.from_numpy(x)), y_j) <= 1e-6
+
+
+@pytest.mark.parametrize("counts,itemsize,strategy", [
+    ([5] * 64, 4, "pallas_ell"),             # equal rows: no pads
+    ([5] * 63 + [129], 4, "gpr"),            # a hub row
+    ([1, 20] * 32, 4, "gpr"),                # half the slots are pads
+    ([2] + [1] * 15 + [0] * 16, 4, "pallas_ell"),   # tie: 47 pad slots
+    ([2] + [1] * 14 + [0] * 17, 4, "gpr"),   # 48 pad slots
+    ([6] + [5] * 31, 8, "pallas_ell"),       # 31 pads x 12 + 8 < 384
+    ([6] + [5] * 30 + [4], 8, "gpr"),        # 32 pads x 12 + 8 > 384
+])
+def test_byte_rule(counts, itemsize, strategy):
+    """ELL: slots x (itemsize + 4) + slices x 8 against GPR: nnz x
+    (itemsize + 4) + rows x 12, ties to ELL; rows over 128 force GPR."""
+    counts = np.asarray(counts)
+    assert general_strategy(counts, int(counts.sum()), itemsize) == strategy
+
+
+def test_entry_points_default_to_the_card():
+    import inspect
+
+    from tpu_spmv_torch.kernels.ell_packed import pack_ell
+    from tpu_spmv_torch.kernels.gpr import pack_gpr
+
+    for fn in (plan_spmv, pack_gpr, pack_ell):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_dia_arm_without_a_feasible_tile():

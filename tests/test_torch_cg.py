@@ -116,3 +116,25 @@ def test_jacobi_pcg_converges():
         tcg.safe_dinv(torch.tensor([2.0, 0.0, -4.0])).numpy(),
         [0.5, 1.0, -0.25])
     np.testing.assert_array_equal(tcg.safe_dinv_host([2.0, 0.0]), [0.5, 1.0])
+
+
+def test_cg_through_the_general_arm():
+    """f64 CG on bus420 through the port's general-arm plan against the
+    reference's CG through its XLA tier (no interpret-mode kernel in the
+    loop)."""
+    import os
+
+    import scipy.io as sio
+
+    m = sio.mmread(os.path.join(os.path.dirname(__file__), "fixtures",
+                                "bus420.mtx")).tocsr()
+    plan = plan_spmv(m, dtype=torch.float64, device="cpu")
+    assert plan.strategy in ("gpr", "pallas_ell")
+    plan_j = jauto.plan_spmv(m, use_pallas=False, dtype=np.float64)
+    b = _b(m.shape[0], 4)
+    res = tcg.cg(plan, torch.from_numpy(b), tol=1e-10, maxiter=2000)
+    ref = jcg.cg(plan_j, jnp.asarray(b), tol=1e-10, maxiter=2000)
+    assert bool(res.converged) and bool(ref.converged)
+    assert abs(res.iterations - int(ref.iterations)) <= 1
+    assert _rel(res.x, ref.x) <= 1e-10
+    assert np.linalg.norm(b - m @ res.x.numpy()) <= 1e-9 * np.linalg.norm(b)

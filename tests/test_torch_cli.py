@@ -24,6 +24,26 @@ def test_cli_auto_psdia(capsys):
     assert "### PSDIA CPU-AUTO GFLOPS =" in out
 
 
+def test_cli_auto_general_arm(tmp_path, capsys):
+    """--synthetic powerlaw plans to GPR; a 2-D Poisson in a shuffled node
+    order (equal row lengths, scattered columns) plans to sliced ELL."""
+    assert main(["--synthetic", "powerlaw:3000,20", "--auto", "--device",
+                 "cpu", "--iters", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "planner: strategy=gpr" in out
+    assert "### GPR CPU-AUTO GFLOPS =" in out
+    lap = utils.laplacian_2d(20)
+    p = np.random.default_rng(0).permutation(lap.shape[0])
+    path = tmp_path / "shuffled.mtx"
+    tt.write_matrix(path, lap[p][:, p].tocsr())
+    assert main([str(path), "--auto", "--device", "cpu", "--iters", "2",
+                 "--solve", "cg", "--tol", "1e-8"]) == 0
+    out = capsys.readouterr().out
+    assert "planner: strategy=pallas_ell" in out
+    assert "### PALLAS_ELL CPU-AUTO GFLOPS =" in out
+    assert "CG (pallas_ell)" in out and "converged=True" in out
+
+
 @pytest.mark.parametrize("solver", ["cg", "pcg"])
 def test_cli_solve_json(capsys, solver):
     assert main(["--synthetic", "laplacian:12", "--device", "cpu",

@@ -11,6 +11,8 @@ import torch
 
 from tpu_spmv_torch import COO, convert, spmv, utils
 from tpu_spmv_torch.kernels import dia_stream as tds
+from tpu_spmv_torch.kernels import ell_packed as tell
+from tpu_spmv_torch.kernels import gpr as tgpr
 from tpu_spmv_torch.ops.auto import plan_spmv
 
 torch.set_num_threads(1)
@@ -72,3 +74,47 @@ def test_plan_and_csr_on_card(card):
                                  dtype=torch.float32, device=card), "csr")
     xr = torch.rand(500, device=card)
     assert torch.equal(spmv(csr, xr), spmv(csr, xr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_general_kernels_match_plain_on_card(card, dtype):
+    """gpr_spmv and ell_spmv against their plain versions on a power-law
+    operand with hub rows: within the limits, bitwise reproducible, each
+    launch counted; the folded and side-COO products match scipy."""
+    m = utils.power_law(3000, 3000, 12, seed=2)
+    x64 = np.random.default_rng(4).random(3000)
+    x = torch.tensor(x64, dtype=dtype, device=card)
+    ref = m @ x64
+    for A, kern, plain, full, key, launches in (
+            (tgpr.pack_gpr(m, dtype=dtype, device=card), tgpr.spmv_gpr_rows,
+             tgpr.spmv_gpr_ref, tgpr.spmv_gpr, "gpr", tgpr.LAUNCHES),
+            (tell.pack_ell(m, dtype=dtype, device=card), tell.spmv_ell_main,
+             tell.spmv_ell_packed_ref, tell.spmv_ell_packed, "ell",
+             tell.LAUNCHES)):
+        before = launches[key]
+        y1, y2 = kern(A, x), kern(A, x)
+        assert launches[key] == before + 2
+        assert torch.equal(y1, y2)
+        assert _rel(y1, plain(A, x)) <= TOL[dtype]
+        y = full(A, x).cpu().double().numpy()
+        gate = 2e-5 if dtype == torch.float32 else 1e-10
+        assert np.max(np.abs(y - ref)) <= gate * np.max(np.abs(ref))
+
+
+@pytest.mark.cuda
+def test_general_plans_on_card(card):
+    """The planner's general arm on the card: GPR for hub rows, sliced ELL
+    for a shuffled grid stencil."""
+    lap = utils.laplacian_2d(64)
+    p = np.random.default_rng(5).permutation(lap.shape[0])
+    for m, strategy in ((utils.power_law(5000, 5000, 10, seed=3), "gpr"),
+                        (lap[p][:, p].tocsr(), "pallas_ell")):
+        plan = plan_spmv(m, dtype=torch.float32)
+        assert plan.strategy == strategy
+        x64 = np.random.default_rng(6).random(m.shape[1])
+        y = plan(torch.tensor(x64, dtype=torch.float32, device=card))
+        assert y.is_cuda
+        ref = m @ x64
+        assert np.max(np.abs(y.cpu().double().numpy() - ref)) <= \
+            2e-5 * np.max(np.abs(ref))

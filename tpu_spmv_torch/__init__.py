@@ -7,9 +7,9 @@ reference package.
 - **Formats** (:mod:`.formats`): COO, CSR, DIA as dataclasses of tensors.
 - **Ops** (:mod:`.ops`): deterministic SpMV per format, BLAS-1, and the
   planner :func:`plan_spmv` that picks and packs the operator.
-- **Kernels** (:mod:`.kernels`): hand-written CUDA kernels for the
-  streaming DIA operators (``csrc/``), built at first use, each beside its
-  plain PyTorch version.
+- **Kernels** (:mod:`.kernels`): hand-written CUDA kernels (``csrc/``)
+  for the streaming DIA operators and the general-sparsity arm (GPR and
+  sliced ELL), built at first use, each beside its plain PyTorch version.
 - **Solvers** (:mod:`.solvers`): CG.
 - **I/O** (:mod:`.io`): MatrixMarket read/write.
 - **Bench** (:mod:`.bench`): the ``### <FMT> <MODE> GFLOPS`` protocol and
@@ -24,7 +24,8 @@ from . import solvers
 from .formats import COO, CSR, DIA, FORMATS, convert, to_coo
 from .interop import from_reference
 from .io import read_matrix, write_matrix
-from .kernels import PSDIA, SDIA, pack_psdia, pack_sdia
+from .kernels import (GPCSR, PSDIA, SDIA, PackedELL, pack_ell, pack_gpr,
+                      pack_psdia, pack_sdia, spmv_ell_packed, spmv_gpr)
 from .ops import (SpmvPlan, allclose, analyze, axpby, axpy, check_vector,
                   dot, fill, fill_random, norm2, plan_spmv, scale, shift,
                   spmv)
@@ -34,6 +35,8 @@ __version__ = "0.1.0"
 __all__ = [
     "COO", "CSR", "DIA", "FORMATS", "convert", "to_coo",
     "SDIA", "PSDIA", "pack_sdia", "pack_psdia",
+    "GPCSR", "pack_gpr", "spmv_gpr", "PackedELL", "pack_ell",
+    "spmv_ell_packed",
     "spmv", "plan_spmv", "analyze", "SpmvPlan",
     "dot", "axpby", "axpy", "fill", "fill_random", "scale", "shift",
     "norm2", "check_vector", "allclose",

@@ -20,6 +20,8 @@ import torch
 
 from ..formats import COO, CSR, DIA, convert, to_coo
 from ..kernels.dia_stream import PSDIA, SDIA
+from ..kernels.ell_packed import PackedELL
+from ..kernels.gpr import GPCSR
 from ..ops.spmv import spmv
 from .roofline import measured_copy_gbps, roofline
 
@@ -30,7 +32,9 @@ __all__ = ["DEFAULT_ITERS", "TimingResult", "format_name", "time_fn",
 #: timed iterations per measurement (the reference's count)
 DEFAULT_ITERS = 50
 
-_NAMES = {COO: "COO", CSR: "CSR", DIA: "DIA", SDIA: "SDIA", PSDIA: "PSDIA"}
+#: protocol names; the general-arm packs print their strategy's name
+_NAMES = {COO: "COO", CSR: "CSR", DIA: "DIA", SDIA: "SDIA", PSDIA: "PSDIA",
+          GPCSR: "GPR", PackedELL: "PALLAS_ELL"}
 
 
 def format_name(A) -> str:

@@ -16,13 +16,29 @@ import statistics
 
 import torch
 
-__all__ = ["spmv_bytes", "measured_copy_gbps", "Roofline", "roofline"]
+__all__ = ["spmv_bytes", "gpr_matrix_bytes", "ell_matrix_bytes",
+           "measured_copy_gbps", "Roofline", "roofline"]
+
+
+def gpr_matrix_bytes(nnz: int, rows: int, itemsize: int) -> int:
+    """Matrix bytes the GPR kernel streams: a value and an int32 column
+    per entry, an int32 row id and an int64 row pointer per row.  The
+    planner's byte rule reads this before any pack exists."""
+    return nnz * (itemsize + 4) + rows * 12
+
+
+def ell_matrix_bytes(slots: int, slices: int, itemsize: int) -> int:
+    """Matrix bytes the sliced-ELL kernel streams: a value and an int32
+    column per stored slot (pads included), an int64 pointer per slice."""
+    return slots * (itemsize + 4) + slices * 8
 
 
 def spmv_bytes(A, x_dtype=None) -> int:
     """Minimum device-memory traffic of one ``y = A @ x``."""
     from ..formats import COO, CSR, DIA
     from ..kernels.dia_stream import PSDIA, SDIA
+    from ..kernels.ell_packed import PackedELL
+    from ..kernels.gpr import GPCSR
 
     val = A.dtype.itemsize
     xval = (x_dtype or A.dtype).itemsize
@@ -35,6 +51,13 @@ def spmv_bytes(A, x_dtype=None) -> int:
         return A.nnz * (val + 2 * idx) + (nrow + 1) * idx + vec
     if isinstance(A, (DIA, SDIA)):
         return A.data.numel() * val + vec
+    if isinstance(A, GPCSR):
+        # + the closing row pointer and the fold's owner rows and runs
+        return (gpr_matrix_bytes(A.nnz, A.nrow_internal, val) + 8
+                + 8 * (A.hub_rows.numel() + A.hub_ptr.numel()) + vec)
+    if isinstance(A, PackedELL):
+        return (ell_matrix_bytes(A.slots, A.nslices, val) + 8
+                + A.side.nnz * (val + 2 * idx) + vec)
     if isinstance(A, PSDIA):
         # the pattern is read once and then served from cache: the
         # per-SpMV stream is x + y plus one pattern read

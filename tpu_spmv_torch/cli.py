@@ -12,6 +12,7 @@ Usage::
     python -m tpu_spmv_torch matrix.mtx                   # sweep formats
     python -m tpu_spmv_torch --synthetic laplacian:4096 --auto --solve cg
     python -m tpu_spmv_torch --synthetic banded:20000,40 --device cpu
+    python -m tpu_spmv_torch --synthetic powerlaw:400000,13 --auto   # GPR
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ def _parse_synthetic(spec: str):
         "random": lambda n=4096, m=None, d=None: utils.random_sparse(
             n, m or n, (d or 10) / 1000.0),
         "banded": lambda n=65536, b=5: utils.banded(n, b),
+        "powerlaw": lambda n=65536, k=8: utils.power_law(n, n, k),
     }
     if name not in gens:
         raise SystemExit(
@@ -57,7 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
     src.add_argument(
         "--synthetic", metavar="SPEC",
         help="generate a matrix: laplacian:N[,M] | laplacian3d:N[,M,K] "
-             "| random:N[,M,density_permille] | banded:N[,bw]")
+             "| random:N[,M,density_permille] | banded:N[,bw] "
+             "| powerlaw:N[,avg_nnz]")
     p.add_argument("--formats", default="coo,csr,dia",
                    help="comma-separated format list (coo, csr, dia)")
     p.add_argument("--dtype", default="float32",
@@ -91,7 +94,8 @@ def _drop_explosive_formats(formats, host_mat, itemsize):
     """Drop sweep formats whose dense expansion would not fit the cap."""
     if host_mat.nnz == 0 or "dia" not in formats:
         return formats
-    ndiags = len(np.unique(host_mat.col.astype(np.int64) - host_mat.row))
+    ndiags = int(np.count_nonzero(np.bincount(
+        host_mat.col.astype(np.int64) - host_mat.row + host_mat.shape[0] - 1)))
     est = ndiags * host_mat.shape[0] * itemsize
     if est <= _DENSE_CAP_BYTES:
         return formats

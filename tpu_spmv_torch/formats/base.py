@@ -36,10 +36,12 @@ def torch_dtype(dtype) -> torch.dtype:
 
 
 def _to(self, device):
-    """The same matrix with every tensor field moved to ``device``."""
+    """The same matrix with every tensor field, and every nested sparse
+    dataclass (a pack's side COO), moved to ``device``."""
     moved = {f.name: getattr(self, f.name).to(device)
              for f in dataclasses.fields(self)
-             if isinstance(getattr(self, f.name), torch.Tensor)}
+             if isinstance(getattr(self, f.name), torch.Tensor)
+             or dataclasses.is_dataclass(getattr(self, f.name))}
     return dataclasses.replace(self, **moved)
 
 

@@ -22,12 +22,13 @@ from pathlib import Path
 __all__ = ["NVCC_FLAGS", "build_dir", "library_path", "load", "check"]
 
 #: compile flags; ``sm_90a`` is Hopper with its architecture-specific
-#: features (wgmma, setmaxnreg) available to later kernels
+#: features (wgmma, setmaxnreg) available to later kernels.  The link adds
+#: ``-shared``.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = ("dia_stream.cu",)
+_SOURCES = ("dia_stream.cu", "general.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +39,10 @@ _SIGNATURES = {
     "tsp_sdia_spmv_f64": [_P, _P, _I, _P, _P, _I64, _P],
     "tsp_psdia_spmv_f32": [_P, _P, _I, _I64, _P, _P, _I64, _I64, _I64, _P],
     "tsp_psdia_spmv_f64": [_P, _P, _I, _I64, _P, _P, _I64, _I64, _I64, _P],
+    "tsp_gpr_spmv_f32": [_P] * 6 + [_I64] * 5 + [_P],
+    "tsp_gpr_spmv_f64": [_P] * 6 + [_I64] * 5 + [_P],
+    "tsp_ell_spmv_f32": [_P] * 5 + [_I64, _P],
+    "tsp_ell_spmv_f64": [_P] * 5 + [_I64, _P],
 }
 
 
@@ -71,22 +76,33 @@ def _nvcc() -> str:
                        "or set CUDA_HOME); the CUDA kernels cannot be built")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands at the same time; raise with the first failure's
+    stderr after all have ended."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    errs = [proc.communicate()[1] for proc in procs]
+    for cmd, proc, err in zip(cmds, procs, errs):
+        code = proc.returncode
+        if code != 0:
+            raise RuntimeError(f"nvcc failed ({code}): {' '.join(cmd)}\n"
+                               f"{err}")
+
+
 def _compile(out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name, then rename: a concurrent builder never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    # one nvcc per source, all started together, then one link; everything
+    # goes to a temporary directory and the library is renamed into place,
+    # so a concurrent build never loads a half-written library
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for obj, src in zip(objs, _sources())])
+        lib = os.path.join(tmp, out.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
 
 
 @functools.cache

@@ -2,8 +2,8 @@
 
 Counterpart of ``tpu_spmv/ops/auto.py``.  :func:`plan_spmv` inspects the
 sparsity pattern once, on the host, and returns a plan: the operator packed
-for the kernel that fits it, on the device the caller names.  Calling the
-plan is ``plan(x)``.
+for the kernel that fits it, on the device the caller names (the card
+unless the caller asks for the CPU).  Calling the plan is ``plan(x)``.
 
 The DIA arm keeps the reference's order: when the DIA storage is at most
 4x nnz and no more than block-DIA storage,
@@ -15,9 +15,25 @@ The DIA arm keeps the reference's order: when the DIA storage is at most
 
 The streaming arms are taken at every size: the reference's switchover
 below a VMEM-residency threshold and its float64 reroute are TPU facts and
-are not ported.  Every other matrix gets ``"csr"`` until the
-general-sparsity kernels are ported (where the reference picks BDIA,
-packed ELL, GPR, BSR or ELL).
+are not ported.
+
+Every other nonempty matrix takes the general arm, in the reference's
+order (``tpu_spmv/ops/auto.py:416-474``):
+
+- a row over 128 entries gives ``"gpr"`` (:mod:`..kernels.gpr`, hub rows
+  split into virtual rows), the reference's hub rule;
+- otherwise the bytes each kernel would stream, reckoned from the row
+  lengths alone before any pack is built (:func:`..bench.roofline.
+  ell_matrix_bytes`, :func:`..bench.roofline.gpr_matrix_bytes`): the
+  sliced ELL, ``"pallas_ell"`` (:mod:`..kernels.ell_packed`), when its
+  bytes are no larger, else ``"gpr"``.
+
+The strategy names are the reference's, so plans carry over.  The
+reference's TPU cost models (``pallas_ell_cost_s``, ``gpr_cost_s``), its
+``ncol`` envelope and its row chunking are TPU facts and are not ported.
+Where the reference would take an arm the port lacks (``"bdia"``,
+``"bsr"``, ``"ell"``), the port takes the general arm.  An empty matrix
+gets ``"csr"``.
 """
 
 from __future__ import annotations
@@ -28,12 +44,13 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..formats import COO, CSR, DIA, convert, to_coo
-from ..kernels import dia_stream
+from ..bench.roofline import ell_matrix_bytes, gpr_matrix_bytes
+from ..formats import COO, CSR, DIA, to_coo
+from ..kernels import dia_stream, ell_packed, gpr
 from .spmv import spmv
 
 __all__ = ["PatternStats", "SpmvPlan", "analyze", "plan_spmv",
-           "plan_from_matrix"]
+           "plan_from_matrix", "general_strategy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,7 +93,11 @@ def _stats(coo: COO) -> PatternStats:
     max_row = int(np.bincount(row, minlength=nrow).max())
     nbcol = -(-ncol // 8)
     brow, bcol = row // 8, col // 8
-    blocks = len(np.unique(brow * nbcol + bcol))
+    # distinct blocks by sort and count: newer numpy's hash-based
+    # np.unique made planning a 32M-entry matrix take 68.7 s on an H100
+    # host, against 2.8 s with the sort
+    keys = np.sort(brow * nbcol + bcol)
+    blocks = int(np.count_nonzero(keys[1:] != keys[:-1])) + 1
     nblockdiags = int((np.bincount(bcol - brow + (-(-nrow // 8)) - 1,
                                    minlength=(-(-nrow // 8)) + nbcol - 1)
                        > 0).sum())
@@ -97,6 +118,8 @@ def analyze(mat) -> PatternStats:
 _KERNELS = {"pdia_stream": (dia_stream.spmv_psdia,
                             dia_stream.spmv_psdia_padded),
             "dia_stream": (dia_stream.spmv_sdia, dia_stream.spmv_sdia_padded)}
+#: general-arm strategy -> kernel (solver_space is the identity for these)
+_GENERAL = {"gpr": gpr.spmv_gpr, "pallas_ell": ell_packed.spmv_ell_packed}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,7 +127,8 @@ class SpmvPlan:
     """A chosen execution strategy: the packed matrix and its kernel."""
 
     matrix: object              # the converted / packed format instance
-    strategy: str               # "pdia_stream" | "dia_stream" | "dia" | "csr"
+    strategy: str               # "pdia_stream" | "dia_stream" | "dia" |
+    #                             "gpr" | "pallas_ell" | "csr"
     stats: PatternStats | None = None
     _kernel: Callable = spmv
 
@@ -135,13 +159,29 @@ class SpmvPlan:
 def plan_from_matrix(matrix, strategy: str,
                      stats: PatternStats | None = None) -> SpmvPlan:
     """An executable plan from an already converted or packed matrix."""
-    kernel = _KERNELS[strategy][0] if strategy in _KERNELS else spmv
+    kernel = (_KERNELS[strategy][0] if strategy in _KERNELS
+              else _GENERAL.get(strategy, spmv))
     return SpmvPlan(matrix, strategy, stats, kernel)
 
 
-def plan_spmv(mat, *, dtype=None, device) -> SpmvPlan:
+def general_strategy(row_counts: np.ndarray, nnz: int, itemsize: int) -> str:
+    """The general arm's pick from the row lengths alone: ``"gpr"`` for a
+    row over 128 entries, else the kernel with fewer matrix bytes (ties go
+    to ``"pallas_ell"``)."""
+    if row_counts.max(initial=0) > gpr.LANES:
+        return "gpr"
+    width, nslices = ell_packed.slice_slots(row_counts)
+    ell = ell_matrix_bytes(int(width.sum()) * ell_packed.SLICE, nslices,
+                           itemsize)
+    return ("pallas_ell" if ell <= gpr_matrix_bytes(nnz, len(row_counts),
+                                                    itemsize)
+            else "gpr")
+
+
+def plan_spmv(mat, *, dtype=None, device="cuda") -> SpmvPlan:
     """Analyze ``mat`` (scipy or a port format) on the host and return the
-    best-strategy plan with its operator on ``device``.
+    best-strategy plan with its operator on ``device`` (default: the
+    card).
 
     ``dtype=None`` keeps the matrix's own value type.  Float64 runs
     natively through the kernels."""
@@ -173,4 +213,11 @@ def plan_spmv(mat, *, dtype=None, device) -> SpmvPlan:
             return plan_from_matrix(dia_stream.pack_sdia(hdia, device=device),
                                     "dia_stream", stats)
         return plan_from_matrix(hdia.to(device), "dia", stats)
-    return plan_from_matrix(convert(hc, "csr").to(device), "csr", stats)
+    if not gpr.supports(hc.shape, stats.nnz):
+        return plan_from_matrix(CSR.from_coo(hc).to(device), "csr", stats)
+    counts = np.bincount(hc.row.numpy(), minlength=stats.nrow)
+    strategy = general_strategy(counts, stats.nnz, hc.dtype.itemsize)
+    host = mat if hasattr(mat, "tocsr") else hc.to_scipy()
+    pack = gpr.pack_gpr if strategy == "gpr" else ell_packed.pack_ell
+    return plan_from_matrix(pack(host, dtype=hc.dtype, device=device),
+                            strategy, stats)

@@ -6,7 +6,10 @@ and scipy only, so both packages see identical operands:
 - :func:`laplacian_2d` / :func:`laplacian_3d` — 5- and 7-point Poisson
   stencils, the planner's periodic-streaming-DIA citizens;
 - :func:`banded` — random-valued band, the explicit streaming-DIA case;
-- :func:`random_sparse` — uniform-random pattern, the general case.
+- :func:`random_sparse` — uniform-random pattern, the general case;
+- :func:`power_law` — power-law row lengths with hub rows, the general
+  arm's load-imbalance case;
+- :func:`block_laplacian` — the 2-D Laplacian pattern with dense blocks.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import numpy as np
 import scipy.sparse as sp
 
 __all__ = ["laplacian_2d", "laplacian_3d", "random_sparse", "banded",
-           "ensure_native_built"]
+           "block_laplacian", "power_law", "ensure_native_built"]
 
 
 @functools.cache
@@ -90,5 +93,45 @@ def banded(n: int, bandwidth: int = 5, seed: int = 0, dtype=np.float64) -> sp.cs
     offsets = list(range(-bandwidth, bandwidth + 1))
     diags = [rng.standard_normal(n - abs(k)) for k in offsets]
     A = sp.diags(diags, offsets, shape=(n, n), format="csr").astype(dtype)
+    A.sort_indices()
+    return A
+
+
+def block_laplacian(nx: int, bs: int = 8, seed: int = 0,
+                    dtype=np.float64) -> sp.csr_matrix:
+    """Structured-PDE block matrix: 2-D Laplacian pattern with dense
+    ``bs x bs`` blocks of standard-normal values (``bs`` coupled components
+    per grid point)."""
+    rng = np.random.default_rng(seed)
+    pattern = laplacian_2d(nx)
+    pattern_coo = pattern.tocoo()
+    blocks = rng.standard_normal((pattern_coo.nnz, bs, bs))
+    A = sp.bsr_matrix(
+        (blocks, pattern_coo.col, pattern_coo.tocsr().indptr),
+        shape=(pattern.shape[0] * bs, pattern.shape[1] * bs),
+    ).tocsr().astype(dtype)
+    A.sort_indices()
+    return A
+
+
+def power_law(
+    nrow: int, ncol: int, avg_nnz_per_row: int = 8, alpha: float = 1.5,
+    seed: int = 0, dtype=np.float64,
+) -> sp.csr_matrix:
+    """Rows with Pareto-distributed lengths (mean ``avg_nnz_per_row``,
+    at least 1, at most ``ncol``) at distinct uniform-random columns, with
+    standard-normal values: a few hub rows hold many entries."""
+    rng = np.random.default_rng(seed)
+    raw = rng.pareto(alpha, size=nrow) + 1.0
+    lengths = np.minimum(
+        np.maximum((raw * avg_nnz_per_row / raw.mean()).astype(np.int64), 1), ncol
+    )
+    rows = np.repeat(np.arange(nrow), lengths)
+    cols = np.concatenate([
+        rng.choice(ncol, size=l, replace=False) for l in lengths
+    ])
+    vals = rng.standard_normal(rows.size)
+    A = sp.csr_matrix((vals, (rows, cols)), shape=(nrow, ncol)).astype(dtype)
+    A.sum_duplicates()
     A.sort_indices()
     return A
