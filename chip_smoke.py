@@ -17,7 +17,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    K1 (SDIA) and K2 (PSDIA), pads exactly zero; ``gpr_spmv`` and
    ``ell_spmv`` on ``bus420.mtx``, ``powerlaw800.mtx`` and
    ``random_sparse(2000, 200000)``, the planner's pick and the other one
-   forced, with the virtual-row fold checked against a host fold;
+   forced, with the virtual-row fold checked against a host fold; the
+   SpMM kernels K3a (``sdia_spmm``), K3b (``psdia_spmm``), ``gpr_spmm`` and
+   ``ell_spmm`` on the same operands with 1, 3, 32 and 40 right-hand
+   sides, each column also against the SpMV kernel;
 4. the main paths at full size, each with the launch counters zeroed just
    before it and read just after:
    a. streaming DIA: the 4096x4096-grid 2-D Poisson (16,777,216 rows,
@@ -34,10 +37,18 @@ Phases, in order; any failure raises and the script exits non-zero:
       operator P + P^T + diag(row sums of |P + P^T| + 1) of the power-law
       P and on the shuffled Poisson; f64 CG with the true-residual gate on
       ``bus420.mtx``;
+   c. multi-RHS (32 right-hand sides): ``plan.spmm`` on the 4096x4096
+      Poisson (PSDIA) and on the four general operands (GPR or sliced ELL,
+      GPR forced on the shuffled Poisson), and K3b/K3a on PSDIA/SDIA packs
+      built for 32 RHS, each against scipy float64; 50 fixed
+      ``cg_multi_runner`` iterations with 8 RHS on the Poisson and on the
+      power-law SPD operator; f64 ``cg_multi`` with 4 RHS on the 256x256
+      Poisson and ``bus420.mtx``, every column's true residual <= 1e-10;
 5. each kernel at the main paths' shapes against its plain version, timed
    (CUDA events, median) beside its bound and one cuSPARSE call
-   (``torch.sparse_csr_tensor @ x``) of the same product, a yardstick the
-   port never calls.
+   (``torch.sparse_csr_tensor @ x``, ``torch.sparse.mm`` for the SpMMs) of
+   the same product, a yardstick the port never calls; each SpMM also
+   beside ``plan.spmm`` end to end and 32 times its SpMV kernel.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
@@ -94,8 +105,10 @@ def bound(nbytes: int, flops: int) -> tuple[float, str]:
 
 
 def library_ms(mat, x) -> float:
-    """One cuSPARSE call of the same product, ``torch.sparse_csr_tensor
-    @ x`` in the type of ``x`` (a yardstick; the port never calls it)."""
+    """One cuSPARSE call of the same product in the type of ``x``:
+    ``torch.mv`` of a ``torch.sparse_csr_tensor`` for a vector,
+    ``torch.sparse.mm`` for an ``[n, nrhs]`` block (a yardstick; the port
+    never calls it)."""
     import warnings
 
     import torch
@@ -111,7 +124,8 @@ def library_ms(mat, x) -> float:
             torch.from_numpy(csr.indices).to(itype),
             torch.from_numpy(csr.data).to(x.dtype),
             size=csr.shape).to(x.device)
-    return time_fn(torch.mv, A, x, iters=20).median_s * 1e3
+    fn = torch.mv if x.dim() == 1 else torch.sparse.mm
+    return time_fn(fn, A, x, iters=20).median_s * 1e3
 
 
 def read_fixture(name: str):
@@ -164,6 +178,34 @@ def check_general(name, m, A, kern, plain, full, dname, x64, x, host_fold):
     require(torch.equal(y1, y2), f"{name} not bitwise reproducible")
 
 
+def check_spmm(name, A, kern, plain, unpad, spmv_col, Xk, ref, dname) -> None:
+    """One SpMM kernel on a small operand: against its plain version, the
+    product against scipy (``unpad`` maps the kernel's output to ``[nrow,
+    nrhs]``), bitwise reproducible, and column ``q`` against the SpMV
+    kernel (``spmv_col(q)`` gives the kernel's column ``q`` and the SpMV's
+    product)."""
+    import torch
+
+    Y1, Y2, Yr = kern(A, Xk), kern(A, Xk), plain(A, Xk)
+    torch.cuda.synchronize()
+    e_plain = float((Y1 - Yr).abs().max() / Yr.abs().max())
+    e1, er = rel_err(unpad(Y1).cpu(), ref), rel_err(unpad(Yr).cpu(), ref)
+    e_col = 0.0
+    for q in range(ref.shape[1]):
+        yq, sq = spmv_col(Y1, q)
+        e_col = max(e_col, float((yq - sq).abs().max() / sq.abs().max()))
+    print(f"{name} {dname} nrhs={ref.shape[1]}: rel vs plain {e_plain:.2e} "
+          f"| kernel vs scipy {e1:.2e} | plain vs scipy {er:.2e} | columns "
+          f"vs SpMV kernel {e_col:.2e} | bitwise {torch.equal(Y1, Y2)}")
+    require(e_plain <= PLAIN_TOL[dname], f"{name} {dname} vs plain "
+            f"{e_plain:.2e}")
+    require(e1 <= ORACLE_TOL[dname] and er <= ORACLE_TOL[dname],
+            f"{name} {dname} vs scipy {e1:.2e}/{er:.2e}")
+    require(e_col <= PLAIN_TOL[dname], f"{name} {dname} columns vs SpMV "
+            f"{e_col:.2e}")
+    require(torch.equal(Y1, Y2), f"{name} not bitwise reproducible")
+
+
 def main() -> int:
     import torch
 
@@ -180,14 +222,18 @@ def main() -> int:
 
     from tpu_spmv_torch import utils
     from tpu_spmv_torch.bench.harness import time_fn, verify_against_oracle
-    from tpu_spmv_torch.bench.roofline import measured_copy_gbps, spmv_bytes
+    from tpu_spmv_torch.bench.roofline import (measured_copy_gbps,
+                                               spmm_bytes, spmv_bytes)
     from tpu_spmv_torch.formats import COO, DIA, convert
     from tpu_spmv_torch.kernels import _build
     from tpu_spmv_torch.kernels import dia_stream as ds
     from tpu_spmv_torch.kernels import ell_packed as ell
     from tpu_spmv_torch.kernels import gpr
     from tpu_spmv_torch.ops.auto import plan_spmv
-    from tpu_spmv_torch.solvers.cg import cg, cg_runner
+    from tpu_spmv_torch.ops.spmm import spmm_coo
+    from tpu_spmv_torch.solvers import (cg, cg_multi, cg_multi_runner,
+                                        cg_runner)
+    F = torch.nn.functional
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -253,6 +299,37 @@ def main() -> int:
                         f"reproducible")
                 require(pads, f"{kname} {name} pads not zero")
 
+    # K3a/K3b on the same operands, 1, 3, 32 and 40 right-hand sides (40:
+    # a full chunk of 32 and a tail of 8)
+    for name, m in small.items():
+        n = m.shape[0]
+        for dt in (torch.float32, torch.float64):
+            dname = str(dt).removeprefix("torch.")
+            dia = convert(COO.from_scipy(m, dtype=dt, device=dev), "dia")
+            period = ds.detect_period(dia.to("cpu"))
+            for nrhs in (1, 3, 32, 40):
+                X64 = rng.random((n, nrhs))
+                packs = [("sdia_spmm", ds.pack_sdia(dia, nrhs=nrhs),
+                          ds.spmm_sdia_padded_t, ds.spmm_sdia_padded_t_ref,
+                          ds.spmv_sdia_padded)]
+                if period is not None:
+                    packs.append(("psdia_spmm", ds.pack_psdia(
+                        dia, period=period, nrhs=nrhs), ds.spmm_psdia_padded_t,
+                        ds.spmm_psdia_padded_t_ref, ds.spmv_psdia_padded))
+                for kname, A, kern, plain, spmv_kern in packs:
+                    Xt = F.pad(torch.tensor(X64.T, dtype=dt, device=dev),
+                               (A.L, A.npad - A.L - n)).contiguous()
+                    check_spmm(
+                        f"{kname:10s} {name:17s}", A, kern, plain,
+                        lambda Y, A=A: Y[:, A.L:A.L + n].T,
+                        lambda Y, q, A=A, k=spmv_kern, Xt=Xt: (
+                            Y[q], k(A, Xt[q])),
+                        Xt, m @ X64, dname)
+                    Y = kern(A, Xt)
+                    require(bool((Y[:, :A.L] == 0).all()
+                                 and (Y[:, A.L + n:] == 0).all()),
+                            f"{kname} {name} pads not zero")
+
     general_small = {
         "bus420.mtx": read_fixture("bus420.mtx"),
         "powerlaw800.mtx": read_fixture("powerlaw800.mtx"),
@@ -282,6 +359,30 @@ def main() -> int:
             rel = rel_err(plan(x).cpu(), m @ x64)
             require(rel <= ORACLE_TOL[dname], f"{name} plan {rel:.2e}")
     print(f"planner picks: {picks}")
+    # gpr_spmm and ell_spmm on the same operands; the output's own rows
+    # take the fold (GPR) or the side COO (ELL) before scipy sees them
+    unpads = {"gpr_spmm": lambda A, X: (
+                  lambda Y: gpr.fold_hub_rows(A, Y.clone())),
+              "ell_spmm": lambda A, X: (
+                  lambda Y: Y + spmm_coo(A.side, X) if A.side.nnz else Y)}
+    for name, m in general_small.items():
+        for dt in (torch.float32, torch.float64):
+            dname = str(dt).removeprefix("torch.")
+            for kname, pack, kern, plain, spmv_kern in (
+                    ("gpr_spmm", gpr.pack_gpr, gpr.spmm_gpr_rows,
+                     gpr.spmm_gpr_ref, gpr.spmv_gpr_rows),
+                    ("ell_spmm", ell.pack_ell, ell.spmm_ell_main,
+                     ell.spmm_ell_packed_ref, ell.spmv_ell_main)):
+                A = pack(m, dtype=dt, device=dev)
+                for nrhs in (1, 3, 32, 40):
+                    X64 = rng.random((m.shape[1], nrhs))
+                    X = torch.tensor(X64, dtype=dt, device=dev)
+                    check_spmm(
+                        f"{kname:10s} {name:26s}", A, kern, plain,
+                        unpads[kname](A, X),
+                        lambda Y, q, A=A, X=X, k=spmv_kern: (
+                            Y[:, q], k(A, X[:, q].contiguous())),
+                        X, m @ X64, dname)
     require(gpr.pack_gpr(general_small["powerlaw800.mtx"], device=dev).nv > 0,
             "powerlaw800 has no virtual rows")
 
@@ -442,7 +543,7 @@ def main() -> int:
           f"{spd.nnz} nnz) via {plan_spd.strategy}: {cg_gen_ms:.4f} ms/iter | "
           f"true rel residual 1.0 -> {r50:.3e}")
     require(np.isfinite(r50) and r50 < 0.1, "general CG residual did not fall")
-    del plan_spd, b, res, run
+    del b, res, run
 
     name = "shuffled laplacian_2d(2048)"
     plan_sh, m = gplans[name], general[name]
@@ -478,30 +579,143 @@ def main() -> int:
     require(glaunches["gpr"] > 0, "gpr_spmv never launched")
     require(glaunches["ell"] > 0, "ell_spmv never launched")
 
+    # -- 4c. multi-RHS main path at full size -------------------------------
+    NRHS = 32
+    print(f"== 4c. multi-RHS main path, {NRHS} right-hand sides (counters "
+          f"zeroed)")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n = mat.shape[0]
+    t0 = time.perf_counter()
+    mc = mat.tocoo()
+    hdia = DIA.from_coo(COO.from_arrays(mc.row, mc.col, mc.data, mat.shape,
+                                        dtype=torch.float32, sort=False))
+    del mc
+    P32 = ds.pack_psdia(hdia, period=P.period, nrhs=NRHS, device=dev)
+    S32 = ds.pack_sdia(hdia, nrhs=NRHS, device=dev)
+    del hdia
+    print(f"packs for {NRHS} RHS: PSDIA rb={P32.rb} npad={P32.npad}, SDIA "
+          f"rb={S32.rb} npad={S32.npad} ({time.perf_counter() - t0:.2f} s)")
+    require((P32.rb, P32.L, P32.npad) == (S32.rb, S32.L, S32.npad)
+            == (65536, 65536, 16_908_288), "the reference's rb rule for 32 "
+            "RHS gives rb 65536 and npad 16,908,288 at 4096^2")
+    zero(*counters)
+    X = torch.rand(n, NRHS, generator=gen, device=dev)
+    t0 = time.perf_counter()
+    ref = mat @ X.cpu().double().numpy()
+    print(f"scipy f64 reference of A @ X ({n} x {NRHS}) "
+          f"{time.perf_counter() - t0:.1f} s")
+    rel = rel_err(plan.spmm(X).cpu(), ref)
+    print(f"plan.spmm(X) via {plan.strategy} (rb={P.rb}) vs scipy f64: rel "
+          f"err {rel:.2e}")
+    require(rel <= ORACLE_TOL["float32"], f"4096^2 plan.spmm {rel:.2e}")
+    Xt = F.pad(X.T, (P32.L, P32.npad - P32.L - n)).contiguous()
+    for kname, A, kern in (("psdia_spmm", P32, ds.spmm_psdia_padded_t),
+                           ("sdia_spmm", S32, ds.spmm_sdia_padded_t)):
+        Yt = kern(A, Xt)
+        rel = rel_err(Yt[:, A.L:A.L + n].T.cpu(), ref)
+        pads = bool((Yt[:, :A.L] == 0).all() and (Yt[:, A.L + n:] == 0).all())
+        print(f"{kname} on the {NRHS}-RHS pack, [{NRHS}, {A.npad}] "
+              f"({Xt.numel() * 4 / 1e9:.2f} GB): rel err {rel:.2e} | pads "
+              f"zero {pads}")
+        require(rel <= ORACLE_TOL["float32"] and pads, f"{kname} at 4096^2")
+        del Yt
+    del ref
+
+    gX, forced = {}, {}
+    for name, m in general.items():
+        p = gplans[name]
+        Xg = torch.rand(m.shape[1], NRHS, generator=gen, device=dev)
+        refg = m @ Xg.cpu().double().numpy()
+        rel = rel_err(p.spmm(Xg).cpu(), refg)
+        line = f"{name}: plan.spmm via {p.strategy} rel err {rel:.2e}"
+        require(rel <= ORACLE_TOL["float32"], line)
+        if p.strategy != "gpr":
+            forced[name] = gpr.pack_gpr(m, dtype=torch.float32, device=dev)
+            relf = rel_err(gpr.spmm_gpr(forced[name], Xg).cpu(), refg)
+            line += f" | GPR forced rel err {relf:.2e}"
+            require(relf <= ORACLE_TOL["float32"], line)
+        print(line)
+        gX[name] = Xg
+
+    cgm = {}
+    for label, pl, m in (("laplacian_2d(4096)", plan, mat),
+                         ("P + P^T + diag", plan_spd, spd)):
+        B = torch.tensor(m @ rng.random((m.shape[0], 8)),
+                         dtype=torch.float32, device=dev)
+        run = cg_multi_runner(pl, iters=50, report_tol=1e-5)
+        run(B)                               # warm-up
+        start.record()
+        res = run(B)
+        end.record()
+        end.synchronize()
+        cgm[label] = start.elapsed_time(end) / 50
+        r50 = float((torch.linalg.norm(B - pl.spmm(res.x), dim=0)
+                     / torch.linalg.norm(B, dim=0)).max())
+        print(f"cg_multi_runner(iters=50) f32, 8 RHS, on {label} via "
+              f"{pl.strategy}: {cgm[label]:.4f} ms/iter | max true rel "
+              f"residual 1.0 -> {r50:.3e}")
+        # the power-law operator converges slowly: the worst of 8 random
+        # columns stands near 0.15 after 50 iterations
+        require(np.isfinite(r50) and r50 < 0.5, f"{label} cg_multi residual "
+                f"did not fall")
+        del B, res, run
+    del plan_spd
+
+    # tol a decade below the gate on the true residual, as cg's restarts
+    for label, pl, m in (("laplacian_2d(256)", plan64, m256),
+                         ("bus420.mtx", plan_bus, bus)):
+        B64 = rng.random((m.shape[0], 4))
+        t0 = time.perf_counter()
+        res = cg_multi(pl, torch.tensor(B64, device=dev), tol=1e-11,
+                       maxiter=10_000)
+        torch.cuda.synchronize()
+        true = (np.linalg.norm(B64 - m @ res.x.cpu().numpy(), axis=0)
+                / np.linalg.norm(B64, axis=0))
+        print(f"cg_multi(tol=1e-11) f64, 4 RHS, {label} via {pl.strategy}: "
+              f"{res.iterations} iterations, true rel residuals (scipy) "
+              f"{np.array2string(true, precision=3)}, converged="
+              f"{res.converged.tolist()} ({time.perf_counter() - t0:.2f} s)")
+        require(true.max() <= 1e-10, f"{label} cg_multi true residual "
+                f"{true.max():.3e}")
+
+    torch.cuda.synchronize()
+    mlaunches = {k: c[k] for c in counters for k in c if k.endswith("_spmm")}
+    print(f"launch counts on the multi-RHS path: {mlaunches}")
+    for k in ("sdia_spmm", "psdia_spmm", "gpr_spmm", "ell_spmm"):
+        require(mlaunches[k] > 0, f"{k} never launched")
+
     # -- 5. kernels vs plain at the main paths' shapes, timed ---------------
     print("== 5. kernels vs plain versions at the main paths' shapes")
     copy_gbps = measured_copy_gbps(dev)
     print(f"measured copy bandwidth: {copy_gbps:.1f} GB/s ({card})")
     records = []
+    spmv_ms = {}
 
-    def timed(kname, A, kern, plain, xk, m, label):
+    def timed(kname, A, kern, plain, xk, m, label, nrhs=0, lib_x=None):
         """Time one kernel, its plain version and the cuSPARSE yardstick
-        at one shape; returns the record's numbers."""
+        at one shape (an SpMM with ``nrhs`` right-hand sides; ``lib_x``
+        the unpadded operand for cuSPARSE); returns the record's
+        numbers."""
         yk, yp = kern(A, xk), plain(A, xk)
         torch.cuda.synchronize()
         err = float((yk - yp).abs().max())
         rel_p = err / float(yp.abs().max())
         require(rel_p <= PLAIN_TOL["float32"], f"{kname} {label} vs plain "
                 f"at full size {rel_p:.2e}")
-        ms = time_fn(kern, A, xk, iters=50).median_s * 1e3
-        plain_ms = time_fn(plain, A, xk, iters=5).median_s * 1e3
-        lib_ms = library_ms(m, xk if xk.shape[0] == m.shape[1] else
-                            xk[A.L:A.L + m.shape[1]])
-        nbytes = spmv_bytes(A, torch.float32)
-        bound_ms, bound_by = bound(nbytes, 2 * A.nnz)
+        del yk, yp
+        ms = time_fn(kern, A, xk, iters=20 if nrhs else 50).median_s * 1e3
+        plain_ms = time_fn(plain, A, xk, iters=2 if nrhs else 5).median_s * 1e3
+        if lib_x is None:
+            lib_x = (xk if xk.shape[0] == m.shape[1] else
+                     xk[A.L:A.L + m.shape[1]])
+        lib_ms = library_ms(m, lib_x)
+        nbytes = (spmm_bytes(A, nrhs, torch.float32) if nrhs
+                  else spmv_bytes(A, torch.float32))
+        flops = 2 * A.nnz * max(nrhs, 1)
+        bound_ms, bound_by = bound(nbytes, flops)
         copy_ms = nbytes / (copy_gbps * 1e9) * 1e3
         print(f"{kname} {label} f32: {ms:.4f} ms "
-              f"({2 * A.nnz / (ms * 1e-3) / 1e9:.1f} GFLOP/s, model "
+              f"({flops / (ms * 1e-3) / 1e9:.1f} GFLOP/s, model "
               f"{nbytes / ms / 1e6:.1f} GB/s) | bound {bound_ms:.4f} ms "
               f"({bound_by}, {100 * bound_ms / ms:.1f}%) | copy-rate bound "
               f"{copy_ms:.4f} ms ({100 * copy_ms / ms:.1f}%) | plain "
@@ -519,13 +733,33 @@ def main() -> int:
              "tpu_spmv/kernels/dia_stream.py:221", "sdia")):
         nums = timed(kname, A, kern, plain, ds.pad_x(A, x), mat,
                      f"{mat.shape[0]} rows")
+        spmv_ms[kname, "4096^2"] = nums["ms"]
         records.append({"name": kname, "route": "cuda",
                         "source": "tpu_spmv_torch/csrc/dia_stream.cu",
                         "replaces": src_line, "launches": launches[key],
                         **nums})
     plan_ms = time_fn(plan, x, iters=50).median_s * 1e3
     print(f"plan(x) end to end (pad + K2 + unpad): {plan_ms:.4f} ms")
-    del P, S, plan, x
+    spmm_records = []
+    for kname, A, kern, plain, src_line, spmv_name in (
+            ("psdia_spmm", P32, ds.spmm_psdia_padded_t,
+             ds.spmm_psdia_padded_t_ref,
+             "tpu_spmv/kernels/dia_stream.py:875", "psdia_spmv"),
+            ("sdia_spmm", S32, ds.spmm_sdia_padded_t,
+             ds.spmm_sdia_padded_t_ref,
+             "tpu_spmv/kernels/dia_stream.py:339", "sdia_spmv")):
+        nums = timed(kname, A, kern, plain, Xt, mat,
+                     f"{n} rows, {NRHS} RHS (rb {A.rb})", nrhs=NRHS, lib_x=X)
+        print(f"    {NRHS} x {spmv_name} at 4096^2: "
+              f"{NRHS * spmv_ms[spmv_name, '4096^2']:.4f} ms")
+        spmm_records.append({"name": kname, "route": "cuda",
+                             "source": "tpu_spmv_torch/csrc/dia_stream.cu",
+                             "replaces": src_line,
+                             "launches": mlaunches[kname], **nums})
+    pms = time_fn(plan.spmm, X, iters=10).median_s * 1e3
+    print(f"plan.spmm(X) end to end ({NRHS} RHS: transpose and pad, K3b at "
+          f"rb {P.rb}, slice and transpose): {pms:.4f} ms")
+    del P, S, plan, x, P32, S32, X, Xt
 
     # both general kernels on every general operand: the planner's pick
     # and the other one forced, so the byte rule's choice can be judged
@@ -542,6 +776,7 @@ def main() -> int:
                  else pack(m, dtype=torch.float32, device=dev))
             tag = "pick" if p.strategy == strategy else "forced"
             nums = timed(kname, A, kern, plain, xg, m, f"{name} ({tag})")
+            spmv_ms[kname, name] = nums["ms"]
             if recorded[kname] == name:
                 records.append({
                     "name": kname, "route": "cuda",
@@ -555,9 +790,37 @@ def main() -> int:
             del A
         pms = time_fn(p, xg, iters=20).median_s * 1e3
         print(f"plan(x) {name} via {p.strategy} end to end: {pms:.4f} ms")
+        # the SpMMs at the 4c shapes: GPR on every operand (forced on the
+        # shuffled Poisson), sliced ELL where the planner picks it
+        Xg = gX[name]
+        for kname, strategy, kern, plain, src_line in (
+                ("gpr_spmm", "gpr", gpr.spmm_gpr_rows, gpr.spmm_gpr_ref,
+                 "tpu_spmv/kernels/gpr.py:964"),
+                ("ell_spmm", "pallas_ell", ell.spmm_ell_main,
+                 ell.spmm_ell_packed_ref,
+                 "tpu_spmv/kernels/ell_pallas.py:407")):
+            if strategy == "pallas_ell" and p.strategy != strategy:
+                continue
+            A = p.matrix if p.strategy == strategy else forced[name]
+            tag = "pick" if p.strategy == strategy else "forced"
+            nums = timed(kname, A, kern, plain, Xg, m,
+                         f"{name} ({tag}), {NRHS} RHS", nrhs=NRHS)
+            spmv_name = kname.replace("spmm", "spmv")
+            print(f"    {NRHS} x {spmv_name} on {name}: "
+                  f"{NRHS * spmv_ms[spmv_name, name]:.4f} ms")
+            if recorded[spmv_name] == name:
+                spmm_records.append({
+                    "name": kname, "route": "cuda",
+                    "source": "tpu_spmv_torch/csrc/general.cu",
+                    "replaces": src_line, "launches": mlaunches[kname],
+                    **nums})
+        pms = time_fn(p.spmm, Xg, iters=10).median_s * 1e3
+        print(f"plan.spmm(X) {name} via {p.strategy} end to end, {NRHS} RHS: "
+              f"{pms:.4f} ms")
+    print(f"cg_multi_runner f32, 8 RHS, ms/iteration: {cgm}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": records}))
+    print(json.dumps({"kernels": records + spmm_records}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

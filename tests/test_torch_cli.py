@@ -1,5 +1,6 @@
 """Port CLI on the CPU (``--device cpu``): planner and sweep protocol
-lines, CG through the planner, clean errors, and no JAX at import."""
+lines, SpMM, CG through the planner (one or several right-hand sides),
+clean errors, and no JAX at import."""
 
 import json
 import subprocess
@@ -42,6 +43,27 @@ def test_cli_auto_general_arm(tmp_path, capsys):
     assert "planner: strategy=pallas_ell" in out
     assert "### PALLAS_ELL CPU-AUTO GFLOPS =" in out
     assert "CG (pallas_ell)" in out and "converged=True" in out
+
+
+def test_cli_spmm_and_multi_rhs_solve(capsys):
+    """--spmm runs the plan's SpMM and the sweep's ops/spmm; --solve cg
+    --solve-nrhs K runs cg_multi through the plan."""
+    assert main(["--synthetic", "laplacian:24", "--auto", "--device", "cpu",
+                 "--formats", "csr", "--iters", "5", "--spmm", "3",
+                 "--solve", "cg", "--solve-nrhs", "4", "--tol", "1e-8"]) == 0
+    out = capsys.readouterr().out
+    assert "### PSDIA SPMM3 GFLOPS =" in out
+    assert "### CSR SPMM3 GFLOPS =" in out
+    assert "PSDIA SPMM3:" in out and "rel_err=" in out
+    assert "CG x4 (pdia_stream):" in out and "converged=True" in out
+    assert main(["--synthetic", "powerlaw:2000,12", "--auto", "--device",
+                 "cpu", "--formats", "coo", "--iters", "5", "--spmm", "2",
+                 "--json"]) == 0
+    recs = [json.loads(l) for l in capsys.readouterr().out.splitlines()
+            if l.startswith("{")]
+    spmm = [r for r in recs if r["mode"] == "SPMM2"]
+    assert [r["format"] for r in spmm] == ["GPR", "COO"]
+    assert all(r["rel_err"] <= 2e-5 for r in spmm)
 
 
 @pytest.mark.parametrize("solver", ["cg", "pcg"])
@@ -101,7 +123,8 @@ def test_cli_drops_explosive_dia():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, tpu_spmv_torch, tpu_spmv_torch.cli; "
+    code = ("import sys, tpu_spmv_torch, tpu_spmv_torch.cli, "
+            "tpu_spmv_torch.ops.spmm, tpu_spmv_torch.solvers.block_cg; "
             "assert 'jax' not in sys.modules; "
             "assert 'tpu_spmv' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

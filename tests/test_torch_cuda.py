@@ -118,3 +118,59 @@ def test_general_plans_on_card(card):
         ref = m @ x64
         assert np.max(np.abs(y.cpu().double().numpy() - ref)) <= \
             2e-5 * np.max(np.abs(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nrhs", [1, 3, 40])
+def test_streaming_spmm_kernels_match_plain_on_card(card, dtype, nrhs):
+    """K3a and K3b against their plain versions: within the limits,
+    bitwise reproducible, pads zero, each column equal to the SpMV
+    kernel's within the limit, each launch counted."""
+    m = utils.laplacian_2d(32)
+    dia = convert(COO.from_scipy(m, dtype=dtype, device=card), "dia")
+    X = torch.tensor(np.random.default_rng(7).random((m.shape[0], nrhs)),
+                     dtype=dtype, device=card)
+    for A, kern, plain, spmv_kern, key in (
+            (tds.pack_sdia(dia, nrhs=nrhs), tds.spmm_sdia_padded_t,
+             tds.spmm_sdia_padded_t_ref, tds.spmv_sdia_padded, "sdia_spmm"),
+            (tds.pack_psdia(dia, period=32, nrhs=nrhs),
+             tds.spmm_psdia_padded_t, tds.spmm_psdia_padded_t_ref,
+             tds.spmv_psdia_padded, "psdia_spmm")):
+        Xt = torch.nn.functional.pad(X.T, (A.L, A.npad - A.L - m.shape[0]))
+        before = tds.LAUNCHES[key]
+        Y1, Y2 = kern(A, Xt.contiguous()), kern(A, Xt.contiguous())
+        assert tds.LAUNCHES[key] == before + 2
+        assert torch.equal(Y1, Y2)
+        assert bool((Y1[:, :A.L] == 0).all()
+                    and (Y1[:, A.L + m.shape[0]:] == 0).all())
+        assert _rel(Y1, plain(A, Xt)) <= TOL[dtype]
+        assert _rel(Y1[-1], spmv_kern(A, Xt[-1].contiguous())) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nrhs", [1, 3, 40])
+def test_general_spmm_kernels_match_plain_on_card(card, dtype, nrhs):
+    """gpr_spmm and ell_spmm against their plain versions on a power-law
+    operand with hub rows (the fold and the side COO engage): within the
+    limits, bitwise reproducible, each launch counted; the full products
+    match scipy."""
+    m = utils.power_law(3000, 3000, 12, seed=2)
+    X64 = np.random.default_rng(8).random((3000, nrhs))
+    X = torch.tensor(X64, dtype=dtype, device=card)
+    ref = m @ X64
+    for A, kern, plain, full, key, launches in (
+            (tgpr.pack_gpr(m, dtype=dtype, device=card), tgpr.spmm_gpr_rows,
+             tgpr.spmm_gpr_ref, tgpr.spmm_gpr, "gpr_spmm", tgpr.LAUNCHES),
+            (tell.pack_ell(m, dtype=dtype, device=card), tell.spmm_ell_main,
+             tell.spmm_ell_packed_ref, tell.spmm_ell_packed, "ell_spmm",
+             tell.LAUNCHES)):
+        before = launches[key]
+        Y1, Y2 = kern(A, X), kern(A, X)
+        assert launches[key] == before + 2
+        assert torch.equal(Y1, Y2)
+        assert _rel(Y1, plain(A, X)) <= TOL[dtype]
+        Y = full(A, X).cpu().double().numpy()
+        gate = 2e-5 if dtype == torch.float32 else 1e-10
+        assert np.max(np.abs(Y - ref)) <= gate * np.max(np.abs(ref))

@@ -3,9 +3,9 @@
 Counterpart of ``tpu_spmv/bench/harness.py``.  The grep-able result line
 stays ``### <FMT> <MODE> GFLOPS = <value>``; every benchmarked product is
 checked against a float64 scipy oracle first (1e-10 for float64, 2e-5 for
-float32).  Timing runs a chained loop ``v ← A·v·scale`` and takes the
-median over repeats after warm-up: CUDA events on the card, the host clock
-on the CPU.
+float32).  Timing runs a chained loop ``v ← A·v·scale`` (``V ← A·V·scale``
+on ``[n, nrhs]`` blocks for the SpMM) and takes the median over repeats
+after warm-up: CUDA events on the card, the host clock on the CPU.
 """
 
 from __future__ import annotations
@@ -22,12 +22,13 @@ from ..formats import COO, CSR, DIA, convert, to_coo
 from ..kernels.dia_stream import PSDIA, SDIA
 from ..kernels.ell_packed import PackedELL
 from ..kernels.gpr import GPCSR
+from ..ops.spmm import spmm
 from ..ops.spmv import spmv
-from .roofline import measured_copy_gbps, roofline
+from .roofline import measured_copy_gbps, roofline, spmm_bytes
 
 __all__ = ["DEFAULT_ITERS", "TimingResult", "format_name", "time_fn",
            "time_chained", "verify_against_oracle", "bench_spmv",
-           "bench_format_sweep"]
+           "bench_spmm", "bench_format_sweep"]
 
 #: timed iterations per measurement (the reference's count)
 DEFAULT_ITERS = 50
@@ -104,9 +105,10 @@ def time_chained(step: Callable, v0: torch.Tensor, *,
 
 def verify_against_oracle(A, x, y, rtol: float = 1e-10,
                           oracle=None) -> float:
-    """Max relative error of ``y`` against float64 scipy ``A @ x``; raises
-    above the gate (``rtol`` for float64 output, 2e-5 for float32).
-    ``oracle`` supplies the scipy matrix for packed formats."""
+    """Max relative error of ``y`` against float64 scipy ``A @ x`` (``x``
+    a vector or an ``[ncol, nrhs]`` block); raises above the gate (``rtol``
+    for float64 output, 2e-5 for float32).  ``oracle`` supplies the scipy
+    matrix for packed formats."""
     sp_mat = (oracle.tocsr() if oracle is not None
               else to_coo(A).to_scipy()).astype(np.float64)
     y_ref = sp_mat @ x.detach().cpu().double().numpy()
@@ -116,7 +118,7 @@ def verify_against_oracle(A, x, y, rtol: float = 1e-10,
     gate = rtol if y.dtype == torch.float64 else max(rtol, 2e-5)
     if rel > gate:
         raise AssertionError(
-            f"{format_name(A)} SpMV verification failed: rel err {rel:.3e} "
+            f"{format_name(A)} product verification failed: rel err {rel:.3e} "
             f"> {gate:.0e}")
     return rel
 
@@ -149,6 +151,38 @@ def bench_spmv(A, x: torch.Tensor, *, mode: str, iters: int = DEFAULT_ITERS,
             "seconds": rf.seconds, "bytes": rf.bytes, "bw_gbps": rf.bw_gbps,
             "roofline_fraction": rf.fraction, "rel_err": rel,
             "iters": iters}
+
+
+def bench_spmm(A, X: torch.Tensor, *, iters: int = DEFAULT_ITERS,
+               check: bool = True, quiet: bool = False,
+               spmm_fn: Callable | None = None, oracle=None) -> dict:
+    """Benchmark one format's SpMM (``X [ncol, nrhs]``) and print the
+    protocol lines ``### <FMT> SPMM<k> GFLOPS`` and ``<FMT> SPMM<k>:
+    <t>/iter | rel_err=…``.
+
+    Square operands time the chain ``V ← (A V) / ||A||_inf``; others time
+    repeated calls."""
+    fn = spmm_fn or spmm
+    nrhs = int(X.shape[1])
+    rel = (verify_against_oracle(A, X, fn(A, X), oracle=oracle)
+           if check else float("nan"))
+    nrow, ncol = A.shape
+    if nrow == ncol:
+        host = oracle.tocsr() if oracle is not None else to_coo(A).to_scipy()
+        scale = 1.0 / max(float(abs(host).sum(axis=1).max()), 1e-300)
+        t = time_chained(lambda V: fn(A, V) * scale, X, iters=iters)
+    else:
+        t = time_fn(fn, A, X, iters=iters)
+    sec = t.median_s
+    gflops = 2 * A.nnz * nrhs / sec / 1e9
+    name = format_name(A)
+    if not quiet:
+        print(f"### {name} SPMM{nrhs} GFLOPS = {gflops:.5f}")
+        ts = f"{sec * 1e3:.3f} ms" if sec >= 1e-4 else f"{sec * 1e6:.2f} us"
+        print(f"    {name} SPMM{nrhs}: {ts}/iter | rel_err={rel:.2e}")
+    return {"format": name, "mode": f"SPMM{nrhs}", "gflops": gflops,
+            "seconds": sec, "bytes": spmm_bytes(A, nrhs, X.dtype),
+            "rel_err": rel, "iters": iters}
 
 
 def bench_format_sweep(coo: COO, x: torch.Tensor, *, formats, mode: str,

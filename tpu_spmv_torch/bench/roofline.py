@@ -16,8 +16,8 @@ import statistics
 
 import torch
 
-__all__ = ["spmv_bytes", "gpr_matrix_bytes", "ell_matrix_bytes",
-           "measured_copy_gbps", "Roofline", "roofline"]
+__all__ = ["spmv_bytes", "spmm_bytes", "gpr_matrix_bytes",
+           "ell_matrix_bytes", "measured_copy_gbps", "Roofline", "roofline"]
 
 
 def gpr_matrix_bytes(nnz: int, rows: int, itemsize: int) -> int:
@@ -33,36 +33,51 @@ def ell_matrix_bytes(slots: int, slices: int, itemsize: int) -> int:
     return slots * (itemsize + 4) + slices * 8
 
 
-def spmv_bytes(A, x_dtype=None) -> int:
-    """Minimum device-memory traffic of one ``y = A @ x``."""
+def _matrix_bytes(A) -> int:
+    """Device-memory bytes of the operator that one product reads once."""
     from ..formats import COO, CSR, DIA
     from ..kernels.dia_stream import PSDIA, SDIA
     from ..kernels.ell_packed import PackedELL
     from ..kernels.gpr import GPCSR
 
     val = A.dtype.itemsize
-    xval = (x_dtype or A.dtype).itemsize
     idx = 4  # int32
-    nrow, ncol = A.shape
-    vec = ncol * xval + nrow * xval  # x read + y write
     if isinstance(A, COO):
-        return A.nnz * (val + 2 * idx) + vec
+        return A.nnz * (val + 2 * idx)
     if isinstance(A, CSR):
-        return A.nnz * (val + 2 * idx) + (nrow + 1) * idx + vec
+        return A.nnz * (val + 2 * idx) + (A.shape[0] + 1) * idx
     if isinstance(A, (DIA, SDIA)):
-        return A.data.numel() * val + vec
+        return A.data.numel() * val
     if isinstance(A, GPCSR):
         # + the closing row pointer and the fold's owner rows and runs
         return (gpr_matrix_bytes(A.nnz, A.nrow_internal, val) + 8
-                + 8 * (A.hub_rows.numel() + A.hub_ptr.numel()) + vec)
+                + 8 * (A.hub_rows.numel() + A.hub_ptr.numel()))
     if isinstance(A, PackedELL):
         return (ell_matrix_bytes(A.slots, A.nslices, val) + 8
-                + A.side.nnz * (val + 2 * idx) + vec)
+                + A.side.nnz * (val + 2 * idx))
     if isinstance(A, PSDIA):
-        # the pattern is read once and then served from cache: the
-        # per-SpMV stream is x + y plus one pattern read
-        return A.pattern.numel() * val + vec
+        # the pattern is read once and then served from cache
+        return A.pattern.numel() * val
     raise TypeError(f"unsupported sparse type {type(A).__name__}")
+
+
+def spmv_bytes(A, x_dtype=None) -> int:
+    """Minimum device-memory traffic of one ``y = A @ x``: the matrix, x
+    read once, y written once."""
+    xval = (x_dtype or A.dtype).itemsize
+    return _matrix_bytes(A) + (A.shape[0] + A.shape[1]) * xval
+
+
+def spmm_bytes(A, nrhs: int, x_dtype=None) -> int:
+    """Minimum device-memory traffic of one ``Y = A @ X`` with ``nrhs``
+    right-hand sides: the matrix once, ``nrhs`` x and y vectors.  The
+    streaming-DIA kernels read and write ``[nrhs, npad]`` padded blocks."""
+    from ..kernels.dia_stream import PSDIA, SDIA
+
+    xval = (x_dtype or A.dtype).itemsize
+    vec = (2 * A.npad if isinstance(A, (SDIA, PSDIA))
+           else A.shape[0] + A.shape[1])
+    return _matrix_bytes(A) + nrhs * vec * xval
 
 
 @functools.cache

@@ -1,11 +1,14 @@
-"""Command-line entry point: SpMV benchmark and CG solve.
+"""Command-line entry point: SpMV and SpMM benchmark and CG solve.
 
 Counterpart of the main-path part of ``tpu_spmv/cli.py``: load a
 MatrixMarket file or generate a synthetic matrix, benchmark the chosen
 formats (or the planner's pick with ``--auto``) and print the
 ``### <FMT> <MODE> GFLOPS`` protocol lines, each product checked against a
-float64 scipy oracle; optionally solve with CG.  MODE is ``GPU`` on the
-card and ``CPU`` on the CPU, with ``-AUTO`` for the planner's pick.
+float64 scipy oracle; optionally benchmark the SpMM with ``--spmm NRHS``
+(``### <FMT> SPMM<k> GFLOPS``) and solve with CG, one right-hand side or
+``--solve-nrhs K`` at once (``cg_multi`` through the plan's SpMM).  MODE is
+``GPU`` on the card and ``CPU`` on the CPU, with ``-AUTO`` for the
+planner's pick.
 
 Usage::
 
@@ -13,6 +16,9 @@ Usage::
     python -m tpu_spmv_torch --synthetic laplacian:4096 --auto --solve cg
     python -m tpu_spmv_torch --synthetic banded:20000,40 --device cpu
     python -m tpu_spmv_torch --synthetic powerlaw:400000,13 --auto   # GPR
+    python -m tpu_spmv_torch --synthetic laplacian:4096 --auto --spmm 32
+    python -m tpu_spmv_torch --synthetic laplacian:256 --auto --solve cg \
+        --solve-nrhs 8
 """
 
 from __future__ import annotations
@@ -73,11 +79,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="skip the float64 oracle check")
     p.add_argument("--auto", action="store_true",
                    help="let the strategy planner pick the execution format")
+    p.add_argument("--spmm", type=int, metavar="NRHS", default=0,
+                   help="also benchmark SpMM with NRHS right-hand sides (the "
+                        "plan's with --auto, and each format's)")
     p.add_argument("--solve", choices=["cg", "pcg"], default=None,
                    help="solve A x = b with CG (pcg: Jacobi-preconditioned) "
                         "and report iterations, residual and wall time")
     p.add_argument("--tol", type=float, default=1e-6,
                    help="solver convergence tolerance (with --solve)")
+    p.add_argument("--solve-nrhs", type=int, metavar="K", default=0,
+                   help="with --solve cg: solve K right-hand sides at once "
+                        "through the plan's SpMM (k lockstep CG "
+                        "recurrences)")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the numpy generator of x and b")
     p.add_argument("--json", action="store_true",
@@ -150,10 +163,16 @@ def main(argv=None) -> int:
                      device=device)
     mode = "GPU" if device.type == "cuda" else "CPU"
 
-    from .bench import bench_format_sweep, bench_spmv
+    from .bench import bench_format_sweep, bench_spmm, bench_spmv
     from .ops.auto import plan_spmv
 
     plan = None
+    coo = None
+    if not args.auto or args.spmm > 0:
+        coo = COO.from_arrays(host_mat.row, host_mat.col, host_mat.data,
+                              host_mat.shape, dtype=dtype, device=device)
+        formats = _drop_explosive_formats(formats, host_mat,
+                                          dtype.itemsize)
     if args.auto:
         plan = plan_spmv(host_mat, dtype=dtype, device=device)
         if not args.json:
@@ -163,47 +182,81 @@ def main(argv=None) -> int:
                               quiet=args.json, spmv_fn=plan._kernel,
                               oracle=host_mat)]
     else:
-        coo = COO.from_arrays(host_mat.row, host_mat.col, host_mat.data,
-                              host_mat.shape, dtype=dtype, device=device)
-        formats = _drop_explosive_formats(formats, host_mat,
-                                          dtype.itemsize)
         results = bench_format_sweep(coo, x, formats=formats, mode=mode,
                                      iters=args.iters,
                                      check=not args.no_check,
                                      quiet=args.json)
 
+    if args.spmm > 0:
+        from .formats import convert
+
+        X = torch.tensor(rng.random((host_mat.shape[1], args.spmm)),
+                         dtype=dtype, device=device)
+        kw = dict(iters=max(args.iters // 5, 3), check=not args.no_check,
+                  quiet=args.json)
+        if plan is not None:
+            # the planner's SpMM kernel (streaming DIA, GPR or sliced ELL)
+            results.append(bench_spmm(plan.matrix, X,
+                                      spmm_fn=lambda A_, V: plan.spmm(V),
+                                      oracle=host_mat, **kw))
+        results += [bench_spmm(convert(coo, name), X, oracle=host_mat, **kw)
+                    for name in formats]
+
     if args.solve is not None:
         if host_mat.shape[0] != host_mat.shape[1]:
             print("error: --solve needs a square matrix", file=sys.stderr)
             return 2
-        from .solvers.cg import cg, safe_dinv
+        from .solvers import cg, cg_multi, safe_dinv
 
         solve_plan = plan or plan_spmv(host_mat, dtype=dtype, device=device)
-        b = torch.tensor(np.random.default_rng(args.seed + 1).random(
-            host_mat.shape[0]), dtype=dtype, device=device)
-        precond = None
-        if args.solve == "pcg":
-            # Jacobi from the host diagonal (packed strategy formats have
-            # no CSR view to take it from)
-            inv = safe_dinv(host_mat.diagonal().astype(np.float64),
-                            dtype=dtype, device=device)
-            precond = lambda r: inv * r
-        t0 = time.perf_counter()
-        res = cg(solve_plan, b, tol=args.tol, maxiter=10_000,
-                 precond=precond)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        wall = time.perf_counter() - t0
-        rel = float(res.residual_norm / torch.linalg.norm(b))
-        line = {"solver": args.solve, "strategy": solve_plan.strategy,
-                "iterations": res.iterations, "rel_residual": rel,
-                "converged": bool(res.converged), "wall_s": round(wall, 3)}
+        rng_b = np.random.default_rng(args.seed + 1)
+        nrhs = args.solve_nrhs if args.solve == "cg" else 0
+        if nrhs > 1:
+            B = torch.tensor(rng_b.random((host_mat.shape[0], nrhs)),
+                             dtype=dtype, device=device)
+            t0 = time.perf_counter()
+            mres = cg_multi(solve_plan, B, tol=args.tol, maxiter=10_000)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            rels = mres.residual_norm / torch.linalg.norm(B, dim=0)
+            line = {"solver": "cg", "strategy": solve_plan.strategy,
+                    "nrhs": nrhs, "iterations": mres.iterations,
+                    "rel_residual_max": float(rels.max()),
+                    "converged": bool(mres.converged.all()),
+                    "wall_s": round(wall, 3)}
+            msg = (f"    CG x{nrhs} ({solve_plan.strategy}): "
+                   f"{mres.iterations} iters, max rel residual "
+                   f"{line['rel_residual_max']:.2e}, "
+                   f"converged={line['converged']} ({line['wall_s']}s)")
+        else:
+            b = torch.tensor(rng_b.random(host_mat.shape[0]), dtype=dtype,
+                             device=device)
+            precond = None
+            if args.solve == "pcg":
+                # Jacobi from the host diagonal (packed strategy formats
+                # have no CSR view to take it from)
+                inv = safe_dinv(host_mat.diagonal().astype(np.float64),
+                                dtype=dtype, device=device)
+                precond = lambda r: inv * r
+            t0 = time.perf_counter()
+            res = cg(solve_plan, b, tol=args.tol, maxiter=10_000,
+                     precond=precond)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            rel = float(res.residual_norm / torch.linalg.norm(b))
+            line = {"solver": args.solve, "strategy": solve_plan.strategy,
+                    "iterations": res.iterations, "rel_residual": rel,
+                    "converged": bool(res.converged),
+                    "wall_s": round(wall, 3)}
+            msg = (f"    {args.solve.upper()} ({solve_plan.strategy}): "
+                   f"{res.iterations} iters, rel residual {rel:.2e}, "
+                   f"converged={line['converged']} ({line['wall_s']}s)")
         if args.json:
             results.append(line)
         else:
-            print(f"    {args.solve.upper()} ({solve_plan.strategy}): "
-                  f"{res.iterations} iters, rel residual {rel:.2e}, "
-                  f"converged={line['converged']} ({line['wall_s']}s)")
+            print(msg)
 
     if args.json:
         for r in results:

@@ -1,4 +1,5 @@
-// General-sparsity SpMV kernels for Hopper (sm_90a): gpr_spmv and ell_spmv.
+// General-sparsity kernels for Hopper (sm_90a): the SpMVs gpr_spmv and
+// ell_spmv and their multi-RHS forms gpr_spmm and ell_spmm.
 //
 // gpr_spmv replaces the gather-permute-reduce pipeline of the JAX reference
 // package, tpu_spmv/kernels/gpr.py (via spmv_gpr):
@@ -42,6 +43,26 @@
 // from run to run.  Sums stay in the data type (no TF32).  nvcc contracts
 // a * b + c to FMA, so results may differ from an unfused plain version in
 // the last bits.
+//
+// gpr_spmm replaces the RHS-batched GPR pipeline (via spmm_gpr): K6
+// _fused_gather_s1_rhs_kernel (gather + stage 1 over RHS planes) and the
+// RHS-batched use of K5b (_fused_s23_reduce_rhs_kernel(_v3), grid (nrhs,
+// tiles)), with the class combine and y-order restore that the reference
+// runs after them.  ell_spmm replaces spmm_pallas, which maps K4 over the
+// RHS columns.  X is [ncol, nrhs] and Y [rows, nrhs], row-major (the
+// reference's convention), so the nrhs values of one x row are one
+// contiguous line (128 B for 32 f32 values).  The bytes they must move are
+// the matrix once plus nrhs x and y values per row; the matrix read that
+// bounds the SpMVs is shared by the RHS.  The design: a group of G lanes
+// per row (G the smallest power of two that holds nrhs, at most 32), one
+// lane per RHS, looping over chunks of G RHS when nrhs > 32.  Every lane of
+// a group walks the row's entries in order, so the value and column loads
+// are the same address for the group (one broadcast) and the x loads of a
+// group are one contiguous line; each lane sums its RHS in entry order with
+// no shuffle, and one lane writes each output value.  The row order is
+// gpr_spmv's (class-sorted, written in place at the internal row id) and
+// ell_spmv's (slots j = 0 .. width-1), so results are bitwise reproducible
+// from run to run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -140,6 +161,49 @@ __global__ void ell_spmv(const T* __restrict__ vals,
   }
 }
 
+template <typename T, int G>
+__global__ void gpr_spmm(const int* __restrict__ rows,
+                         const int64_t* __restrict__ indptr,
+                         const int* __restrict__ indices,
+                         const T* __restrict__ data, const T* __restrict__ x,
+                         T* __restrict__ y, int64_t nrows, int nrhs) {
+  constexpr int kRowsPerBlock = kThreads / G;
+  const int64_t r =
+      static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / G;
+  if (r >= nrows) return;
+  const int64_t begin = indptr[r], end = indptr[r + 1];
+  T* yrow = y + static_cast<int64_t>(rows[r]) * nrhs;
+  for (int q = threadIdx.x % G; q < nrhs; q += G) {
+    T acc = T(0);
+#pragma unroll 4
+    for (int64_t j = begin; j < end; ++j)
+      acc += data[j] * x[static_cast<int64_t>(indices[j]) * nrhs + q];
+    yrow[q] = acc;
+  }
+}
+
+template <typename T, int G>
+__global__ void ell_spmm(const T* __restrict__ vals,
+                         const int* __restrict__ cols,
+                         const int64_t* __restrict__ slice_ptr,
+                         const T* __restrict__ x, T* __restrict__ y,
+                         int64_t nrow, int nrhs) {
+  constexpr int kRowsPerBlock = kThreads / G;
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / G;
+  if (row >= nrow) return;
+  const int64_t s = row >> 5;
+  const int64_t begin = slice_ptr[s] + (row & 31), end = slice_ptr[s + 1];
+  T* yrow = y + row * nrhs;
+  for (int q = threadIdx.x % G; q < nrhs; q += G) {
+    T acc = T(0);
+#pragma unroll 4
+    for (int64_t p = begin; p < end; p += 32)
+      acc += vals[p] * x[static_cast<int64_t>(cols[p]) * nrhs + q];
+    yrow[q] = acc;
+  }
+}
+
 template <typename T>
 int launch_gpr(const void* rows, const void* indptr, const void* indices,
                const void* data, const void* x, void* y,
@@ -179,6 +243,56 @@ int launch_ell(const void* vals, const void* cols, const void* slice_ptr,
   return static_cast<int>(cudaGetLastError());
 }
 
+// lanes per row: the smallest power of two that holds nrhs, at most 32
+template <typename T, template <typename, int> class Launch, typename... A>
+int by_group(int64_t nrows, int nrhs, A... args) {
+  if (nrows <= 0 || nrhs <= 0) return 0;
+  if (nrhs == 1) return Launch<T, 1>::run(nrows, nrhs, args...);
+  if (nrhs <= 2) return Launch<T, 2>::run(nrows, nrhs, args...);
+  if (nrhs <= 4) return Launch<T, 4>::run(nrows, nrhs, args...);
+  if (nrhs <= 8) return Launch<T, 8>::run(nrows, nrhs, args...);
+  if (nrhs <= 16) return Launch<T, 16>::run(nrows, nrhs, args...);
+  return Launch<T, 32>::run(nrows, nrhs, args...);
+}
+
+template <int G>
+int row_blocks(int64_t nrows, unsigned* blocks) {
+  const int64_t n = (nrows + kThreads / G - 1) / (kThreads / G);
+  if (n > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  *blocks = static_cast<unsigned>(n);
+  return 0;
+}
+
+template <typename T, int G>
+struct GprSpmm {
+  static int run(int64_t nrows, int nrhs, const void* rows,
+                 const void* indptr, const void* indices, const void* data,
+                 const void* x, void* y, void* stream) {
+    unsigned blocks;
+    if (int err = row_blocks<G>(nrows, &blocks)) return err;
+    gpr_spmm<T, G><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(rows), static_cast<const int64_t*>(indptr),
+        static_cast<const int*>(indices), static_cast<const T*>(data),
+        static_cast<const T*>(x), static_cast<T*>(y), nrows, nrhs);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+template <typename T, int G>
+struct EllSpmm {
+  static int run(int64_t nrow, int nrhs, const void* vals, const void* cols,
+                 const void* slice_ptr, const void* x, void* y,
+                 void* stream) {
+    unsigned blocks;
+    if (int err = row_blocks<G>(nrow, &blocks)) return err;
+    ell_spmm<T, G><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(vals), static_cast<const int*>(cols),
+        static_cast<const int64_t*>(slice_ptr), static_cast<const T*>(x),
+        static_cast<T*>(y), nrow, nrhs);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -209,6 +323,34 @@ int tsp_ell_spmv_f32(const void* vals, const void* cols, const void* slice_ptr,
 int tsp_ell_spmv_f64(const void* vals, const void* cols, const void* slice_ptr,
                      const void* x, void* y, int64_t nrow, void* stream) {
   return launch_ell<double>(vals, cols, slice_ptr, x, y, nrow, stream);
+}
+
+int tsp_gpr_spmm_f32(const void* rows, const void* indptr,
+                     const void* indices, const void* data, const void* x,
+                     void* y, int64_t nrows, int nrhs, void* stream) {
+  return by_group<float, GprSpmm>(nrows, nrhs, rows, indptr, indices, data, x,
+                                  y, stream);
+}
+
+int tsp_gpr_spmm_f64(const void* rows, const void* indptr,
+                     const void* indices, const void* data, const void* x,
+                     void* y, int64_t nrows, int nrhs, void* stream) {
+  return by_group<double, GprSpmm>(nrows, nrhs, rows, indptr, indices, data,
+                                   x, y, stream);
+}
+
+int tsp_ell_spmm_f32(const void* vals, const void* cols, const void* slice_ptr,
+                     const void* x, void* y, int64_t nrow, int nrhs,
+                     void* stream) {
+  return by_group<float, EllSpmm>(nrow, nrhs, vals, cols, slice_ptr, x, y,
+                                  stream);
+}
+
+int tsp_ell_spmm_f64(const void* vals, const void* cols, const void* slice_ptr,
+                     const void* x, void* y, int64_t nrow, int nrhs,
+                     void* stream) {
+  return by_group<double, EllSpmm>(nrow, nrhs, vals, cols, slice_ptr, x, y,
+                                   stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-"""Streaming DIA SpMV — the main-path kernels K1 (SDIA) and K2 (PSDIA).
+"""Streaming DIA — the SpMV kernels K1 (SDIA) and K2 (PSDIA) and their
+multi-RHS forms K3a and K3b.
 
 Counterpart of ``tpu_spmv/kernels/dia_stream.py`` (forward part).  The
 packs keep the reference's padded-row-space contract and dataclass fields,
@@ -10,7 +11,11 @@ so a JAX pack carries over unchanged (:mod:`..interop`):
 - :class:`SDIA` streams explicit diagonal data, zero on pad rows and
   out-of-range slots; :class:`PSDIA` holds one row tile of a periodic
   pattern (grid stencils) and zeroes the rows outside ``[L, L + nrow)``;
-- the pads of y stay exactly zero, so padded products chain.
+- the pads of y stay exactly zero, so padded products chain;
+- the SpMM keeps the reference's transposed layout: ``Xt_pad`` and
+  ``Yt_pad`` are ``[nrhs, npad]``, one padded row space per right-hand
+  side (:func:`spmm_sdia_padded_t`); :func:`spmm_sdia` takes plain
+  ``[n, nrhs]`` operands and transposes in and out.
 
 On a CUDA tensor the wrappers launch the hand-written Hopper kernels of
 ``csrc/dia_stream.cu`` (built at first use, :mod:`._build`) and count the
@@ -19,8 +24,9 @@ versions beside them (``*_ref``), which compute the same function with
 per-diagonal zero-filled shifts.  Nothing falls back from one to the other.
 
 The row-tile size ``rb`` keeps the reference's rule (``_auto_rb`` and the
-``pack_psdia`` rb block, derived from TPU VMEM budgets) so the packs are
-identical; on Hopper it only decides the padding.
+``pack_psdia`` rb block, derived from TPU VMEM budgets, with their ``nrhs``
+argument for the SpMM layout) so the packs are identical; on Hopper it only
+decides the padding.
 """
 
 from __future__ import annotations
@@ -39,16 +45,20 @@ from . import _build
 __all__ = ["SDIA", "PSDIA", "LAUNCHES", "pack_sdia", "supports_sdia",
            "detect_period", "pack_psdia", "pad_x", "unpad_y",
            "spmv_sdia_padded", "spmv_sdia_padded_ref", "spmv_sdia",
-           "spmv_psdia_padded", "spmv_psdia_padded_ref", "spmv_psdia"]
+           "spmv_psdia_padded", "spmv_psdia_padded_ref", "spmv_psdia",
+           "spmm_sdia_padded_t", "spmm_sdia_padded_t_ref", "spmm_sdia",
+           "spmm_psdia_padded_t", "spmm_psdia_padded_t_ref", "spmm_psdia"]
 
 #: floor rows per row tile (the reference's rule, see module docstring)
 RB = 16384
 RB_MAX = 131072
 #: per-buffer budget for the reference's [ndiags, rb] data block
 _DATA_BLOCK_BUDGET = 3 << 20
+#: the reference's budget for the [nrhs, rb] RHS panels of the SpMM layout
+_RHS_PANEL_BUDGET = 8 << 20
 #: kernel launches by the wrappers on CUDA tensors (plain-version calls on
 #: CPU tensors are not counted)
-LAUNCHES = {"sdia": 0, "psdia": 0}
+LAUNCHES = {"sdia": 0, "psdia": 0, "sdia_spmm": 0, "psdia_spmm": 0}
 #: the kernels keep the offsets in 48 KB of shared memory
 _MAX_DIAGS = 12288
 #: largest period :func:`detect_period` tries
@@ -122,15 +132,19 @@ class PSDIA:
 # ---------------------------------------------------------------------------
 
 
-def _auto_rb(ndiags: int, offsets, nrow: int, itemsize: int = 4) -> int | None:
+def _auto_rb(ndiags: int, offsets, nrow: int, nrhs: int = 1,
+             itemsize: int = 4) -> int | None:
     """The reference's row-tile rule: as fat as its data-block budget
-    allows, shrunk for small matrices, raised (within 2x budget) when the
-    band needs it.  ``None`` = no feasible tile."""
+    allows, shrunk for small matrices, halved while ``nrhs`` 4-byte RHS
+    panels of ``rb`` rows pass 8 MB (the SpMM layout), raised (within 2x
+    budget) when the band needs it.  ``None`` = no feasible tile."""
     need = _roundup(max(max(abs(int(o)) for o in offsets), 1), 1024)
     rb = 65536
     while rb > RB and ndiags * rb * itemsize > _DATA_BLOCK_BUDGET:
         rb //= 2
     while rb > RB and rb >= 4 * nrow:
+        rb //= 2
+    while rb > 4096 and nrhs * rb * 4 > _RHS_PANEL_BUDGET:
         rb //= 2
     if need > rb:
         rb = need
@@ -140,22 +154,26 @@ def _auto_rb(ndiags: int, offsets, nrow: int, itemsize: int = 4) -> int | None:
 
 
 def supports_sdia(offsets, shape, rb: int | None = None, *,
-                  itemsize: int = 4) -> bool:
-    """Feasibility probe for :func:`pack_sdia` (same rule, same itemsize)."""
+                  itemsize: int = 4, nrhs: int = 1) -> bool:
+    """Feasibility probe for :func:`pack_sdia` (same rule, same itemsize
+    and ``nrhs``)."""
     if shape[0] != shape[1]:
         return False
     if rb is None:
-        return _auto_rb(len(offsets), offsets, shape[0],
+        return _auto_rb(len(offsets), offsets, shape[0], nrhs=nrhs,
                         itemsize=itemsize) is not None
     return max(abs(int(o)) for o in offsets) <= rb
 
 
-def pack_sdia(dia: DIA, rb: int | None = None, *, device=None) -> SDIA:
+def pack_sdia(dia: DIA, rb: int | None = None, *, nrhs: int = 1,
+              device=None) -> SDIA:
     """Lay a DIA matrix out in padded row space on ``device`` (default:
-    the DIA's device); ``rb=None`` picks the tile with :func:`_auto_rb`."""
+    the DIA's device); ``rb=None`` picks the tile with :func:`_auto_rb`,
+    for the ``nrhs`` the pack will mostly serve (the reference's rule, so
+    the pack equals the reference's for the same arguments)."""
     nrow, _ = dia.shape
     if rb is None:
-        rb = _auto_rb(dia.ndiags, dia.offsets, nrow,
+        rb = _auto_rb(dia.ndiags, dia.offsets, nrow, nrhs=nrhs,
                       itemsize=dia.data.element_size())
     if rb is None or not supports_sdia(dia.offsets, dia.shape, rb):
         raise ValueError(
@@ -219,9 +237,10 @@ def _periodic(data: torch.Tensor, pat: torch.Tensor, offsets,
 
 
 def pack_psdia(dia: DIA, period: int | None = None, *, rb: int | None = None,
-               verify: bool = True, device=None) -> PSDIA:
+               nrhs: int = 1, verify: bool = True, device=None) -> PSDIA:
     """Build the periodic streaming operator on ``device`` (default: the
-    DIA's device).
+    DIA's device).  ``rb=None`` picks the reference's tile for ``nrhs``
+    right-hand sides.
 
     ``period=None`` detects it on host data (:func:`detect_period`).  With
     ``verify=True`` the claim is checked against every in-range entry, on
@@ -250,6 +269,8 @@ def pack_psdia(dia: DIA, period: int | None = None, *, rb: int | None = None,
             raise ValueError("period too large for any feasible row tile")
         isz = dia.data.element_size()
         cap = min(RB_MAX, max(_pattern_budget(nd) // (isz * nd), 1))
+        if nrhs > 1:
+            cap = min(cap, max(_RHS_PANEL_BUDGET // (4 * nrhs), 1))
         rb = max(unit, cap - cap % unit)
         small = _roundup(max(nrow, lo, hi, 1), unit)
         rb = min(rb, max(small, unit))
@@ -289,21 +310,22 @@ def unpad_y(A, ypad: torch.Tensor) -> torch.Tensor:
 
 
 def _shift(xpad: torch.Tensor, off: int) -> torch.Tensor:
-    """``out[k] = xpad[k + off]``, zero where ``k + off`` leaves
+    """``out[..., k] = xpad[..., k + off]``, zero where ``k + off`` leaves
     ``[0, npad)``."""
-    n = xpad.shape[0]
+    n = xpad.shape[-1]
     out = torch.zeros_like(xpad)
     if abs(off) < n:
         if off >= 0:
-            out[:n - off] = xpad[off:]
+            out[..., :n - off] = xpad[..., off:]
         else:
-            out[-off:] = xpad[:n + off]
+            out[..., -off:] = xpad[..., :n + off]
     return out
 
 
 def spmv_sdia_padded_ref(A: SDIA, xpad: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K1: per-diagonal zero-filled shifts of
-    ``xpad`` times the diagonal data, summed in ascending offset order."""
+    ``xpad`` times the diagonal data, summed in ascending offset order.
+    A leading axis of ``xpad`` (the SpMM's RHS axis) broadcasts."""
     acc = A.data[0] * _shift(xpad, A.offsets[0])
     for d, off in enumerate(A.offsets[1:], start=1):
         acc = acc + A.data[d] * _shift(xpad, off)
@@ -322,6 +344,18 @@ def spmv_psdia_padded_ref(A: PSDIA, xpad: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, acc, torch.zeros_like(acc))
 
 
+def spmm_sdia_padded_t_ref(A: SDIA, Xt_pad: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K3a: K1's plain version over the rows of
+    ``Xt_pad`` (``[nrhs, npad] -> [nrhs, npad]``)."""
+    return spmv_sdia_padded_ref(A, Xt_pad)
+
+
+def spmm_psdia_padded_t_ref(A: PSDIA, Xt_pad: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K3b: K2's plain version over the rows of
+    ``Xt_pad`` (``[nrhs, npad] -> [nrhs, npad]``)."""
+    return spmv_psdia_padded_ref(A, Xt_pad)
+
+
 @functools.lru_cache(maxsize=64)
 def _offsets_on(offsets: tuple[int, ...], device: torch.device):
     """The offsets as a device ``int32`` tensor, made once per pack."""
@@ -329,8 +363,9 @@ def _offsets_on(offsets: tuple[int, ...], device: torch.device):
 
 
 def _check(name: str, coef: torch.Tensor, A, xpad: torch.Tensor,
-           width: int) -> None:
-    """Raise on anything the kernels do not take."""
+           width: int, rhs_axis: bool = False) -> None:
+    """Raise on anything the kernels do not take: ``xpad`` is ``[npad]``,
+    or ``[nrhs, npad]`` with ``rhs_axis``."""
     if xpad.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: x must be float32 or float64, "
                         f"got {xpad.dtype}")
@@ -340,8 +375,9 @@ def _check(name: str, coef: torch.Tensor, A, xpad: torch.Tensor,
     if coef.device != xpad.device:
         raise ValueError(f"{name}: matrix on {coef.device}, x on "
                          f"{xpad.device}")
-    if xpad.dim() != 1 or xpad.shape[0] != A.npad:
-        raise ValueError(f"{name}: x must be [npad={A.npad}], got "
+    if xpad.dim() != 1 + rhs_axis or xpad.shape[-1] != A.npad:
+        want = "[nrhs, npad" if rhs_axis else "[npad"
+        raise ValueError(f"{name}: x must be {want}={A.npad}], got "
                          f"{tuple(xpad.shape)}")
     if tuple(coef.shape) != (len(A.offsets), width):
         raise ValueError(f"{name}: coefficients {tuple(coef.shape)} do not "
@@ -355,7 +391,7 @@ def _check(name: str, coef: torch.Tensor, A, xpad: torch.Tensor,
 
 def _fn(lib, kernel: str, dtype: torch.dtype):
     suffix = "f32" if dtype == torch.float32 else "f64"
-    return getattr(lib, f"tsp_{kernel}_spmv_{suffix}")
+    return getattr(lib, f"tsp_{kernel}_{suffix}")
 
 
 def spmv_sdia_padded(A: SDIA, xpad: torch.Tensor) -> torch.Tensor:
@@ -375,7 +411,7 @@ def spmv_sdia_padded(A: SDIA, xpad: torch.Tensor) -> torch.Tensor:
     # the launch goes to the calling thread's current device: make it x's
     with torch.cuda.device(xpad.device):
         stream = torch.cuda.current_stream(xpad.device).cuda_stream
-        code = _fn(lib, "sdia", xpad.dtype)(
+        code = _fn(lib, "sdia_spmv", xpad.dtype)(
             A.data.data_ptr(), offs.data_ptr(), A.ndiags, xpad.data_ptr(),
             y.data_ptr(), A.npad, stream)
     _build.check(lib, "sdia_spmv", code)
@@ -399,7 +435,7 @@ def spmv_psdia_padded(A: PSDIA, xpad: torch.Tensor) -> torch.Tensor:
     offs = _offsets_on(A.offsets, xpad.device)
     with torch.cuda.device(xpad.device):
         stream = torch.cuda.current_stream(xpad.device).cuda_stream
-        code = _fn(lib, "psdia", xpad.dtype)(
+        code = _fn(lib, "psdia_spmv", xpad.dtype)(
             A.pattern.data_ptr(), offs.data_ptr(), A.ndiags, A.rb,
             xpad.data_ptr(), y.data_ptr(), A.npad, A.L, A.shape[0], stream)
     _build.check(lib, "psdia_spmv", code)
@@ -419,3 +455,77 @@ def spmv_psdia(A: PSDIA, x: torch.Tensor,
     """``A @ x`` (+ ``y``) with plain ``[n]`` vectors (pads internally)."""
     out = unpad_y(A, spmv_psdia_padded(A, pad_x(A, x)))
     return out if y is None else y + out
+
+
+def spmm_sdia_padded_t(A: SDIA, Xt_pad: torch.Tensor) -> torch.Tensor:
+    """``Yt_pad = (A @ Xt_pad.T).T`` for transposed multi-RHS operands
+    ``[nrhs, npad] -> [nrhs, npad]`` (shape-preserving and chainable, as
+    :func:`spmv_sdia_padded`: row ``q`` of ``Xt_pad`` is right-hand side
+    ``q`` in padded row space).
+
+    CUDA tensor: launches K3a (``sdia_spmm`` in ``csrc/dia_stream.cu``);
+    CPU tensor: :func:`spmm_sdia_padded_t_ref`."""
+    _check("spmm_sdia_padded_t", A.data, A, Xt_pad, A.npad, rhs_axis=True)
+    if Xt_pad.device.type == "cpu":
+        return spmm_sdia_padded_t_ref(A, Xt_pad)
+    if Xt_pad.device.type != "cuda":
+        raise ValueError(f"spmm_sdia_padded_t: no kernel for {Xt_pad.device}")
+    lib = _build.load()
+    Yt = torch.empty_like(Xt_pad)
+    offs = _offsets_on(A.offsets, Xt_pad.device)
+    with torch.cuda.device(Xt_pad.device):
+        stream = torch.cuda.current_stream(Xt_pad.device).cuda_stream
+        code = _fn(lib, "sdia_spmm", Xt_pad.dtype)(
+            A.data.data_ptr(), offs.data_ptr(), A.ndiags, Xt_pad.data_ptr(),
+            Yt.data_ptr(), A.npad, Xt_pad.shape[0], stream)
+    _build.check(lib, "sdia_spmm", code)
+    LAUNCHES["sdia_spmm"] += 1
+    return Yt
+
+
+def spmm_psdia_padded_t(A: PSDIA, Xt_pad: torch.Tensor) -> torch.Tensor:
+    """``Yt_pad = (A @ Xt_pad.T).T`` for transposed ``[nrhs, npad]``
+    operands — same contract as :func:`spmm_sdia_padded_t`; the rows
+    outside ``[L, L + nrow)`` come out zero (the row mask).
+
+    CUDA tensor: launches K3b (``psdia_spmm`` in ``csrc/dia_stream.cu``);
+    CPU tensor: :func:`spmm_psdia_padded_t_ref`."""
+    _check("spmm_psdia_padded_t", A.pattern, A, Xt_pad, A.rb, rhs_axis=True)
+    if Xt_pad.device.type == "cpu":
+        return spmm_psdia_padded_t_ref(A, Xt_pad)
+    if Xt_pad.device.type != "cuda":
+        raise ValueError(f"spmm_psdia_padded_t: no kernel for "
+                         f"{Xt_pad.device}")
+    lib = _build.load()
+    Yt = torch.empty_like(Xt_pad)
+    offs = _offsets_on(A.offsets, Xt_pad.device)
+    with torch.cuda.device(Xt_pad.device):
+        stream = torch.cuda.current_stream(Xt_pad.device).cuda_stream
+        code = _fn(lib, "psdia_spmm", Xt_pad.dtype)(
+            A.pattern.data_ptr(), offs.data_ptr(), A.ndiags, A.rb,
+            Xt_pad.data_ptr(), Yt.data_ptr(), A.npad, A.L, A.shape[0],
+            Xt_pad.shape[0], stream)
+    _build.check(lib, "psdia_spmm", code)
+    LAUNCHES["psdia_spmm"] += 1
+    return Yt
+
+
+def _spmm_plain_layout(A, X: torch.Tensor, kernel) -> torch.Tensor:
+    """``A @ X`` for plain ``[n, nrhs]`` operands through a padded-t
+    kernel: transpose and pad in, slice and transpose out (one copy each
+    way, as the reference)."""
+    if X.dim() != 2:
+        raise ValueError(f"X must be [ncol, nrhs], got {tuple(X.shape)}")
+    Xt = F.pad(X.T, (A.L, A.npad - A.L - X.shape[0])).contiguous()
+    Yt = kernel(A, Xt)
+    return Yt[:, A.L:A.L + A.shape[0]].T.contiguous()
+
+
+def spmm_sdia(A: SDIA, X: torch.Tensor) -> torch.Tensor:
+    """``A @ X`` with plain ``[n, nrhs]`` operands (K3a inside)."""
+    return _spmm_plain_layout(A, X, spmm_sdia_padded_t)
+
+
+def spmm_psdia(A: PSDIA, X: torch.Tensor) -> torch.Tensor:
+    """``A @ X`` with plain ``[n, nrhs]`` operands (K3b inside)."""
+    return _spmm_plain_layout(A, X, spmm_psdia_padded_t)

@@ -1,10 +1,11 @@
-"""Sliced-ELL SpMV, one warp per slice — the port of the packed-ELL kernel.
+"""Sliced-ELL SpMV and SpMM, one warp per slice — the port of the
+packed-ELL kernel.
 
 Counterpart of ``tpu_spmv/kernels/ell_pallas.py`` (``pack_ell``,
-``spmv_pallas``, K4).  The reference packs consecutive rows into
-``[8, 128]`` lane tiles with int8 lane and gather-round planes, because a
-TPU gathers fast only within 128 lanes and reduces rows with a mask
-matmul.  The port keeps what the format computes and drops that layout:
+``spmv_pallas``, K4, and ``spmm_pallas``, which maps K4 over the RHS).
+The reference packs consecutive rows into ``[8, 128]`` lane tiles with
+int8 lane and gather-round planes, because a TPU gathers fast only within
+128 lanes and reduces rows with a mask matmul.  The port keeps what the format computes and drops that layout:
 
 - a slice is 32 consecutive rows (one warp).  It is as wide as its longest
   row, capped at 128 slots per row — the reference's widest lane budget;
@@ -16,10 +17,12 @@ matmul.  The port keeps what the format computes and drops that layout:
   ``ops/spmv.py:spmv_coo`` outside the kernel, as the reference adds its
   side COO on the XLA tier (``ell_pallas.py:27-29``, ``:399-402``).
 
-On a CUDA tensor :func:`spmv_ell_main` launches ``ell_spmv``
-(``csrc/general.cu``, built at first use by :mod:`._build`) and counts the
-launch in :data:`LAUNCHES`; on a CPU tensor it runs the plain version
-:func:`spmv_ell_packed_ref`.  Nothing falls back from one to the other.
+On a CUDA tensor :func:`spmv_ell_main` launches ``ell_spmv`` and
+:func:`spmm_ell_main` launches ``ell_spmm``, which gives each row one lane
+per right-hand side of ``X [ncol, nrhs]`` (``csrc/general.cu``, built at
+first use by :mod:`._build`); each counts the launch in :data:`LAUNCHES`.
+On a CPU tensor they run the plain versions :func:`spmv_ell_packed_ref` and
+:func:`spmm_ell_packed_ref`.  Nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -29,20 +32,20 @@ import torch
 
 from ..formats import COO
 from ..formats.base import sparse_dataclass
-from . import _build
-from .gpr import _host_csr, _value_dtype
+from .gpr import _check, _host_csr, _launch, _value_dtype
 
 __all__ = ["PackedELL", "SLICE", "MAX_WIDTH", "LAUNCHES", "pack_ell",
            "slice_slots", "spmv_ell_main", "spmv_ell_packed_ref",
-           "spmv_ell_packed"]
+           "spmv_ell_packed", "spmm_ell_main", "spmm_ell_packed_ref",
+           "spmm_ell_packed"]
 
 #: rows per slice (one warp)
 SLICE = 32
 #: slots per row at most; the rest of a row goes to the side COO
 MAX_WIDTH = 128
-#: kernel launches by :func:`spmv_ell_main` on CUDA tensors (plain-version
-#: calls on CPU tensors are not counted)
-LAUNCHES = {"ell": 0}
+#: kernel launches by :func:`spmv_ell_main` and :func:`spmm_ell_main` on
+#: CUDA tensors (plain-version calls on CPU tensors are not counted)
+LAUNCHES = {"ell": 0, "ell_spmm": 0}
 
 
 @sparse_dataclass
@@ -109,40 +112,44 @@ def pack_ell(mat, *, dtype=None, device="cuda") -> PackedELL:
                      nnz=int(len(cols)))
 
 
+def _slot_index(A: PackedELL, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(idx, valid)``, both ``[nrow, width]``: slot ``j`` of each row and
+    whether it lies inside the row's slice (pointing at slot 0 where not)."""
+    nrow = A.shape[0]
+    width = (A.slice_ptr[1:] - A.slice_ptr[:-1]) // SLICE
+    w = width.repeat_interleave(SLICE)[:nrow]
+    lane = torch.arange(nrow, device=device) % SLICE
+    base = A.slice_ptr[:-1].repeat_interleave(SLICE)[:nrow] + lane
+    j = torch.arange(int(width.max()) if nrow else 0, device=device)
+    idx = base[:, None] + SLICE * j[None, :]
+    valid = j[None, :] < w[:, None]
+    return torch.where(valid, idx, torch.zeros_like(idx)), valid
+
+
 def spmv_ell_packed_ref(A: PackedELL, x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel: each row's slots gathered into
     a ``[nrow, width]`` block (pad slots and slots past the slice's width
     add 0) and summed over the slots (``[ncol] -> [nrow]``, without the
     side COO)."""
-    nrow = A.shape[0]
-    prod = A.vals * x[A.cols]
-    width = (A.slice_ptr[1:] - A.slice_ptr[:-1]) // SLICE
-    w = width.repeat_interleave(SLICE)[:nrow]
-    lane = torch.arange(nrow, device=x.device) % SLICE
-    base = A.slice_ptr[:-1].repeat_interleave(SLICE)[:nrow] + lane
-    j = torch.arange(int(width.max()) if nrow else 0, device=x.device)
-    idx = base[:, None] + SLICE * j[None, :]
-    valid = j[None, :] < w[:, None]
-    g = prod[torch.where(valid, idx, torch.zeros_like(idx))]
+    idx, valid = _slot_index(A, x.device)
+    g = (A.vals * x[A.cols])[idx]
     return torch.where(valid, g, torch.zeros_like(g)).sum(dim=1)
 
 
-def _check(A: PackedELL, x: torch.Tensor) -> None:
-    """Raise on anything the kernel does not take."""
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"spmv_ell: x must be float32 or float64, "
-                        f"got {x.dtype}")
-    if A.vals.dtype != x.dtype:
-        raise TypeError(f"spmv_ell: matrix is {A.vals.dtype} but x is "
-                        f"{x.dtype}")
-    if A.vals.device != x.device:
-        raise ValueError(f"spmv_ell: matrix on {A.vals.device}, x on "
-                         f"{x.device}")
-    if x.dim() != 1 or x.shape[0] != A.shape[1]:
-        raise ValueError(f"spmv_ell: x must be [ncol={A.shape[1]}], got "
-                         f"{tuple(x.shape)}")
-    if not all(t.is_contiguous() for t in (A.vals, A.cols, A.slice_ptr, x)):
-        raise ValueError("spmv_ell: operands must be contiguous")
+def spmm_ell_packed_ref(A: PackedELL, X: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``ell_spmm``: :func:`spmv_ell_packed_ref`
+    with a trailing RHS axis (``[ncol, nrhs] -> [nrow, nrhs]``, without
+    the side COO)."""
+    idx, valid = _slot_index(A, X.device)
+    g = (A.vals[:, None] * X[A.cols])[idx]
+    return torch.where(valid[..., None], g, torch.zeros_like(g)).sum(dim=1)
+
+
+def _check_ell(name: str, A: PackedELL, x: torch.Tensor, ndim: int = 1):
+    """Raise on anything the kernels do not take (the GPR checks, on the
+    ELL arrays)."""
+    _check(name, A, x, ndim, values=A.vals,
+           arrays=(A.vals, A.cols, A.slice_ptr))
 
 
 def spmv_ell_main(A: PackedELL, x: torch.Tensor) -> torch.Tensor:
@@ -151,22 +158,31 @@ def spmv_ell_main(A: PackedELL, x: torch.Tensor) -> torch.Tensor:
 
     CUDA tensor: launches ``ell_spmv`` (``csrc/general.cu``); CPU tensor:
     :func:`spmv_ell_packed_ref`."""
-    _check(A, x)
+    _check_ell("spmv_ell", A, x)
     if x.device.type == "cpu":
         return spmv_ell_packed_ref(A, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"spmv_ell: no kernel for {x.device}")
-    lib = _build.load()
     y = torch.empty(A.shape[0], dtype=x.dtype, device=x.device)
-    suffix = "f32" if x.dtype == torch.float32 else "f64"
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = getattr(lib, f"tsp_ell_spmv_{suffix}")(
-            A.vals.data_ptr(), A.cols.data_ptr(), A.slice_ptr.data_ptr(),
-            x.data_ptr(), y.data_ptr(), A.shape[0], stream)
-    _build.check(lib, "ell_spmv", code)
+    _launch("ell_spmv", x, y, A.vals.data_ptr(), A.cols.data_ptr(),
+            A.slice_ptr.data_ptr(), x.data_ptr(), y.data_ptr(), A.shape[0])
     LAUNCHES["ell"] += 1
     return y
+
+
+def spmm_ell_main(A: PackedELL, X: torch.Tensor) -> torch.Tensor:
+    """The sliced-ELL part of ``A @ X`` (``[ncol, nrhs] -> [nrow, nrhs]``,
+    without the side COO).
+
+    CUDA tensor: launches ``ell_spmm`` (``csrc/general.cu``); CPU tensor:
+    :func:`spmm_ell_packed_ref`."""
+    _check_ell("spmm_ell", A, X, ndim=2)
+    if X.device.type == "cpu":
+        return spmm_ell_packed_ref(A, X)
+    Y = torch.empty(A.shape[0], X.shape[1], dtype=X.dtype, device=X.device)
+    _launch("ell_spmm", X, Y, A.vals.data_ptr(), A.cols.data_ptr(),
+            A.slice_ptr.data_ptr(), X.data_ptr(), Y.data_ptr(), A.shape[0],
+            X.shape[1])
+    LAUNCHES["ell_spmm"] += 1
+    return Y
 
 
 def spmv_ell_packed(A: PackedELL, x: torch.Tensor,
@@ -178,3 +194,12 @@ def spmv_ell_packed(A: PackedELL, x: torch.Tensor,
     if A.side.nnz:
         out = spmv_coo(A.side, x, y=out)
     return out if y is None else y + out
+
+
+def spmm_ell_packed(A: PackedELL, X: torch.Tensor) -> torch.Tensor:
+    """``A @ X`` for ``X [ncol, nrhs]``: the sliced-ELL kernel plus the
+    side COO, added once."""
+    from ..ops.spmm import spmm_coo
+
+    out = spmm_ell_main(A, X)
+    return out + spmm_coo(A.side, X) if A.side.nnz else out

@@ -1,6 +1,8 @@
-"""General-pattern SpMV by row-width class — the port of the GPR pipeline.
+"""General-pattern SpMV and SpMM by row-width class — the port of the GPR
+pipeline.
 
-Counterpart of ``tpu_spmv/kernels/gpr.py`` (``pack_gpr``, ``spmv_gpr``).
+Counterpart of ``tpu_spmv/kernels/gpr.py`` (``pack_gpr``, ``spmv_gpr``,
+``spmm_gpr``).
 The reference gathers x into column-segment slots, routes the gathered
 values through a Clos permutation into row-aligned ``[8, 128]`` tiles and
 reduces them per width class with a mask matmul (K5a–K5d), because a TPU
@@ -22,15 +24,20 @@ pack, and drops the TPU layout:
 - the virtual rows fold back into their owners with a
   ``torch.segment_reduce`` over the runs of the sorted ``hub_owner`` (one
   segment per owning row, so each owner has one writer), outside the
-  kernel, as the reference folds with ``jax.ops.segment_sum``.
+  kernel, as the reference folds with ``jax.ops.segment_sum``;
+- the SpMM (``gpr_spmm``, the reference's K6 and RHS-batched K5b) runs over
+  the same class-sorted CSR with one lane per right-hand side of
+  ``X [ncol, nrhs]`` and writes ``[nrow + nv, nrhs]`` rows in place; the
+  same fold then runs along axis 0.
 
 The Clos planes, the ``[8, 128]`` tile layouts, the ``side_gpr`` recursion,
 the side COO, row chunking and the ``ncol`` envelope are TPU answers and
 are not ported.
 
-On a CUDA tensor :func:`spmv_gpr_rows` launches the kernel (built at first
-use, :mod:`._build`) and counts the launch in :data:`LAUNCHES`; on a CPU
-tensor it runs the plain version :func:`spmv_gpr_ref`.  Nothing falls back
+On a CUDA tensor :func:`spmv_gpr_rows` and :func:`spmm_gpr_rows` launch
+their kernels (built at first use, :mod:`._build`) and count the launch in
+:data:`LAUNCHES`; on a CPU tensor they run the plain versions
+:func:`spmv_gpr_ref` and :func:`spmm_gpr_ref`.  Nothing falls back
 from one to the other.
 """
 
@@ -44,14 +51,15 @@ from ..formats.base import sparse_dataclass, torch_dtype
 from . import _build
 
 __all__ = ["GPCSR", "CLASS_W", "LANES", "LAUNCHES", "pack_gpr", "supports",
-           "spmv_gpr_rows", "spmv_gpr_ref", "fold_hub_rows", "spmv_gpr"]
+           "spmv_gpr_rows", "spmv_gpr_ref", "fold_hub_rows", "spmv_gpr",
+           "spmm_gpr_rows", "spmm_gpr_ref", "spmm_gpr"]
 
 LANES = 128
 #: width-class budgets: a row of n entries goes to the first W >= n
 CLASS_W = (8, 16, 32, 64, 128)
-#: kernel launches by :func:`spmv_gpr_rows` on CUDA tensors (plain-version
-#: calls on CPU tensors are not counted)
-LAUNCHES = {"gpr": 0}
+#: kernel launches by :func:`spmv_gpr_rows` and :func:`spmm_gpr_rows` on
+#: CUDA tensors (plain-version calls on CPU tensors are not counted)
+LAUNCHES = {"gpr": 0, "gpr_spmm": 0}
 #: the kernel's column indices are int32
 _MAX_NCOL = 2**31 - 1
 
@@ -189,23 +197,54 @@ def spmv_gpr_ref(A: GPCSR, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _check(A: GPCSR, x: torch.Tensor) -> None:
-    """Raise on anything the kernel does not take."""
+def spmm_gpr_ref(A: GPCSR, X: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``gpr_spmm``: :func:`spmv_gpr_ref` with a
+    trailing RHS axis (``[ncol, nrhs] -> [nrow + nv, nrhs]``)."""
+    sums = torch.segment_reduce(A.data[:, None] * X[A.indices], "sum",
+                                offsets=A.indptr, axis=0)
+    Y = torch.empty(A.nrow_internal, X.shape[1], dtype=X.dtype,
+                    device=X.device)
+    Y[A.rows.long()] = sums
+    return Y
+
+
+def _check(name: str, A, x: torch.Tensor, ndim: int = 1, *,
+           values: torch.Tensor | None = None, arrays=None) -> None:
+    """Raise on anything the kernels do not take: ``x`` is ``[ncol]``, or
+    ``[ncol, nrhs]`` with ``ndim=2``, and matches the matrix ``values``
+    (default: a :class:`GPCSR`'s data) in type and device; ``arrays`` (by
+    default the GPCSR's) must be contiguous."""
+    values = A.data if values is None else values
+    if arrays is None:
+        arrays = (A.rows, A.indptr, A.indices, A.data)
     if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"spmv_gpr: x must be float32 or float64, "
+        raise TypeError(f"{name}: x must be float32 or float64, "
                         f"got {x.dtype}")
-    if A.data.dtype != x.dtype:
-        raise TypeError(f"spmv_gpr: matrix is {A.data.dtype} but x is "
+    if values.dtype != x.dtype:
+        raise TypeError(f"{name}: matrix is {values.dtype} but x is "
                         f"{x.dtype}")
-    if A.data.device != x.device:
-        raise ValueError(f"spmv_gpr: matrix on {A.data.device}, x on "
+    if values.device != x.device:
+        raise ValueError(f"{name}: matrix on {values.device}, x on "
                          f"{x.device}")
-    if x.dim() != 1 or x.shape[0] != A.shape[1]:
-        raise ValueError(f"spmv_gpr: x must be [ncol={A.shape[1]}], got "
-                         f"{tuple(x.shape)}")
-    if not all(t.is_contiguous() for t in (A.rows, A.indptr, A.indices,
-                                           A.data, x)):
-        raise ValueError("spmv_gpr: operands must be contiguous")
+    if x.dim() != ndim or x.shape[0] != A.shape[1]:
+        want = "[ncol" + ("" if ndim == 1 else ", nrhs")
+        raise ValueError(f"{name}: x must be {want}] with ncol="
+                         f"{A.shape[1]}, got {tuple(x.shape)}")
+    if not all(t.is_contiguous() for t in (*arrays, x)):
+        raise ValueError(f"{name}: operands must be contiguous")
+
+
+def _launch(name: str, x: torch.Tensor, y: torch.Tensor, *args) -> None:
+    """Launch ``tsp_<name>_<dtype>(*args, stream)`` on ``x``'s card;
+    raises with CUDA's message on failure."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {x.device}")
+    lib = _build.load()
+    suffix = "f32" if x.dtype == torch.float32 else "f64"
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = getattr(lib, f"tsp_{name}_{suffix}")(*args, stream)
+    _build.check(lib, name, code)
 
 
 def spmv_gpr_rows(A: GPCSR, x: torch.Tensor) -> torch.Tensor:
@@ -214,29 +253,40 @@ def spmv_gpr_rows(A: GPCSR, x: torch.Tensor) -> torch.Tensor:
 
     CUDA tensor: launches ``gpr_spmv`` (``csrc/general.cu``), one launch
     for all classes; CPU tensor: :func:`spmv_gpr_ref`."""
-    _check(A, x)
+    _check("spmv_gpr", A, x)
     if x.device.type == "cpu":
         return spmv_gpr_ref(A, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"spmv_gpr: no kernel for {x.device}")
-    lib = _build.load()
     y = torch.empty(A.nrow_internal, dtype=x.dtype, device=x.device)
-    suffix = "f32" if x.dtype == torch.float32 else "f64"
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = getattr(lib, f"tsp_gpr_spmv_{suffix}")(
-            A.rows.data_ptr(), A.indptr.data_ptr(), A.indices.data_ptr(),
-            A.data.data_ptr(), x.data_ptr(), y.data_ptr(), *A.class_rows,
-            stream)
-    _build.check(lib, "gpr_spmv", code)
+    _launch("gpr_spmv", x, y, A.rows.data_ptr(), A.indptr.data_ptr(),
+            A.indices.data_ptr(), A.data.data_ptr(), x.data_ptr(),
+            y.data_ptr(), *A.class_rows)
     LAUNCHES["gpr"] += 1
     return y
 
 
+def spmm_gpr_rows(A: GPCSR, X: torch.Tensor) -> torch.Tensor:
+    """Every internal row's product with ``X [ncol, nrhs]``, in internal
+    row order (``[nrow + nv, nrhs]``), before the virtual-row fold.
+
+    CUDA tensor: launches ``gpr_spmm`` (``csrc/general.cu``); CPU tensor:
+    :func:`spmm_gpr_ref`."""
+    _check("spmm_gpr", A, X, ndim=2)
+    if X.device.type == "cpu":
+        return spmm_gpr_ref(A, X)
+    Y = torch.empty(A.nrow_internal, X.shape[1], dtype=X.dtype,
+                    device=X.device)
+    _launch("gpr_spmm", X, Y, A.rows.data_ptr(), A.indptr.data_ptr(),
+            A.indices.data_ptr(), A.data.data_ptr(), X.data_ptr(),
+            Y.data_ptr(), A.nrow_internal, X.shape[1])
+    LAUNCHES["gpr_spmm"] += 1
+    return Y
+
+
 def fold_hub_rows(A: GPCSR, y_int: torch.Tensor) -> torch.Tensor:
     """Add each virtual row's sum into its owner (``[nrow + nv] ->
-    [nrow]``, in place in ``y_int``'s storage): a segment sum over each
-    owner's run of virtual rows, then one write per owner."""
+    [nrow]``, or ``[nrow + nv, nrhs] -> [nrow, nrhs]``, in place in
+    ``y_int``'s storage): a segment sum along axis 0 over each owner's run
+    of virtual rows, then one write per owner."""
     if not A.nv:
         return y_int
     n = A.shape[0]
@@ -252,3 +302,9 @@ def spmv_gpr(A: GPCSR, x: torch.Tensor,
     folded back."""
     out = fold_hub_rows(A, spmv_gpr_rows(A, x))
     return out if y is None else y + out
+
+
+def spmm_gpr(A: GPCSR, X: torch.Tensor) -> torch.Tensor:
+    """``A @ X`` for ``X [ncol, nrhs]``: the kernel's row products with the
+    virtual rows folded back (``[nrow, nrhs]``)."""
+    return fold_hub_rows(A, spmm_gpr_rows(A, X))

@@ -1,11 +1,13 @@
-"""Compute ops: SpMV per format, the planner, BLAS-1 vector ops."""
+"""Compute ops: SpMV and SpMM per format, the planner, BLAS-1 vector ops."""
 
 from .auto import PatternStats, SpmvPlan, analyze, plan_from_matrix, plan_spmv
 from .blas1 import (add2scaled, allclose, axpby, axpy, check_vector, dot,
                     fill, fill_random, norm2, scale, shift)
+from .spmm import spmm, spmm_coo, spmm_csr, spmm_dia
 from .spmv import spmv, spmv_coo, spmv_csr, spmv_dia
 
 __all__ = ["spmv", "spmv_coo", "spmv_csr", "spmv_dia",
+           "spmm", "spmm_coo", "spmm_csr", "spmm_dia",
            "PatternStats", "SpmvPlan", "analyze", "plan_spmv",
            "plan_from_matrix",
            "dot", "axpby", "axpy", "add2scaled", "fill", "fill_random",

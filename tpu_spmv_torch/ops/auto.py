@@ -3,7 +3,8 @@
 Counterpart of ``tpu_spmv/ops/auto.py``.  :func:`plan_spmv` inspects the
 sparsity pattern once, on the host, and returns a plan: the operator packed
 for the kernel that fits it, on the device the caller names (the card
-unless the caller asks for the CPU).  Calling the plan is ``plan(x)``.
+unless the caller asks for the CPU).  Calling the plan is ``plan(x)``;
+``plan.spmm(X)`` is the multi-RHS product with the strategy's SpMM kernel.
 
 The DIA arm keeps the reference's order: when the DIA storage is at most
 4x nnz and no more than block-DIA storage,
@@ -47,6 +48,7 @@ import torch
 from ..bench.roofline import ell_matrix_bytes, gpr_matrix_bytes
 from ..formats import COO, CSR, DIA, to_coo
 from ..kernels import dia_stream, ell_packed, gpr
+from .spmm import spmm
 from .spmv import spmv
 
 __all__ = ["PatternStats", "SpmvPlan", "analyze", "plan_spmv",
@@ -120,6 +122,11 @@ _KERNELS = {"pdia_stream": (dia_stream.spmv_psdia,
             "dia_stream": (dia_stream.spmv_sdia, dia_stream.spmv_sdia_padded)}
 #: general-arm strategy -> kernel (solver_space is the identity for these)
 _GENERAL = {"gpr": gpr.spmv_gpr, "pallas_ell": ell_packed.spmv_ell_packed}
+#: strategy -> SpMM kernel for ``[ncol, nrhs]`` operands ("dia" and "csr"
+#: take :func:`.spmm.spmm`)
+_SPMM = {"pdia_stream": dia_stream.spmm_psdia,
+         "dia_stream": dia_stream.spmm_sdia, "gpr": gpr.spmm_gpr,
+         "pallas_ell": ell_packed.spmm_ell_packed}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,6 +161,12 @@ class SpmvPlan:
                     lambda v: kern(A, v),
                     lambda v: dia_stream.unpad_y(A, v))
         return (lambda v: v), self, (lambda v: v)
+
+    def spmm(self, X: torch.Tensor) -> torch.Tensor:
+        """``A @ X`` for ``X [ncol, nrhs]`` (``[nrow, nrhs]``, contiguous)
+        with the strategy's SpMM kernel; a non-contiguous ``X`` is copied
+        into the kernels' row-major layout first."""
+        return _SPMM.get(self.strategy, spmm)(self.matrix, X.contiguous())
 
 
 def plan_from_matrix(matrix, strategy: str,
