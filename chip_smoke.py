@@ -8,9 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. toolchain — Python, torch and CUDA versions, ``nvcc --version``, the
    card's name and power limit;
-2. build — ``nvcc`` compiles ``tpu_spmv_torch/csrc/dia_stream.cu`` and
-   ``general.cu`` for ``sm_90a`` (one process each, started together) into
-   one library under ``build/tpu_spmv_torch/``;
+2. build — ``nvcc`` compiles ``tpu_spmv_torch/csrc/dia_stream.cu``,
+   ``general.cu`` and ``dist_stream.cu`` for ``sm_90a`` (one process each,
+   started together) into one library under ``build/tpu_spmv_torch/``;
 3. kernels against their plain PyTorch versions on small operands, f32 and
    f64, each against the plain version (rel 1e-6 f32, 1e-13 f64), against
    scipy float64 (2e-5 f32, 1e-10 f64) and for bitwise reproducibility:
@@ -44,6 +44,18 @@ Phases, in order; any failure raises and the script exits non-zero:
       ``cg_multi_runner`` iterations with 8 RHS on the Poisson and on the
       power-law SPD operator; f64 ``cg_multi`` with 4 RHS on the 256x256
       Poisson and ``bus420.mtx``, every column's true residual <= 1e-10;
+   d. distributed (shards on the one card): first, on the small operands
+      of phase 3, K8a (``sdia_ring``) and K8b (``psdia_ring``) per shard at
+      1, 2 and 4 shards, f32 and f64, against their plain versions, scipy
+      and (the concatenated shards) the single-chip K1/K2 on the same pack;
+      then, counters zeroed, the 4096x4096 Poisson's packs of phase 4a
+      sharded (no second planning) through ``bench_dist_spmv``'s chain at 1
+      and 4 shards, each beside the plain K2/K1 chain on the same pack (the
+      reference's ``dist1_psdia_parity`` and ``dist1_parity``);
+      ``ShardedGPR`` at one shard on ``random_sparse(100000, 100000,
+      7e-5)`` beside the plain ``gpr_spmv`` chain (``dist1_gpr_parity``);
+      f64 ``dist_cg`` over ``csr_neighbor`` at 4 shards on the 256x256
+      Poisson, converged, its true residual against scipy;
 5. each kernel at the main paths' shapes against its plain version, timed
    (CUDA events, median) beside its bound and one cuSPARSE call
    (``torch.sparse_csr_tensor @ x``, ``torch.sparse.mm`` for the SpMMs) of
@@ -220,19 +232,22 @@ def main() -> int:
     import numpy as np
     import scipy.sparse as sp
 
+    from tpu_spmv_torch import dist as tdist
     from tpu_spmv_torch import utils
-    from tpu_spmv_torch.bench.harness import time_fn, verify_against_oracle
+    from tpu_spmv_torch.bench.harness import (time_chained, time_fn,
+                                              verify_against_oracle)
     from tpu_spmv_torch.bench.roofline import (measured_copy_gbps,
                                                spmm_bytes, spmv_bytes)
     from tpu_spmv_torch.formats import COO, DIA, convert
     from tpu_spmv_torch.kernels import _build
     from tpu_spmv_torch.kernels import dia_stream as ds
+    from tpu_spmv_torch.kernels import dist_stream as dst
     from tpu_spmv_torch.kernels import ell_packed as ell
     from tpu_spmv_torch.kernels import gpr
     from tpu_spmv_torch.ops.auto import plan_spmv
     from tpu_spmv_torch.ops.spmm import spmm_coo
     from tpu_spmv_torch.solvers import (cg, cg_multi, cg_multi_runner,
-                                        cg_runner)
+                                        cg_runner, dist_cg)
     F = torch.nn.functional
 
     dev = torch.device("cuda")
@@ -684,6 +699,146 @@ def main() -> int:
     for k in ("sdia_spmm", "psdia_spmm", "gpr_spmm", "ell_spmm"):
         require(mlaunches[k] > 0, f"{k} never launched")
 
+    # -- 4d. the distributed path: sharded streaming DIA, GPR, dist_cg -------
+    print("== 4d. distributed path (K8a/K8b small checks, then counters "
+          "zeroed)")
+    meshes = {nd: tdist.make_mesh(nd, device="cuda:0") for nd in (1, 2, 4)}
+    for name, m in small.items():
+        x64 = rng.random(m.shape[0])
+        ref = m @ x64
+        for dt in (torch.float32, torch.float64):
+            dname = str(dt).removeprefix("torch.")
+            dia = convert(COO.from_scipy(m, dtype=dt, device=dev), "dia")
+            packs = [("sdia_ring", ds.pack_sdia(dia), tdist.ShardedSDIA,
+                      ds.spmv_sdia_padded)]
+            if name.startswith("laplacian"):
+                packs.append(("psdia_ring", ds.pack_psdia(
+                    dia, period=ds.detect_period(dia.to("cpu"))),
+                    tdist.ShardedPSDIA, ds.spmv_psdia_padded))
+            xt = torch.tensor(x64, dtype=dt, device=dev)
+            for kname, pack, cls, single in packs:
+                xpad = ds.pad_x(pack, xt)
+                ys = single(pack, xpad)
+                for nd, mesh in meshes.items():
+                    A = tdist.place(cls.build(pack, nd), mesh)
+                    xs = tdist.place(A.shard_xpad(xpad), mesh)
+                    e_plain, bitwise = 0.0, True
+                    for s in range(nd):
+                        left = xs.chunks[(s - 1) % nd][-A.halo:]
+                        right = xs.chunks[(s + 1) % nd][:A.halo]
+                        if kname == "sdia_ring":
+                            args = (A.data[s], A.offsets, xs.chunks[s], left,
+                                    right)
+                            y1, y2 = (dst.spmv_sdia_ring(*args),
+                                      dst.spmv_sdia_ring(*args))
+                            yr = dst.spmv_sdia_ring_ref(*args)
+                        else:
+                            args = (A.pattern[s], A.offsets, xs.chunks[s],
+                                    left, right)
+                            kw = dict(base=s * A.rows_per_shard, L=A.L,
+                                      nrow=A.shape[0])
+                            y1, y2 = (dst.spmv_psdia_ring(*args, **kw),
+                                      dst.spmv_psdia_ring(*args, **kw))
+                            yr = dst.spmv_psdia_ring_ref(*args, **kw)
+                        torch.cuda.synchronize()
+                        e_plain = max(e_plain, float(
+                            (y1 - yr).abs().max()
+                            / max(float(yr.abs().max()), 1e-300)))
+                        bitwise &= torch.equal(y1, y2)
+                    spmv_sh = (tdist.spmv_sdia_sharded if kname == "sdia_ring"
+                               else tdist.spmv_psdia_sharded)
+                    flat = torch.cat(spmv_sh(mesh, A, xs).chunks)
+                    same = torch.equal(flat[:pack.npad], ys)
+                    diff = float((flat[:pack.npad] - ys).abs().max())
+                    e1 = rel_err(flat[A.L:A.L + m.shape[0]].cpu(), ref)
+                    print(f"{kname:10s} {name:17s} {dname} ndev={nd} "
+                          f"(Cp={A.rows_per_shard}, h={A.halo}): rel vs plain "
+                          f"{e_plain:.2e} | vs scipy {e1:.2e} | bitwise "
+                          f"{bitwise} | vs single-chip "
+                          f"{'bitwise equal' if same else f'max diff {diff:.3e}'}"
+                          f" | pads zero {not flat[pack.npad:].any()}")
+                    require(e_plain <= PLAIN_TOL[dname], f"{kname} {name} "
+                            f"{dname} ndev={nd} vs plain {e_plain:.2e}")
+                    require(e1 <= ORACLE_TOL[dname], f"{kname} {name} {dname} "
+                            f"ndev={nd} vs scipy {e1:.2e}")
+                    require(diff <= PLAIN_TOL[dname] * float(ys.abs().max()),
+                            f"{kname} {name} ndev={nd} vs single chip {diff}")
+                    require(bitwise, f"{kname} {name} not bitwise reproducible")
+                    require(not flat[pack.npad:].any(), f"{kname} pads")
+
+    # the main path: the 4096^2 Poisson's packs of phase 4a, sharded (no
+    # second planning), through bench_dist_spmv's chain at 1 and 4 shards
+    counters = (*counters, dst.LAUNCHES)
+    zero(*counters)
+    xf = torch.tensor(x_host, dtype=torch.float32, device=dev)
+    scale = 1.0 / float(abs(mat).sum(axis=1).max())
+    dist1 = {}
+    for strategy, pack, cls, single in (
+            ("pdia_stream", P, tdist.ShardedPSDIA, ds.spmv_psdia_padded),
+            ("dia_stream", S, tdist.ShardedSDIA, ds.spmv_sdia_padded)):
+        plain_ms = time_chained(lambda v: single(pack, v) * scale,
+                                ds.pad_x(pack, xf)).median_s * 1e3
+        for nd in (1, 4):
+            A = tdist.place(cls.build(pack, nd), meshes[nd])
+            dplan = tdist.DistPlan(A, strategy, A.pad_plan, A.pad_plan,
+                                   meshes[nd])
+            r = tdist.bench_dist_spmv(mat, meshes[nd], plan=dplan)
+            print(f"    {strategy} ndev={nd} (Cp={A.rows_per_shard}, "
+                  f"h={A.halo}): {r['seconds'] * 1e3:.4f} ms per SpMV, "
+                  f"plain {'K2' if strategy == 'pdia_stream' else 'K1'} "
+                  f"chain on the same pack {plain_ms:.4f} ms -> parity "
+                  f"{r['seconds'] * 1e3 / plain_ms:.3f} | rel err vs scipy "
+                  f"{r['rel_err']:.2e}")
+            if nd == 1:
+                dist1[strategy] = A
+            del A, dplan
+
+    gname = "random_sparse(100000,7e-5)"
+    m = general[gname]
+    G = tdist.place(tdist.ShardedGPR.build(m, 1, dtype=np.float32), meshes[1])
+    gplan = tdist.DistPlan(G, "gpr", G.x_plan, G.row_plan, meshes[1])
+    r = tdist.bench_dist_spmv(m, meshes[1], plan=gplan, iters=100)
+    dgpr = gpr.LAUNCHES["gpr"]          # the plain chain below adds more
+    gscale = 1.0 / float(abs(m).sum(axis=1).max())
+    xg = torch.tensor(rng.random(m.shape[1]), dtype=torch.float32, device=dev)
+    ys = gplan.spmv(gplan.shard_x(xg)).chunks[0]
+    yp = gpr.spmv_gpr(G.gpcsr[0], xg)
+    rel_g = float((ys - yp).abs().max() / yp.abs().max())
+    gplain_ms = time_chained(lambda v: gpr.spmv_gpr(G.gpcsr[0], v) * gscale,
+                             xg, iters=100).median_s * 1e3
+    print(f"    gpr ndev=1 on {gname}: {r['seconds'] * 1e3:.4f} ms per SpMV, "
+          f"plain gpr_spmv chain on the same pack {gplain_ms:.4f} ms -> "
+          f"parity {r['seconds'] * 1e3 / gplain_ms:.3f} | vs plain "
+          f"{rel_g:.2e} | rel err vs scipy {r['rel_err']:.2e}")
+    require(rel_g <= PLAIN_TOL["float32"], f"sharded GPR vs gpr_spmv {rel_g}")
+    del G, gplan, ys, yp
+
+    A = tdist.place(tdist.NeighborCSR.build(m256.tocsr(), 4, square=True),
+                    meshes[4])
+    b256 = rng.random(m256.shape[0])
+    bs = tdist.place(tdist.ShardedVector.from_global(b256, A.row_plan),
+                     meshes[4])
+    t0 = time.perf_counter()
+    res = dist_cg(meshes[4], A, bs, tol=1e-8, maxiter=2000)
+    torch.cuda.synchronize()
+    dcg_s = time.perf_counter() - t0
+    true_rel = float(np.linalg.norm(b256 - m256 @ res.x.to_global())
+                     / np.linalg.norm(b256))
+    res1 = cg(plan64, torch.tensor(b256, device=dev), tol=1e-8, maxiter=2000)
+    print(f"dist_cg(csr_neighbor, ndev=4 on one card, f64) laplacian_2d(256), "
+          f"tol 1e-8: {res.iterations} iterations (single-chip cg "
+          f"{res1.iterations}), converged={bool(res.converged)}, true rel "
+          f"residual {true_rel:.3e} (scipy) ({dcg_s:.2f} s)")
+    require(bool(res.converged) and true_rel <= 1e-7,
+            f"dist_cg: converged={bool(res.converged)}, true {true_rel:.2e}")
+    del A, bs, res
+
+    torch.cuda.synchronize()
+    dlaunches = {**dst.LAUNCHES, "gpr": dgpr}
+    print(f"launch counts on the distributed path: {dlaunches}")
+    for k in ("sdia_ring", "psdia_ring", "gpr"):
+        require(dlaunches[k] > 0, f"{k} never launched")
+
     # -- 5. kernels vs plain at the main paths' shapes, timed ---------------
     print("== 5. kernels vs plain versions at the main paths' shapes")
     copy_gbps = measured_copy_gbps(dev)
@@ -740,6 +895,36 @@ def main() -> int:
                         **nums})
     plan_ms = time_fn(plan, x, iters=50).median_s * 1e3
     print(f"plan(x) end to end (pad + K2 + unpad): {plan_ms:.4f} ms")
+    # K8b and K8a on the one shard of the 4096^2 packs (phase 4d, ndev=1):
+    # the kernel's shape on the main path; the bound counts the pack, x and
+    # y (at one shard no value crosses between shards: K2's / K1's count)
+    dist_records = []
+    for kname, A, src_line, key in (
+            ("psdia_ring_spmv", dist1["pdia_stream"],
+             "tpu_spmv/dist/planned.py:545", "psdia_ring"),
+            ("sdia_ring_spmv", dist1["dia_stream"],
+             "tpu_spmv/dist/planned.py:342", "sdia_ring")):
+        xk = A.shard_xpad(ds.pad_x(A, x)).chunks[0]
+        left, right = xk[-A.halo:], xk[:A.halo]
+        if key == "psdia_ring":
+            kw = dict(base=0, L=A.L, nrow=A.shape[0])
+            kern = lambda A_, v: dst.spmv_psdia_ring(    # noqa: E731
+                A_.pattern[0], A_.offsets, v, left, right, **kw)
+            plain = lambda A_, v: dst.spmv_psdia_ring_ref(   # noqa: E731
+                A_.pattern[0], A_.offsets, v, left, right, **kw)
+        else:
+            kern = lambda A_, v: dst.spmv_sdia_ring(     # noqa: E731
+                A_.data[0], A_.offsets, v, left, right)
+            plain = lambda A_, v: dst.spmv_sdia_ring_ref(    # noqa: E731
+                A_.data[0], A_.offsets, v, left, right)
+        nums = timed(kname, A, kern, plain, xk, mat,
+                     f"{mat.shape[0]} rows, one shard (Cp={A.rows_per_shard},"
+                     f" h={A.halo})")
+        dist_records.append({"name": kname, "route": "cuda",
+                             "source": "tpu_spmv_torch/csrc/dist_stream.cu",
+                             "replaces": src_line, "launches": dlaunches[key],
+                             **nums})
+    del dist1
     spmm_records = []
     for kname, A, kern, plain, src_line, spmv_name in (
             ("psdia_spmm", P32, ds.spmm_psdia_padded_t,
@@ -820,7 +1005,7 @@ def main() -> int:
     print(f"cg_multi_runner f32, 8 RHS, ms/iteration: {cgm}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": records + spmm_records}))
+    print(json.dumps({"kernels": records + spmm_records + dist_records}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from tpu_spmv_torch import COO, convert, spmv, utils
+from tpu_spmv_torch import COO, convert, dist, spmv, utils
 from tpu_spmv_torch.kernels import dia_stream as tds
+from tpu_spmv_torch.kernels import dist_stream as tdst
 from tpu_spmv_torch.kernels import ell_packed as tell
 from tpu_spmv_torch.kernels import gpr as tgpr
 from tpu_spmv_torch.ops.auto import plan_spmv
@@ -174,3 +175,69 @@ def test_general_spmm_kernels_match_plain_on_card(card, dtype, nrhs):
         Y = full(A, X).cpu().double().numpy()
         gate = 2e-5 if dtype == torch.float32 else 1e-10
         assert np.max(np.abs(Y - ref)) <= gate * np.max(np.abs(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ndev", [1, 2, 4])
+def test_ring_kernels_match_plain_on_card(card, dtype, ndev):
+    """K8a and K8b with ``ndev`` shards on one card: each shard's launch
+    against its plain version within the limits, bitwise reproducible and
+    counted; the concatenated shards bitwise equal to K1 / K2 on the same
+    pack (zero past it), the unpadded product against scipy."""
+    m = utils.laplacian_2d(48)
+    dia = convert(COO.from_scipy(m, dtype=dtype, device=card), "dia")
+    x64 = np.random.default_rng(9).random(m.shape[0])
+    mesh = dist.make_mesh(ndev, device="cuda:0")    # all shards on one card
+    for pack, cls, spmv_sharded, plain_single, key in (
+            (tds.pack_sdia(dia, rb=1024), dist.ShardedSDIA,
+             dist.spmv_sdia_sharded, tds.spmv_sdia_padded, "sdia_ring"),
+            (tds.pack_psdia(dia, period=48, rb=1536), dist.ShardedPSDIA,
+             dist.spmv_psdia_sharded, tds.spmv_psdia_padded, "psdia_ring")):
+        A = dist.place(cls.build(pack, ndev), mesh)
+        xpad = tds.pad_x(pack, torch.tensor(x64, dtype=dtype, device=card))
+        xs = dist.place(A.shard_xpad(xpad), mesh)
+        before = tdst.LAUNCHES[key]
+        y1, y2 = spmv_sharded(mesh, A, xs), spmv_sharded(mesh, A, xs)
+        assert tdst.LAUNCHES[key] == before + 2 * ndev
+        err = top = 0.0                 # pad shards hold exact zeros
+        for s in range(ndev):
+            left = xs.chunks[(s - 1) % ndev][-A.halo:]
+            right = xs.chunks[(s + 1) % ndev][:A.halo]
+            if key == "sdia_ring":
+                ref = tdst.spmv_sdia_ring_ref(A.data[s], A.offsets,
+                                              xs.chunks[s], left, right)
+            else:
+                ref = tdst.spmv_psdia_ring_ref(
+                    A.pattern[s], A.offsets, xs.chunks[s], left, right,
+                    base=s * A.rows_per_shard, L=A.L, nrow=A.shape[0])
+            assert torch.equal(y1.chunks[s], y2.chunks[s])
+            err = max(err, float((y1.chunks[s] - ref).abs().max()))
+            top = max(top, float(ref.abs().max()))
+        assert err <= TOL[dtype] * top
+        flat = torch.cat(y1.chunks)
+        assert torch.equal(flat[:pack.npad], plain_single(pack, xpad))
+        assert not flat[pack.npad:].any()
+        y = A.unshard_y(y1)
+        ref = m @ x64
+        gate = 2e-5 if dtype == torch.float32 else 1e-10
+        assert np.max(np.abs(y - ref)) <= gate * np.max(np.abs(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndev", [1, 4])
+def test_sharded_dia_runs_ring_kernel_on_card(card, ndev):
+    """The ``dia`` strategy launches K8a once per shard with whole
+    neighbour chunks as slivers (a ragged last shard at 4): the product
+    against the same shards' plain versions on the CPU and scipy."""
+    m = utils.banded(2003, 7, seed=6)
+    x = np.random.default_rng(4).standard_normal(m.shape[1])
+    plans = [dist.plan_dist_spmv(m, dist.make_mesh(ndev, device=d),
+                                 dtype=np.float64, strategy="dia")
+             for d in ("cuda:0", "cpu")]
+    before = tdst.LAUNCHES["sdia_ring"]
+    y = plans[0].y_to_global(plans[0].spmv(plans[0].shard_x(x)))
+    assert tdst.LAUNCHES["sdia_ring"] == before + ndev
+    ref = plans[1].y_to_global(plans[1].spmv(plans[1].shard_x(x)))
+    assert np.max(np.abs(y - ref)) <= TOL[torch.float64] * np.max(np.abs(ref))
+    assert np.max(np.abs(y - m @ x)) <= 1e-10 * np.max(np.abs(m @ x))

@@ -1,34 +1,23 @@
 """Port GPR (class-sorted CSR, hub rows split into virtual rows) against the
 JAX reference's gather–permute–reduce pipeline, which runs its Pallas
-kernels in interpret mode here.  Each operand's JAX product is computed
-once per module (interpret mode takes seconds per call)."""
+kernels in interpret mode here.  The JAX products come from
+``_gpr_reference`` (one compiled pack for every GPR test: each operand's
+product is its block of a block-diagonal stack)."""
 
 import functools
-import os
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
-import scipy.io as sio
 import scipy.sparse as sp
 import torch
 
+from _gpr_reference import OPERANDS, block
 from tpu_spmv import utils
 from tpu_spmv.kernels import gpr as jgpr
 from tpu_spmv_torch.bench.roofline import spmv_bytes
 from tpu_spmv_torch.kernels import gpr as tgpr
 
 torch.set_num_threads(1)
-
-FIX = os.path.join(os.path.dirname(__file__), "fixtures")
-#: random_sparse is uniform (no hub rows); the power-law fixture has 4 rows
-#: over 128 entries, so the hub split and the fold engage on both sides
-OPERANDS = {
-    "random_sparse(300,20000)":
-        lambda: utils.random_sparse(300, 20000, 8 / 20000, seed=7),
-    "powerlaw800": lambda: sio.mmread(os.path.join(
-        FIX, "powerlaw800.mtx")).tocsr(),
-}
 
 
 def _rel(y, ref) -> float:
@@ -40,11 +29,8 @@ def _rel(y, ref) -> float:
 @functools.cache
 def _reference(name):
     """(matrix, x, JAX pack, JAX f32 product) of one operand."""
-    m = OPERANDS[name]()
-    x = np.random.default_rng(5).random(m.shape[1]).astype(np.float32)
-    A_j = jgpr.pack_gpr(m, dtype=np.float32)
-    y_j = np.asarray(jgpr.spmv_gpr(A_j, jnp.asarray(x), interpret=True))
-    return m, x, A_j, y_j
+    m, x, y = block(name)
+    return m, x, jgpr.pack_gpr(m, dtype=np.float32), y
 
 
 @pytest.mark.parametrize("name", OPERANDS)

@@ -10,7 +10,10 @@ reference package.
 - **Kernels** (:mod:`.kernels`): hand-written CUDA kernels (``csrc/``)
   for the streaming DIA operators and the general-sparsity arm (GPR and
   sliced ELL), built at first use, each beside its plain PyTorch version.
-- **Solvers** (:mod:`.solvers`): CG.
+- **Solvers** (:mod:`.solvers`): CG, multi-RHS CG and distributed CG.
+- **Dist** (:mod:`.dist`): row-partitioned sharding over a mesh of devices
+  (one device may hold several shards), the distributed planner and its
+  sharded kernels.
 - **I/O** (:mod:`.io`): MatrixMarket read/write.
 - **Bench** (:mod:`.bench`): the ``### <FMT> <MODE> GFLOPS`` protocol and
   a roofline against the card's measured copy bandwidth.
@@ -20,7 +23,7 @@ reference package.
 
 from __future__ import annotations
 
-from . import solvers
+from . import dist, solvers
 from .formats import COO, CSR, DIA, FORMATS, convert, to_coo
 from .interop import from_reference
 from .io import read_matrix, write_matrix
@@ -40,6 +43,6 @@ __all__ = [
     "spmv", "plan_spmv", "analyze", "SpmvPlan",
     "dot", "axpby", "axpy", "fill", "fill_random", "scale", "shift",
     "norm2", "check_vector", "allclose",
-    "read_matrix", "write_matrix", "from_reference", "solvers",
+    "read_matrix", "write_matrix", "from_reference", "solvers", "dist",
     "__version__",
 ]

@@ -87,10 +87,12 @@ def time_fn(fn: Callable, *args, iters: int = DEFAULT_ITERS,
     return _result(_timed(run, on_cuda, repeats), iters)
 
 
-def time_chained(step: Callable, v0: torch.Tensor, *,
-                 iters: int = DEFAULT_ITERS, warmup: int = 2,
-                 repeats: int = 5) -> TimingResult:
-    """Per-step time of the dependent chain ``v ← step(v)``."""
+def time_chained(step: Callable, v0, *, iters: int = DEFAULT_ITERS,
+                 warmup: int = 2, repeats: int = 5) -> TimingResult:
+    """Per-step time of the dependent chain ``v ← step(v)``; ``v0`` is a
+    tensor or a :class:`~..dist.sharded.ShardedVector` (timed on the
+    device of its first chunk)."""
+    on_cuda = (v0.chunks[0] if hasattr(v0, "chunks") else v0).is_cuda
     v = v0
     for _ in range(warmup):
         v = step(v)
@@ -100,7 +102,7 @@ def time_chained(step: Callable, v0: torch.Tensor, *,
         for _ in range(iters):
             v = step(v)
 
-    return _result(_timed(run, v0.is_cuda, repeats), iters)
+    return _result(_timed(run, on_cuda, repeats), iters)
 
 
 def verify_against_oracle(A, x, y, rtol: float = 1e-10,

@@ -63,7 +63,25 @@ def _matrix_bytes(A) -> int:
 
 def spmv_bytes(A, x_dtype=None) -> int:
     """Minimum device-memory traffic of one ``y = A @ x``: the matrix, x
-    read once, y written once."""
+    read once, y written once.  A sharded streaming-DIA matrix
+    (``ShardedSDIA``, ``ShardedPSDIA``) counts its data blocks (or its
+    pattern, once on each device that holds it), x and y as a single-chip
+    pack does, and, past one shard, the ``band`` values each side of every
+    boundary between shards reads from its neighbour; at one shard it
+    equals the single-chip pack's count."""
+    from ..dist.planned import ShardedPSDIA, ShardedSDIA
+
+    if isinstance(A, (ShardedSDIA, ShardedPSDIA)):
+        if isinstance(A, ShardedSDIA):
+            c = A.data[0]
+            coef = sum(d.numel() for d in A.data) * c.element_size()
+        else:
+            c = A.pattern[0]
+            coef = (len({p.device for p in A.pattern}) * c.numel()
+                    * c.element_size())
+        band = max(abs(o) for o in A.offsets)
+        return coef + (A.shape[0] + A.shape[1] + 2 * band * (A.ndev - 1)) \
+            * (x_dtype or c.dtype).itemsize
     xval = (x_dtype or A.dtype).itemsize
     return _matrix_bytes(A) + (A.shape[0] + A.shape[1]) * xval
 

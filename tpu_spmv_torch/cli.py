@@ -5,10 +5,11 @@ MatrixMarket file or generate a synthetic matrix, benchmark the chosen
 formats (or the planner's pick with ``--auto``) and print the
 ``### <FMT> <MODE> GFLOPS`` protocol lines, each product checked against a
 float64 scipy oracle; optionally benchmark the SpMM with ``--spmm NRHS``
-(``### <FMT> SPMM<k> GFLOPS``) and solve with CG, one right-hand side or
-``--solve-nrhs K`` at once (``cg_multi`` through the plan's SpMM).  MODE is
-``GPU`` on the card and ``CPU`` on the CPU, with ``-AUTO`` for the
-planner's pick.
+(``### <FMT> SPMM<k> GFLOPS``), the planned distributed SpMV over ``--dist
+NDEV`` shards (``### CSR DIST<ndev> GFLOPS``) and solve with CG, one
+right-hand side or ``--solve-nrhs K`` at once (``cg_multi`` through the
+plan's SpMM).  MODE is ``GPU`` on the card and ``CPU`` on the CPU, with
+``-AUTO`` for the planner's pick.
 
 Usage::
 
@@ -19,6 +20,7 @@ Usage::
     python -m tpu_spmv_torch --synthetic laplacian:4096 --auto --spmm 32
     python -m tpu_spmv_torch --synthetic laplacian:256 --auto --solve cg \
         --solve-nrhs 8
+    python -m tpu_spmv_torch --synthetic laplacian:4096 --dist 1   # sharded
 """
 
 from __future__ import annotations
@@ -82,6 +84,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spmm", type=int, metavar="NRHS", default=0,
                    help="also benchmark SpMM with NRHS right-hand sides (the "
                         "plan's with --auto, and each format's)")
+    p.add_argument("--dist", type=int, metavar="NDEV", default=0,
+                   help="also benchmark the planned distributed SpMV over "
+                        "NDEV shards: one per card with --device cuda, all "
+                        "on one device with --device cuda:N or cpu (square "
+                        "matrices only)")
+    p.add_argument("--dist-strategy", default=None,
+                   choices=["dia", "dia_stream", "pdia_stream", "gpr",
+                            "csr_halo", "csr_neighbor", "csr_allgather"],
+                   help="force the distributed strategy (default: the "
+                        "distributed planner's pick)")
     p.add_argument("--solve", choices=["cg", "pcg"], default=None,
                    help="solve A x = b with CG (pcg: Jacobi-preconditioned) "
                         "and report iterations, residual and wall time")
@@ -201,6 +213,18 @@ def main(argv=None) -> int:
                                       oracle=host_mat, **kw))
         results += [bench_spmm(convert(coo, name), X, oracle=host_mat, **kw)
                     for name in formats]
+
+    if args.dist > 0:
+        from .dist import bench_dist_spmv, make_mesh
+
+        try:
+            mesh = make_mesh(args.dist, device=device)
+        except ValueError as e:
+            raise SystemExit(f"tpu_spmv_torch: --dist {args.dist}: {e}")
+        results.append(bench_dist_spmv(
+            host_mat, mesh, dtype=dtype, iters=args.iters,
+            check=not args.no_check, quiet=args.json,
+            strategy=args.dist_strategy))
 
     if args.solve is not None:
         if host_mat.shape[0] != host_mat.shape[1]:

@@ -7,8 +7,15 @@ fields as they are.  A reference ``PackedELL`` carries over through the
 logical matrix its tiles hold (the arithmetic of ``PackedELL.to_coo``),
 repacked as the port's sliced ELL.  A reference ``GPCSR`` or
 ``GPCSRChunked`` holds only routed values, so it does not carry over:
-re-plan from the host matrix.  It works by duck typing and imports no
-JAX.
+re-plan from the host matrix.
+
+The distributed containers (``ShardedVector``, ``ShardedDIA``,
+``ShardedSDIA``, ``ShardedPSDIA``, ``ShardedCSR``, ``HaloCSR``,
+``NeighborCSR``, ``ColShardedCSR``) and a ``DistPlan`` over them carry over
+onto a port mesh: each stacked ``[ndev, ...]`` leaf becomes one tensor per
+shard on that shard's device, and the port's bucket row pointers are
+derived from the rows.  A ``ShardedGPR`` is refused as a ``GPCSR`` is.
+It works by duck typing and imports no JAX.
 """
 
 from __future__ import annotations
@@ -18,6 +25,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from .dist import (ColShardedCSR, DistPlan, HaloCSR, NeighborCSR, RowPlan,
+                   ShardedCSR, ShardedDIA, ShardedPSDIA, ShardedSDIA,
+                   ShardedVector, place)
+from .dist.sharded import rowptrs
 from .formats import COO, CSR, DIA
 from .formats.base import INDEX_DTYPE, torch_dtype
 from .kernels.dia_stream import PSDIA, SDIA
@@ -28,6 +39,12 @@ from .ops.auto import PatternStats, plan_from_matrix
 __all__ = ["from_reference"]
 
 _TYPES = {cls.__name__: cls for cls in (COO, CSR, DIA, SDIA, PSDIA)}
+_DIST = {cls.__name__: cls for cls in (
+    ShardedVector, ShardedDIA, ShardedSDIA, ShardedPSDIA, ShardedCSR,
+    HaloCSR, NeighborCSR, ColShardedCSR)}
+#: the port's row-pointer fields and the (rows, data) buckets they index
+_ROWPTR = {"rowptr": ("rows", "data"), "rowptr_int": ("rows_int", "data_int"),
+           "rowptr_bnd": ("rows_bnd", "data_bnd")}
 #: reference strategies the port can run
 _STRATEGIES = ("pdia_stream", "dia_stream", "dia", "csr", "pallas_ell",
                "gpr")
@@ -67,11 +84,65 @@ def _packed_ell_coo(obj):
             np.concatenate([vals[t, i, lane], np.asarray(side.data)]))
 
 
-def from_reference(obj, *, device, dtype=None):
+def _row_plan(plan) -> RowPlan:
+    return RowPlan(tuple(int(s) for s in plan.starts), int(plan.ndev),
+                   int(plan.length))
+
+
+def _from_dist(obj, cls, mesh, dtype):
+    """A reference sharded container on ``mesh``: stacked leaves split per
+    shard, row pointers derived from each bucket's rows."""
+    ndev = int(np.asarray(getattr(obj, dataclasses.fields(cls)[0].name)
+                          ).shape[0])
+    if ndev != mesh.ndev:
+        raise ValueError(f"a reference {cls.__name__} of {ndev} shards does "
+                         f"not fit a mesh of {mesh.ndev}")
+    fields, stacked = {}, {}
+    for f in dataclasses.fields(cls):
+        if f.name in _ROWPTR:
+            continue
+        value = getattr(obj, f.name)
+        if hasattr(value, "shape") and hasattr(value, "dtype"):
+            stacked[f.name] = np.asarray(value)
+            fields[f.name] = tuple(_leaf(v, "cpu", dtype)
+                                   for v in stacked[f.name])
+        else:
+            fields[f.name] = _static(value)
+    names = {f.name for f in dataclasses.fields(cls)}
+    if names & set(_ROWPTR):
+        starts = np.asarray(fields["row_starts"])
+        nrows = (ndev * max(-(-fields["shape"][0] // ndev), 1)
+                 if cls is ColShardedCSR else int(np.diff(starts).max()))
+        for name, (rows, data) in _ROWPTR.items():
+            if name in names:
+                fields[name] = rowptrs(stacked[rows], stacked[data], nrows)
+    return place(cls(**fields), mesh)
+
+
+def from_reference(obj, *, device=None, dtype=None, mesh=None):
     """The port's counterpart of a reference ``COO`` / ``CSR`` / ``DIA`` /
     ``SDIA`` / ``PSDIA`` / ``PackedELL`` or ``SpmvPlan``, with its tensors
-    on ``device`` (float leaves cast to ``dtype`` when given)."""
+    on ``device`` — or of a reference distributed container or
+    ``DistPlan``, placed on the port :class:`~.dist.Mesh` ``mesh`` (float
+    leaves cast to ``dtype`` when given)."""
     dtype = torch_dtype(dtype) if dtype is not None else None
+    name = type(obj).__name__
+    if name in _DIST or name == "DistPlan" or name.startswith("Sharded"):
+        if mesh is None:
+            raise ValueError(f"a reference {name} carries over onto a mesh: "
+                             f"pass mesh=")
+        if name == "DistPlan":
+            return DistPlan(from_reference(obj.matrix, mesh=mesh,
+                                           dtype=dtype),
+                            obj.strategy, _row_plan(obj.x_plan),
+                            _row_plan(obj.row_plan), mesh)
+        if name not in _DIST:
+            raise TypeError(f"a reference {name} does not carry over; "
+                            f"re-plan from the host matrix with "
+                            f"plan_dist_spmv")
+        return _from_dist(obj, _DIST[name], mesh, dtype)
+    if device is None:
+        raise ValueError(f"pass device= for a reference {name}")
     if hasattr(obj, "matrix") and hasattr(obj, "strategy"):
         if obj.strategy not in _STRATEGIES:
             raise ValueError(f"strategy {obj.strategy!r} is not ported yet "
@@ -81,7 +152,6 @@ def from_reference(obj, *, device, dtype=None):
         return plan_from_matrix(from_reference(obj.matrix, device=device,
                                                dtype=dtype),
                                 obj.strategy, stats)
-    name = type(obj).__name__
     if name in ("GPCSR", "GPCSRChunked"):
         raise TypeError(f"a reference {name} stores only routed values and "
                         f"does not carry over; re-plan from the host matrix "
