@@ -9,8 +9,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. toolchain — Python, torch and CUDA versions, ``nvcc --version``, the
    card's name and power limit;
 2. build — ``nvcc`` compiles ``tpu_spmv_torch/csrc/dia_stream.cu``,
-   ``general.cu`` and ``dist_stream.cu`` for ``sm_90a`` (one process each,
-   started together) into one library under ``build/tpu_spmv_torch/``;
+   ``general.cu``, ``dist_stream.cu`` and ``permute.cu`` for ``sm_90a``
+   (one process each, started together) into one library under
+   ``build/tpu_spmv_torch/``;
 3. kernels against their plain PyTorch versions on small operands, f32 and
    f64, each against the plain version (rel 1e-6 f32, 1e-13 f64), against
    scipy float64 (2e-5 f32, 1e-10 f64) and for bitwise reproducibility:
@@ -20,7 +21,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    forced, with the virtual-row fold checked against a host fold; the
    SpMM kernels K3a (``sdia_spmm``), K3b (``psdia_spmm``), ``gpr_spmm`` and
    ``ell_spmm`` on the same operands with 1, 3, 32 and 40 right-hand
-   sides, each column also against the SpMV kernel;
+   sides, each column also against the SpMV kernel; K1/K2 on the
+   transposed packs (``transpose_sdia`` / ``transpose_psdia``) against
+   scipy ``A^T x``, and the backward of ``spmv_sdia`` / ``spmv_psdia``
+   (``x.grad`` against scipy ``A^T g``, the coefficient gradient against
+   the same rule on the CPU); the permutation gathers ``permute_gather``
+   (``apply_permutation`` at n = 1000, 16384, 60000, 99991 and
+   ``apply_tile_permutation``) and ``permute_gather_batched`` (1, 3, 32, 40
+   RHS), bitwise against their plain versions and ``x[perm]``, with and
+   without don't-care slots, and reproducible;
 4. the main paths at full size, each with the launch counters zeroed just
    before it and read just after:
    a. streaming DIA: the 4096x4096-grid 2-D Poisson (16,777,216 rows,
@@ -56,11 +65,25 @@ Phases, in order; any failure raises and the script exits non-zero:
       7e-5)`` beside the plain ``gpr_spmv`` chain (``dist1_gpr_parity``);
       f64 ``dist_cg`` over ``csr_neighbor`` at 4 shards on the 256x256
       Poisson, converged, its true residual against scipy;
+   e. reorder and operator transforms: ``banded(4194304, 5)`` in a random
+      node order (seed 3; 46,137,314 nonzeros) through ``plan_spmv`` (a
+      general kernel) and ``reorder_plan`` (RCM, then ``dia_stream`` at
+      bandwidth 5: ``ro(x)`` launches the gather twice and K1 once),
+      against scipy; the shuffled 2048x2048 Poisson of 4b through
+      ``reorder_plan``, 50 fixed CG iterations in permuted space, and
+      ``apply_permutation_batched`` with its RCM perm on 32 rows of
+      4,194,304; ``plan.transpose()`` of 4a's 1M-row band (K1 on the
+      transposed SDIA); one backward through ``spmv_psdia`` on 4a's PSDIA
+      pack and ``matvec_differentiable`` on the power-law GPR plan with
+      ``plan_spmv(P.T)``, against scipy; the screened Poisson
+      ``shift_diagonal(PSDIA, 1.0)`` with 40 CG iterations, true residual
+      <= 1e-5 (the reference's ``cg16m_ms_iter`` leg);
 5. each kernel at the main paths' shapes against its plain version, timed
-   (CUDA events, median) beside its bound and one cuSPARSE call
-   (``torch.sparse_csr_tensor @ x``, ``torch.sparse.mm`` for the SpMMs) of
-   the same product, a yardstick the port never calls; each SpMM also
-   beside ``plan.spmm`` end to end and 32 times its SpMV kernel.
+   (CUDA events, median) beside its bound and one library call of the
+   same function, a yardstick the port never calls (cuSPARSE:
+   ``torch.sparse_csr_tensor @ x``, ``torch.sparse.mm`` for the SpMMs;
+   ``torch.index_select`` for the gathers); each SpMM also beside
+   ``plan.spmm`` end to end and 32 times its SpMV kernel.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
@@ -218,6 +241,28 @@ def check_spmm(name, A, kern, plain, unpad, spmv_col, Xk, ref, dname) -> None:
     require(torch.equal(Y1, Y2), f"{name} not bitwise reproducible")
 
 
+def backward_errors(A, coef: str, fn, m, x64, g64, dt) -> tuple:
+    """The backward of ``fn`` (``spmv_sdia`` / ``spmv_psdia``) on the card:
+    ``x.grad`` of ``<g, A x>`` against scipy ``A^T g``, and the coefficient
+    gradient (``data`` / ``pattern``) against the same rule run on a CPU
+    copy (the plain versions)."""
+    import dataclasses
+
+    import torch
+
+    grads = []
+    for pack in (A, A.to("cpu")):
+        dev = getattr(pack, coef).device
+        c = getattr(pack, coef).detach().clone().requires_grad_(True)
+        x = torch.tensor(x64, dtype=dt, device=dev, requires_grad=True)
+        y = fn(dataclasses.replace(pack, **{coef: c}), x)
+        torch.autograd.backward(y, torch.tensor(g64, dtype=dt, device=dev))
+        grads.append((x.grad, c.grad))
+    (xg, cg), (_, cg_cpu) = grads
+    return (rel_err(xg.cpu(), m.T @ g64),
+            float((cg.cpu() - cg_cpu).abs().max() / cg_cpu.abs().max()))
+
+
 def main() -> int:
     import torch
 
@@ -244,8 +289,11 @@ def main() -> int:
     from tpu_spmv_torch.kernels import dist_stream as dst
     from tpu_spmv_torch.kernels import ell_packed as ell
     from tpu_spmv_torch.kernels import gpr
-    from tpu_spmv_torch.ops.auto import plan_spmv
+    from tpu_spmv_torch.kernels import permute as pk
+    from tpu_spmv_torch.ops.auto import plan_from_matrix, plan_spmv
+    from tpu_spmv_torch.ops.shift import shift_diagonal
     from tpu_spmv_torch.ops.spmm import spmm_coo
+    from tpu_spmv_torch.reorder import rcm_permutation, reorder_plan
     from tpu_spmv_torch.solvers import (cg, cg_multi, cg_multi_runner,
                                         cg_runner, dist_cg)
     F = torch.nn.functional
@@ -313,6 +361,28 @@ def main() -> int:
                 require(torch.equal(y1, y2), f"{kname} {name} not bitwise "
                         f"reproducible")
                 require(pads, f"{kname} {name} pads not zero")
+                # the same kernel on the transposed pack, and the backward
+                At = (ds.transpose_sdia(A) if kname == "sdia"
+                      else ds.transpose_psdia(A))
+                xt = ds.pad_x(At, x)
+                yt, ytr = kern(At, xt), plain(At, xt)
+                torch.cuda.synchronize()
+                et_plain = float((yt - ytr).abs().max() / ytr.abs().max())
+                et = rel_err(ds.unpad_y(At, yt).cpu(), m.T @ x64)
+                g64 = rng.random(m.shape[0])
+                eg, ec = backward_errors(
+                    A, "data" if kname == "sdia" else "pattern",
+                    ds.spmv_sdia if kname == "sdia" else ds.spmv_psdia,
+                    m, x64, g64, dt)
+                print(f"      transposed: rel vs plain {et_plain:.2e} | vs "
+                      f"scipy A^T x {et:.2e} | backward: x.grad vs scipy "
+                      f"A^T g {eg:.2e}, coefficient grad vs the CPU rule "
+                      f"{ec:.2e}")
+                require(et_plain <= PLAIN_TOL[dname]
+                        and et <= ORACLE_TOL[dname], f"transposed {kname} "
+                        f"{name} {dname}: {et_plain:.2e}/{et:.2e}")
+                require(eg <= ORACLE_TOL[dname] and ec <= PLAIN_TOL[dname],
+                        f"{kname} {name} {dname} backward {eg:.2e}/{ec:.2e}")
 
     # K3a/K3b on the same operands, 1, 3, 32 and 40 right-hand sides (40:
     # a full chunk of 32 and a tail of 8)
@@ -401,6 +471,52 @@ def main() -> int:
     require(gpr.pack_gpr(general_small["powerlaw800.mtx"], device=dev).nv > 0,
             "powerlaw800 has no virtual rows")
 
+    # K7: the gathers, bitwise against their plain versions and x[perm],
+    # with and without don't-care slots (written as zero), reproducible
+    for n_p in (1000, 16384, 60000, 99991):
+        p_full = rng.permutation(n_p)
+        p_dc = p_full.copy()
+        p_dc[rng.random(n_p) < 0.1] = -1
+        X64 = rng.random((40, n_p))
+        for label, p_host in (("perm", p_full), ("perm with -1 slots", p_dc)):
+            pplan = pk.plan_permutation(p_host, device=dev)
+            real = p_host >= 0
+            src = np.where(real, p_host, 0)
+            for dt in (torch.float32, torch.float64):
+                cases = [(pk.apply_permutation, pk.apply_permutation_ref,
+                          torch.tensor(X64[0], dtype=dt, device=dev))]
+                cases += [(pk.apply_permutation_batched,
+                           pk.apply_permutation_batched_ref,
+                           torch.tensor(X64[:k], dtype=dt, device=dev))
+                          for k in (1, 3, 32, 40)]
+                for kern, plain, xk in cases:
+                    y1, y2, yr = kern(pplan, xk), kern(pplan, xk), plain(
+                        pplan, xk)
+                    torch.cuda.synchronize()
+                    yh, xh = y1.cpu().numpy(), xk.cpu().numpy()
+                    require(torch.equal(y1, y2) and torch.equal(y1, yr)
+                            and np.array_equal(yh[..., real],
+                                               xh[..., src][..., real])
+                            and not yh[..., ~real].any(),
+                            f"{kern.__name__} n={n_p} {label} {dt} "
+                            f"{tuple(xk.shape)}")
+            print(f"permute_gather(_batched) n={n_p} {label}: f32 and f64, "
+                  f"1 vector and 1, 3, 32, 40 rows, bitwise equal to the "
+                  f"plain versions and x[perm], reproducible, don't-care "
+                  f"slots zero")
+    p_tile = rng.permutation(pk.TILE)
+    tplan = pk.plan_tile_permutation(p_tile, device=dev)
+    for dt in (torch.float32, torch.float64):
+        xt = torch.tensor(rng.random((pk.Q, pk.Q)), dtype=dt, device=dev)
+        y1, yr = (pk.apply_tile_permutation(xt, tplan),
+                  pk.apply_tile_permutation_ref(xt, tplan))
+        torch.cuda.synchronize()
+        require(torch.equal(y1, yr) and np.array_equal(
+            y1.cpu().numpy(), pk.permute_reference(xt.cpu().numpy(), p_tile)),
+            f"apply_tile_permutation {dt}")
+    print("apply_tile_permutation [128, 128] f32 and f64: bitwise equal to "
+          "the plain version and permute_reference")
+
     # -- 4a. streaming-DIA main path at full size ---------------------------
     print("== 4a. streaming-DIA main path (counters zeroed)")
     GRID = 4096
@@ -474,7 +590,7 @@ def main() -> int:
     relb = verify_against_oracle(planb.matrix, xb, planb(xb), oracle=band)
     print(f"banded(1000000,5) -> {planb.strategy} rb={planb.matrix.rb}: "
           f"rel err {relb:.2e}")
-    del planb, xb
+    del xb
 
     m256 = utils.laplacian_2d(256)
     plan64 = plan_spmv(m256, dtype=torch.float64, device=dev)
@@ -839,6 +955,190 @@ def main() -> int:
     for k in ("sdia_ring", "psdia_ring", "gpr"):
         require(dlaunches[k] > 0, f"{k} never launched")
 
+    # -- 4e. reorder and operator transforms at full width -----------------
+    print("== 4e. reorder, transpose, gradients, screened Poisson (counters "
+          "zeroed)")
+    import dataclasses
+
+    NB = 4_194_304
+    t0 = time.perf_counter()
+    bc = utils.banded(NB, 5).tocoo()
+    order = np.random.default_rng(3).permutation(NB)
+    inv = np.empty_like(order)
+    inv[order] = np.arange(NB)
+    # the band in a random node order: entry (r, c) moves to (inv[r], inv[c])
+    shuffled = sp.csr_matrix((bc.data, (inv[bc.row], inv[bc.col])),
+                             shape=bc.shape)
+    del bc, order, inv
+    print(f"banded({NB},5) in a random node order (seed 3): {shuffled.nnz} "
+          f"nnz (host build {time.perf_counter() - t0:.1f} s)")
+    require(shuffled.nnz == 46_137_314, f"band nnz {shuffled.nnz}")
+    counters = (*counters, pk.LAUNCHES)
+    zero(*counters)
+    t0 = time.perf_counter()
+    direct = plan_spmv(shuffled, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t0
+    require(direct.strategy in ("gpr", "pallas_ell"),
+            f"shuffled band planned to {direct.strategy}")
+    t0 = time.perf_counter()
+    rcm_permutation(shuffled)
+    rcm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ro = reorder_plan(shuffled, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    ro_s = time.perf_counter() - t0
+    print(f"plan_spmv on it: {direct.strategy} ({direct_s:.2f} s) | "
+          f"reorder_plan: {ro.strategy}, bandwidth {ro.bandwidth_before} -> "
+          f"{ro.bandwidth_after}, {ro.plan.matrix.ndiags} diagonals, rb "
+          f"{ro.plan.matrix.rb} ({ro_s:.2f} s, of which RCM alone "
+          f"{rcm_s:.2f} s)")
+    require(ro.plan.strategy == "dia_stream" and ro.bandwidth_after == 5,
+            f"reordered band: {ro.strategy}, bandwidth {ro.bandwidth_after}")
+    xs64 = rng.random(NB)
+    xs = torch.tensor(xs64, dtype=torch.float32, device=dev)
+    before = (pk.LAUNCHES["permute"], ds.LAUNCHES["sdia"])
+    ys = ro(xs)
+    torch.cuda.synchronize()
+    spent = (pk.LAUNCHES["permute"] - before[0],
+             ds.LAUNCHES["sdia"] - before[1])
+    rel_ro = rel_err(ys.cpu(), shuffled @ xs64)
+    rel_direct = rel_err(direct(xs).cpu(), shuffled @ xs64)
+    ro_ms = time_fn(ro, xs, iters=50).median_s * 1e3
+    direct_ms = time_fn(direct, xs, iters=50).median_s * 1e3
+    print(f"ro(x): launches (permute_gather, K1) {spent} | rel err vs scipy "
+          f"f64 {rel_ro:.2e} (direct {rel_direct:.2e}) | {ro_ms:.4f} ms per "
+          f"product against the direct {direct.strategy} plan's "
+          f"{direct_ms:.4f} ms")
+    require(spent == (2, 1), f"ro(x) launched {spent}")
+    require(rel_ro <= ORACLE_TOL["float32"], f"ro(x) rel err {rel_ro:.2e}")
+    del direct, ys
+
+    name = "shuffled laplacian_2d(2048)"
+    msh, plan_sh = general[name], gplans[name]
+    t0 = time.perf_counter()
+    ro_p = reorder_plan(msh, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    rop_s = time.perf_counter() - t0
+    xp64 = rng.random(msh.shape[0])
+    xpt = torch.tensor(xp64, dtype=torch.float32, device=dev)
+    rel_p = rel_err(ro_p(xpt).cpu(), msh @ xp64)
+    rop_ms = time_fn(ro_p, xpt, iters=50).median_s * 1e3
+    rop_plan_ms = time_fn(ro_p.plan, xpt, iters=50).median_s * 1e3
+    sh_ms = time_fn(plan_sh, xpt, iters=50).median_s * 1e3
+    print(f"{name}: reorder_plan -> {ro_p.strategy}, bandwidth "
+          f"{ro_p.bandwidth_before} -> {ro_p.bandwidth_after} "
+          f"({rop_s:.2f} s) | rel err {rel_p:.2e} | ro(x) {rop_ms:.4f} ms, "
+          f"ro.plan alone {rop_plan_ms:.4f} ms, the 4b {plan_sh.strategy} "
+          f"plan {sh_ms:.4f} ms")
+    require(rel_p <= ORACLE_TOL["float32"], f"reordered Poisson {rel_p:.2e}")
+    b64 = msh @ rng.random(msh.shape[0])
+    b = torch.tensor(b64, dtype=torch.float32, device=dev)
+    run = cg_runner(ro_p.plan, iters=50, report_tol=1e-5)
+    bp = pk.apply_permutation(ro_p.perm_plan, b)   # permuted once
+    run(bp)                                  # warm-up
+    start.record()
+    res = run(bp)
+    end.record()
+    end.synchronize()
+    cg_rp_ms = start.elapsed_time(end) / 50
+    xsol = pk.apply_permutation(ro_p.inv_plan, res.x).cpu().double().numpy()
+    r50 = float(np.linalg.norm(b64 - msh @ xsol) / np.linalg.norm(b64))
+    print(f"cg_runner(iters=50) f32 in permuted space via "
+          f"{ro_p.plan.strategy}: {cg_rp_ms:.4f} ms/iter (4b, shuffled order: {cg_sh_ms:.4f}) | "
+          f"true rel residual (scipy) 1.0 -> {r50:.3e}")
+    require(np.isfinite(r50) and r50 < 0.1, "permuted-space CG residual")
+    del run, res, b, bp
+    XB = torch.rand(NRHS, msh.shape[0], generator=gen, device=dev)
+    YB = pk.apply_permutation_batched(ro_p.perm_plan, XB)
+    same = torch.equal(YB, pk.apply_permutation_batched_ref(ro_p.perm_plan,
+                                                            XB))
+    torch.cuda.synchronize()
+    print(f"apply_permutation_batched, RCM perm, X [{NRHS}, {msh.shape[0]}] "
+          f"f32: bitwise equal to the plain version {same}")
+    require(same, "batched gather at full width")
+    del YB
+
+    xb64 = rng.random(band.shape[0])
+    xb = torch.tensor(xb64, dtype=torch.float32, device=dev)
+    pt = planb.transpose()
+    rel_t = rel_err(pt(xb).cpu(), band.T @ xb64)
+    print(f"banded(1000000,5).transpose() -> {pt.strategy} (L={pt.matrix.L}, "
+          f"npad={pt.matrix.npad}): rel err vs scipy A^T x {rel_t:.2e}")
+    require(pt.strategy == "dia_stream" and rel_t <= ORACLE_TOL["float32"],
+            f"transposed band {pt.strategy} {rel_t:.2e}")
+    del pt, xb
+
+    # one backward through spmv_psdia on 4a's PSDIA pack (no second planning)
+    g64 = rng.random(mat.shape[0])
+    gv = torch.tensor(g64, dtype=torch.float32, device=dev)
+    Pg = dataclasses.replace(
+        P, pattern=P.pattern.detach().clone().requires_grad_(True))
+    xg = torch.tensor(x_host, dtype=torch.float32, device=dev,
+                      requires_grad=True)
+    torch.autograd.backward(ds.spmv_psdia(Pg, xg), gv)
+    rel_gx = rel_err(xg.grad.cpu(), mat.T @ g64)
+    gp = ds.pad_x(P, gv.double())
+    xpd = ds.pad_x(P, xg.detach().double())
+    pat_ref = torch.stack([(gp * ds._shift(xpd, off)).reshape(-1, P.rb).sum(0)
+                           for off in P.offsets])
+    rel_gp = float((Pg.pattern.grad.double() - pat_ref).abs().max()
+                   / pat_ref.abs().max())
+    fwd_ms = time_fn(ds.spmv_psdia, P, xg.detach(), iters=20).median_s * 1e3
+    fb_ms = time_fn(lambda: torch.autograd.grad(
+        ds.spmv_psdia(Pg, xg), (Pg.pattern, xg), gv)[1],
+        iters=20).median_s * 1e3
+    print(f"spmv_psdia backward at {mat.shape[0]} rows: x.grad vs scipy A^T g "
+          f"{rel_gx:.2e} | pattern.grad vs the f64 rule {rel_gp:.2e} | "
+          f"forward {fwd_ms:.4f} ms, forward + backward {fb_ms:.4f} ms "
+          f"(backward {fb_ms - fwd_ms:.4f} ms)")
+    require(max(rel_gx, rel_gp) <= ORACLE_TOL["float32"],
+            f"psdia backward {rel_gx:.2e}/{rel_gp:.2e}")
+    del Pg, xg, gp, xpd, pat_ref
+
+    gname = "power_law(400000,13)"
+    pplaw = gplans[gname]
+    plan_T = plan_spmv(plaw.T.tocsr(), dtype=torch.float32, device=dev)
+    mv = pplaw.matvec_differentiable(plan_T)
+    w64 = rng.random(plaw.shape[0])
+    xw = torch.tensor(rng.random(plaw.shape[1]), dtype=torch.float32,
+                      device=dev, requires_grad=True)
+    torch.dot(torch.tensor(w64, dtype=torch.float32, device=dev),
+              mv(xw)).backward()
+    rel_mv = rel_err(xw.grad.cpu(), plaw.T @ w64)
+    print(f"matvec_differentiable on the {gname} {pplaw.strategy} plan, "
+          f"plan_T {plan_T.strategy}: x.grad vs scipy P^T w {rel_mv:.2e}")
+    require(rel_mv <= ORACLE_TOL["float32"], f"GPR gradient {rel_mv:.2e}")
+    del plan_T, mv, xw
+
+    # the screened Poisson (A + I) of the reference's cg16m_ms_iter leg
+    PS = shift_diagonal(P, 1.0)
+    plan_scr = plan_from_matrix(PS, "pdia_stream")
+    bs64 = rng.random(mat.shape[0])
+    bs = torch.tensor(bs64, dtype=torch.float32, device=dev)
+    run = cg_runner(plan_scr, iters=40, report_tol=1e-5)
+    run(bs)                                  # warm-up
+    start.record()
+    res = run(bs)
+    end.record()
+    end.synchronize()
+    cg_scr_ms = start.elapsed_time(end) / 40
+    xsc = res.x.cpu().double().numpy()
+    r40 = float(np.linalg.norm(bs64 - (mat @ xsc + xsc))
+                / np.linalg.norm(bs64))
+    print(f"screened Poisson shift_diagonal(PSDIA, 1.0), cg_runner(iters=40) "
+          f"f32: {cg_scr_ms:.4f} ms/iter (4a unshifted: {cg_ms:.4f}) | true "
+          f"rel residual (scipy, (A + I) x) {r40:.3e}")
+    require(r40 <= 1e-5, f"screened-Poisson CG true residual {r40:.3e}")
+    del PS, plan_scr, run, res
+
+    torch.cuda.synchronize()
+    elaunches = {**pk.LAUNCHES, "sdia": ds.LAUNCHES["sdia"],
+                 "psdia": ds.LAUNCHES["psdia"], "gpr": gpr.LAUNCHES["gpr"]}
+    print(f"launch counts on the reorder / transform path: {elaunches}")
+    for k in ("permute", "permute_batched", "sdia", "psdia", "gpr"):
+        require(elaunches[k] > 0, f"{k} never launched in 4e")
+
     # -- 5. kernels vs plain at the main paths' shapes, timed ---------------
     print("== 5. kernels vs plain versions at the main paths' shapes")
     copy_gbps = measured_copy_gbps(dev)
@@ -1002,10 +1302,67 @@ def main() -> int:
         pms = time_fn(p.spmm, Xg, iters=10).median_s * 1e3
         print(f"plan.spmm(X) {name} via {p.strategy} end to end, {NRHS} RHS: "
               f"{pms:.4f} ms")
+    # the gathers of 4e at their shapes: ro(x)'s RCM perm and a random
+    # perm on 4,194,304 f32 values, the batched gather on 32 rows
+    def timed_gather(kname, pplan, xk, label):
+        batched = xk.dim() == 2
+        kern, plain = ((pk.apply_permutation_batched,
+                        pk.apply_permutation_batched_ref) if batched else
+                       (pk.apply_permutation, pk.apply_permutation_ref))
+        idx = pplan.perm.long()       # no don't-care slots on these paths
+        yk, yp = kern(pplan, xk), plain(pplan, xk)
+        yl = torch.index_select(xk, xk.dim() - 1, idx)
+        torch.cuda.synchronize()
+        err = float((yk - yp).abs().max())
+        require(torch.equal(yk, yp) and torch.equal(yk, yl),
+                f"{kname} {label} vs plain / index_select")
+        del yk, yp, yl
+        iters = 20 if batched else 100
+        ms = time_fn(kern, pplan, xk, iters=iters).median_s * 1e3
+        plain_ms = time_fn(plain, pplan, xk, iters=iters).median_s * 1e3
+        lib_ms = time_fn(torch.index_select, xk, xk.dim() - 1, idx,
+                         iters=iters).median_s * 1e3
+        nrhs = xk.shape[0] if batched else 1
+        # x read once and out written once per row, the index read once
+        nbytes = (2 * nrhs * pplan.n * xk.element_size()
+                  + pplan.n * pplan.perm.element_size())
+        bound_ms, bound_by = bound(nbytes, 0)
+        print(f"{kname} {label}: {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s) "
+              f"| bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{100 * bound_ms / ms:.1f}%) | plain {plain_ms:.4f} ms | "
+              f"index_select {lib_ms:.4f} ms (kernel/index_select "
+              f"{ms / lib_ms:.2f}) | max abs err {err:.3e}")
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms}
+
+    xs = torch.tensor(xs64, dtype=torch.float32, device=dev)
+    perm_records = [{
+        "name": "permute_gather", "route": "cuda",
+        "source": "tpu_spmv_torch/csrc/permute.cu",
+        "replaces": "tpu_spmv/kernels/permute.py:888",
+        "launches": elaunches["permute"],
+        **timed_gather("permute_gather", ro.perm_plan, xs,
+                       f"n={NB} f32, RCM perm of the shuffled band")}]
+    rand_plan = pk.plan_permutation(np.random.default_rng(5).permutation(NB),
+                                    device=dev)
+    timed_gather("permute_gather", rand_plan, xs, f"n={NB} f32, random perm")
+    perm_records.append({
+        "name": "permute_gather_batched", "route": "cuda",
+        "source": "tpu_spmv_torch/csrc/permute.cu",
+        "replaces": "tpu_spmv/kernels/permute.py:939",
+        "launches": elaunches["permute_batched"],
+        **timed_gather("permute_gather_batched", ro_p.perm_plan, XB,
+                       f"[{NRHS}, {msh.shape[0]}] f32, RCM perm of the "
+                       f"shuffled Poisson")})
+    one_ms = time_fn(pk.apply_permutation, rand_plan, xs).median_s * 1e3
+    print(f"    {NRHS} x permute_gather (random perm): {NRHS * one_ms:.4f} ms")
+    del ro, ro_p, XB, rand_plan, xs
     print(f"cg_multi_runner f32, 8 RHS, ms/iteration: {cgm}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": records + spmm_records + dist_records}))
+    print(json.dumps({"kernels": records + spmm_records + dist_records
+                      + perm_records}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

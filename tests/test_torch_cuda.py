@@ -14,7 +14,9 @@ from tpu_spmv_torch.kernels import dia_stream as tds
 from tpu_spmv_torch.kernels import dist_stream as tdst
 from tpu_spmv_torch.kernels import ell_packed as tell
 from tpu_spmv_torch.kernels import gpr as tgpr
+from tpu_spmv_torch.kernels import permute as tperm
 from tpu_spmv_torch.ops.auto import plan_spmv
+from tpu_spmv_torch.reorder import reorder_plan
 
 torch.set_num_threads(1)
 
@@ -241,3 +243,94 @@ def test_sharded_dia_runs_ring_kernel_on_card(card, ndev):
     ref = plans[1].y_to_global(plans[1].spmv(plans[1].shard_x(x)))
     assert np.max(np.abs(y - ref)) <= TOL[torch.float64] * np.max(np.abs(ref))
     assert np.max(np.abs(y - m @ x)) <= 1e-10 * np.max(np.abs(m @ x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int64,
+                                   torch.float16])
+@pytest.mark.parametrize("nrhs", [0, 1, 3, 40])
+def test_permute_kernels_match_plain_on_card(card, dtype, nrhs):
+    """permute_gather (nrhs 0: the single gather) and
+    permute_gather_batched against their plain versions and x[perm]:
+    bitwise, reproducible, zero at don't-care slots, each launch counted."""
+    rng = np.random.default_rng(7)
+    n = 60_013
+    perm = rng.permutation(n)
+    perm[rng.random(n) < 0.05] = -1
+    real = torch.from_numpy(perm >= 0).to(card)
+    plan = tperm.plan_permutation(perm, device=card)
+    shape = (n,) if nrhs == 0 else (nrhs, n)
+    x = torch.from_numpy(rng.integers(1, 1000, shape)).to(dtype).to(card)
+    kern, plain, key = ((tperm.apply_permutation,
+                         tperm.apply_permutation_ref, "permute")
+                        if nrhs == 0 else
+                        (tperm.apply_permutation_batched,
+                         tperm.apply_permutation_batched_ref,
+                         "permute_batched"))
+    before = tperm.LAUNCHES[key]
+    y1, y2 = kern(plan, x), kern(plan, x)
+    torch.cuda.synchronize()
+    assert tperm.LAUNCHES[key] == before + 2
+    assert torch.equal(y1, y2) and torch.equal(y1, plain(plan, x))
+    idx = torch.from_numpy(np.where(perm >= 0, perm, 0)).to(card)
+    assert torch.equal(y1[..., real], x[..., idx][..., real])
+    assert not y1[..., ~real].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_transposed_packs_and_grads_on_card(card, dtype):
+    """K1/K2 on transpose_sdia/psdia, and the backward of spmv_sdia /
+    spmv_psdia on the card, against the same on the CPU (plain versions)
+    and scipy."""
+    import dataclasses
+
+    m = utils.laplacian_2d(24).tocoo()
+    m = type(utils.laplacian_2d(24))(
+        (m.data * (1.0 + 0.1 * (m.col - m.row)), (m.row, m.col)),
+        shape=m.shape)
+    rng = np.random.default_rng(8)
+    x64, w64 = rng.random(m.shape[0]), rng.random(m.shape[0])
+    tol = 2e-5 if dtype == torch.float32 else 1e-10
+    for pack, fn, coef in (
+            (tds.pack_sdia, tds.spmv_sdia, "data"),
+            (lambda d: tds.pack_psdia(d, period=24), tds.spmv_psdia,
+             "pattern")):
+        grads = []
+        for dev in (card, torch.device("cpu")):
+            A = pack(convert(COO.from_scipy(m, dtype=dtype, device=dev),
+                             "dia"))
+            At = (tds.transpose_sdia(A) if coef == "data"
+                  else tds.transpose_psdia(A))
+            yt = fn(At, torch.tensor(w64, dtype=dtype, device=dev))
+            ref = m.T @ w64
+            assert np.max(np.abs(yt.cpu().double().numpy() - ref)) <= \
+                tol * np.max(np.abs(ref))
+            c = getattr(A, coef).clone().requires_grad_(True)
+            x = torch.tensor(x64, dtype=dtype, device=dev,
+                             requires_grad=True)
+            y = fn(dataclasses.replace(A, **{coef: c}), x)
+            torch.dot(torch.tensor(w64, dtype=dtype, device=dev), y).backward()
+            grads.append((x.grad.cpu(), c.grad.cpu()))
+        for a, b in zip(*grads):
+            assert float((a - b).abs().max()) <= \
+                TOL[dtype] * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_reordered_operator_on_card(card):
+    """ro(x) launches the gather twice and K1 once, and matches scipy."""
+    n = 5000
+    band = utils.banded(n, 4, seed=9)
+    p = np.random.default_rng(9).permutation(n)
+    shuffled = band[p][:, p].tocsr()
+    ro = reorder_plan(shuffled, dtype=torch.float32, device=card)
+    assert ro.strategy == "rcm+dia_stream" and ro.bandwidth_after == 4
+    x64 = np.random.default_rng(10).random(n)
+    before = (tperm.LAUNCHES["permute"], tds.LAUNCHES["sdia"])
+    y = ro(torch.tensor(x64, dtype=torch.float32, device=card))
+    assert (tperm.LAUNCHES["permute"], tds.LAUNCHES["sdia"]) == \
+        (before[0] + 2, before[1] + 1)
+    ref = shuffled @ x64
+    assert np.max(np.abs(y.cpu().double().numpy() - ref)) <= \
+        2e-5 * np.max(np.abs(ref))

@@ -35,7 +35,7 @@ def ell_matrix_bytes(slots: int, slices: int, itemsize: int) -> int:
 
 def _matrix_bytes(A) -> int:
     """Device-memory bytes of the operator that one product reads once."""
-    from ..formats import COO, CSR, DIA
+    from ..formats import COO, CSC, CSR, DIA
     from ..kernels.dia_stream import PSDIA, SDIA
     from ..kernels.ell_packed import PackedELL
     from ..kernels.gpr import GPCSR
@@ -46,6 +46,8 @@ def _matrix_bytes(A) -> int:
         return A.nnz * (val + 2 * idx)
     if isinstance(A, CSR):
         return A.nnz * (val + 2 * idx) + (A.shape[0] + 1) * idx
+    if isinstance(A, CSC):
+        return A.nnz * (val + 2 * idx) + (A.shape[1] + 1) * idx
     if isinstance(A, (DIA, SDIA)):
         return A.data.numel() * val
     if isinstance(A, GPCSR):

@@ -1,21 +1,23 @@
-"""Sparse matrix formats as dataclasses of torch tensors: COO, CSR, DIA.
+"""Sparse matrix formats as dataclasses of torch tensors: COO, CSR, CSC,
+DIA.
 
-Counterpart of ``tpu_spmv/formats``; conversions go through COO.  CSC,
-ELL, BSR and BDIA are not ported yet (ROADMAP.md).
+Counterpart of ``tpu_spmv/formats``; conversions go through COO.  ELL, BSR
+and BDIA are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from .base import INDEX_DTYPE, torch_dtype
 from .coo import COO
+from .csc import CSC
 from .csr import CSR
 from .dia import DIA
 
-__all__ = ["COO", "CSR", "DIA", "INDEX_DTYPE", "torch_dtype", "convert",
-           "to_coo", "FORMATS"]
+__all__ = ["COO", "CSR", "CSC", "DIA", "INDEX_DTYPE", "torch_dtype",
+           "convert", "to_coo", "FORMATS"]
 
 #: name → class registry (the CLI's ``--formats`` sweep uses it)
-FORMATS = {"coo": COO, "csr": CSR, "dia": DIA}
+FORMATS = {"coo": COO, "csr": CSR, "csc": CSC, "dia": DIA}
 
 
 def to_coo(mat) -> COO:

@@ -7,7 +7,9 @@ CUDA tensors launch the kernel, built at first use (:mod:`._build`).
   ``psdia_spmv``, their SpMMs K3a ``sdia_spmm`` and K3b ``psdia_spmm``;
 - :mod:`.gpr`: class-sorted CSR with hub rows split, ``gpr_spmv`` and
   ``gpr_spmm``;
-- :mod:`.ell_packed`: sliced ELL, ``ell_spmv`` and ``ell_spmm``.
+- :mod:`.ell_packed`: sliced ELL, ``ell_spmv`` and ``ell_spmm``;
+- :mod:`.permute`: the permutation engine ``out[i] = x[perm[i]]``,
+  ``permute_gather`` and ``permute_gather_batched``.
 """
 
 from .dia_stream import (PSDIA, SDIA, detect_period, pack_psdia, pack_sdia,
@@ -15,9 +17,16 @@ from .dia_stream import (PSDIA, SDIA, detect_period, pack_psdia, pack_sdia,
                          supports_sdia)
 from .ell_packed import PackedELL, pack_ell, spmm_ell_packed, spmv_ell_packed
 from .gpr import GPCSR, pack_gpr, spmm_gpr, spmv_gpr
+from .permute import (PermutationPlan, apply_permutation,
+                      apply_permutation_batched, apply_tile_permutation,
+                      plan_permutation, plan_permutation_auto,
+                      plan_tile_permutation)
 
 __all__ = ["SDIA", "PSDIA", "pack_sdia", "pack_psdia", "detect_period",
            "supports_sdia", "spmv_sdia", "spmv_psdia", "spmm_sdia",
            "spmm_psdia",
            "GPCSR", "pack_gpr", "spmv_gpr", "spmm_gpr",
-           "PackedELL", "pack_ell", "spmv_ell_packed", "spmm_ell_packed"]
+           "PackedELL", "pack_ell", "spmv_ell_packed", "spmm_ell_packed",
+           "PermutationPlan", "plan_permutation", "plan_permutation_auto",
+           "plan_tile_permutation", "apply_permutation",
+           "apply_permutation_batched", "apply_tile_permutation"]

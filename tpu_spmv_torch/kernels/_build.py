@@ -28,7 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = ("dia_stream.cu", "general.cu", "dist_stream.cu")
+_SOURCES = ("dia_stream.cu", "general.cu", "dist_stream.cu", "permute.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,6 +57,8 @@ _SIGNATURES = {
     "tsp_sdia_ring_f64": [_P, _P, _I, _P, _P, _P, _P, _I64, _I64, _P],
     "tsp_psdia_ring_f32": [_P, _P, _I, _I64] + [_P] * 4 + [_I64] * 5 + [_P],
     "tsp_psdia_ring_f64": [_P, _P, _I, _I64] + [_P] * 4 + [_I64] * 5 + [_P],
+    "tsp_permute_gather": [_P, _P, _I, _P, _I64, _I, _P],
+    "tsp_permute_gather_batched": [_P, _P, _I, _P, _I64, _I, _I, _P],
 }
 
 

@@ -1,9 +1,9 @@
 """Streaming DIA — the SpMV kernels K1 (SDIA) and K2 (PSDIA) and their
 multi-RHS forms K3a and K3b.
 
-Counterpart of ``tpu_spmv/kernels/dia_stream.py`` (forward part).  The
-packs keep the reference's padded-row-space contract and dataclass fields,
-so a JAX pack carries over unchanged (:mod:`..interop`):
+Counterpart of ``tpu_spmv/kernels/dia_stream.py``.  The packs keep the
+reference's padded-row-space contract and dataclass fields, so a JAX pack
+carries over unchanged (:mod:`..interop`):
 
 - ``xpad[k] = x[k - L]``; the front pad ``L`` and the back pad are whole
   row tiles of ``rb`` rows, and every row ``k`` of ``[L, L + nrow)`` reads
@@ -12,6 +12,11 @@ so a JAX pack carries over unchanged (:mod:`..interop`):
   out-of-range slots; :class:`PSDIA` holds one row tile of a periodic
   pattern (grid stencils) and zeroes the rows outside ``[L, L + nrow)``;
 - the pads of y stay exactly zero, so padded products chain;
+- ``transpose_sdia`` / ``transpose_psdia`` give ``A^T`` as another pack
+  of the same kind (the same kernels run it), and ``spmv_sdia`` /
+  ``spmv_psdia`` are differentiable in ``x`` and in ``A.data`` /
+  ``A.pattern`` (the reference's custom VJPs as autograd Functions: ``x``'s
+  gradient is K1/K2 on the transposed pack);
 - the SpMM keeps the reference's transposed layout: ``Xt_pad`` and
   ``Yt_pad`` are ``[nrhs, npad]``, one padded row space per right-hand
   side (:func:`spmm_sdia_padded_t`); :func:`spmm_sdia` takes plain
@@ -31,6 +36,7 @@ decides the padding.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
@@ -44,6 +50,7 @@ from . import _build
 
 __all__ = ["SDIA", "PSDIA", "LAUNCHES", "pack_sdia", "supports_sdia",
            "detect_period", "pack_psdia", "pad_x", "unpad_y",
+           "transpose_sdia", "transpose_psdia",
            "spmv_sdia_padded", "spmv_sdia_padded_ref", "spmv_sdia",
            "spmv_psdia_padded", "spmv_psdia_padded_ref", "spmv_psdia",
            "spmm_sdia_padded_t", "spmm_sdia_padded_t_ref", "spmm_sdia",
@@ -443,17 +450,136 @@ def spmv_psdia_padded(A: PSDIA, xpad: torch.Tensor) -> torch.Tensor:
     return y
 
 
+# ---------------------------------------------------------------------------
+# transposes and the reverse-mode rules
+# ---------------------------------------------------------------------------
+
+
+def _place_shifted(v: torch.Tensor, s: int, npad_dst: int) -> torch.Tensor:
+    """``out[k] = v[k - s]`` with exact zero fill (``out`` has
+    ``npad_dst`` slots) — pad and slice, no wraparound."""
+    npad_src = int(v.shape[0])
+    lo = max(0, s)
+    hi = min(npad_dst, npad_src + s)
+    if hi <= lo:
+        return v.new_zeros(npad_dst)
+    return F.pad(v[lo - s:hi - s], (lo, npad_dst - hi))
+
+
+def transpose_sdia(A: SDIA) -> SDIA:
+    """``A^T`` as another streaming operator — per-diagonal zero-filled
+    shifts of the (already padded) data block.
+
+    ``A^T[i, i+o'] = A[i+o', i]`` with ``o' = -o``, so in padded row space
+    ``dataT[d', k] = data[d, k - s_d]`` with ``s_d = L_T - L + o``.
+    Out-of-range slots stay exactly zero, so the pads stay structural
+    zeros (the reference's derivation and layout)."""
+    nrow, ncol = A.shape
+    offs_T = [-int(o) for o in A.offsets]
+    order = sorted(range(len(offs_T)), key=lambda d: offs_T[d])
+    lo_T = max(0, -min(offs_T))
+    hi_T = max(0, max(offs_T))
+    L_T = _roundup(lo_T, A.rb) if lo_T else 0
+    U_T = _roundup(hi_T, A.rb) if hi_T else 0
+    npad_T = L_T + _roundup(nrow, A.rb) + U_T
+    rows = [_place_shifted(A.data[d], L_T - A.L + int(A.offsets[d]), npad_T)
+            for d in order]
+    return SDIA(data=torch.stack(rows),
+                offsets=tuple(offs_T[d] for d in order),
+                shape=(ncol, nrow), nnz=A.nnz, L=L_T, rb=A.rb)
+
+
+def transpose_psdia(A: PSDIA) -> PSDIA:
+    """``A^T`` as another periodic operator: a cyclic roll of each pattern
+    row (a shift of a P-periodic diagonal is a roll of its pattern, and
+    ``rb % P == 0`` keeps the tiled layout)."""
+    offs_T = [-int(o) for o in A.offsets]
+    order = sorted(range(len(offs_T)), key=lambda d: offs_T[d])
+    pat_T = torch.stack([torch.roll(A.pattern[d], -offs_T[d])
+                         for d in order])
+    offsets_T = tuple(offs_T[d] for d in order)
+    lo_T = max(0, -min(offsets_T))
+    L_T = _roundup(lo_T, A.rb) if lo_T else 0
+    return PSDIA(pattern=pat_T, offsets=offsets_T,
+                 shape=(A.shape[1], A.shape[0]), nnz=A.nnz, L=L_T,
+                 period=A.period, rb=A.rb)
+
+
+def _coef_bar(A, g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``[ndiags, npad]`` rows ``g_pad[k] * x_pad[k + off_d]``.  Pads and
+    out-of-range slots come out exactly zero: ``g_pad`` is zero outside
+    the real rows, and a real row ``k`` reads ``k + off_d`` inside
+    ``[0, npad)``, so the roll's wrap-around meets only zero ``g_pad``."""
+    gp = pad_x(A, g)
+    xp = pad_x(A, x)
+    return torch.stack([gp * torch.roll(xp, -int(off)) for off in A.offsets])
+
+
+class _SpmvSDIA(torch.autograd.Function):
+    """``unpad(K1(A, pad(x)))``, differentiable in ``A.data`` and ``x``
+    (the reference's ``_spmv_sdia_bwd``):
+
+    - ``x_bar = A^T g`` — K1 on :func:`transpose_sdia`;
+    - ``data_bar[d, k] = g_pad[k] * x_pad[k + off_d]``."""
+
+    @staticmethod
+    def forward(ctx, data, x, A):
+        A = dataclasses.replace(A, data=data)
+        ctx.A = A
+        ctx.save_for_backward(data, x)
+        return unpad_y(A, spmv_sdia_padded(A, pad_x(A, x)))
+
+    @staticmethod
+    def backward(ctx, g):
+        data, x = ctx.saved_tensors
+        A = dataclasses.replace(ctx.A, data=data)
+        g = g.contiguous()
+        data_bar = _coef_bar(A, g, x) if ctx.needs_input_grad[0] else None
+        x_bar = (spmv_sdia(transpose_sdia(A), g)
+                 if ctx.needs_input_grad[1] else None)
+        return data_bar, x_bar, None
+
+
+class _SpmvPSDIA(torch.autograd.Function):
+    """``unpad(K2(A, pad(x)))``, differentiable in ``A.pattern`` and ``x``
+    (the reference's ``_spmv_psdia_bwd``):
+
+    - ``x_bar = A^T g`` — K2 on :func:`transpose_psdia`;
+    - ``pattern_bar[d, j] = sum_t (g_pad * shift(x_pad, off_d))[t*rb + j]``,
+      a fold of the padded row space over its row tiles."""
+
+    @staticmethod
+    def forward(ctx, pattern, x, A):
+        A = dataclasses.replace(A, pattern=pattern)
+        ctx.A = A
+        ctx.save_for_backward(pattern, x)
+        return unpad_y(A, spmv_psdia_padded(A, pad_x(A, x)))
+
+    @staticmethod
+    def backward(ctx, g):
+        pattern, x = ctx.saved_tensors
+        A = dataclasses.replace(ctx.A, pattern=pattern)
+        g = g.contiguous()
+        pattern_bar = (_coef_bar(A, g, x).reshape(A.ndiags, -1, A.rb).sum(1)
+                       if ctx.needs_input_grad[0] else None)
+        x_bar = (spmv_psdia(transpose_psdia(A), g)
+                 if ctx.needs_input_grad[1] else None)
+        return pattern_bar, x_bar, None
+
+
 def spmv_sdia(A: SDIA, x: torch.Tensor,
               y: torch.Tensor | None = None) -> torch.Tensor:
-    """``A @ x`` (+ ``y``) with plain ``[n]`` vectors (pads internally)."""
-    out = unpad_y(A, spmv_sdia_padded(A, pad_x(A, x)))
+    """``A @ x`` (+ ``y``) with plain ``[n]`` vectors (pads internally);
+    differentiable in ``x`` and ``A.data`` (:class:`_SpmvSDIA`)."""
+    out = _SpmvSDIA.apply(A.data, x, A)
     return out if y is None else y + out
 
 
 def spmv_psdia(A: PSDIA, x: torch.Tensor,
                y: torch.Tensor | None = None) -> torch.Tensor:
-    """``A @ x`` (+ ``y``) with plain ``[n]`` vectors (pads internally)."""
-    out = unpad_y(A, spmv_psdia_padded(A, pad_x(A, x)))
+    """``A @ x`` (+ ``y``) with plain ``[n]`` vectors (pads internally);
+    differentiable in ``x`` and ``A.pattern`` (:class:`_SpmvPSDIA`)."""
+    out = _SpmvPSDIA.apply(A.pattern, x, A)
     return out if y is None else y + out
 
 

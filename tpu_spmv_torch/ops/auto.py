@@ -4,7 +4,9 @@ Counterpart of ``tpu_spmv/ops/auto.py``.  :func:`plan_spmv` inspects the
 sparsity pattern once, on the host, and returns a plan: the operator packed
 for the kernel that fits it, on the device the caller names (the card
 unless the caller asks for the CPU).  Calling the plan is ``plan(x)``;
-``plan.spmm(X)`` is the multi-RHS product with the strategy's SpMM kernel.
+``plan.spmm(X)`` is the multi-RHS product with the strategy's SpMM kernel,
+``plan.transpose()`` the plan of ``A^T`` and ``plan.matvec_differentiable()``
+a matvec whose gradient in ``x`` runs the transpose plan.
 
 The DIA arm keeps the reference's order: when the DIA storage is at most
 4x nnz and no more than block-DIA storage,
@@ -40,6 +42,7 @@ gets ``"csr"``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import numpy as np
@@ -50,6 +53,7 @@ from ..formats import COO, CSR, DIA, to_coo
 from ..kernels import dia_stream, ell_packed, gpr
 from .spmm import spmm
 from .spmv import spmv
+from .transpose import transpose
 
 __all__ = ["PatternStats", "SpmvPlan", "analyze", "plan_spmv",
            "plan_from_matrix", "general_strategy"]
@@ -127,6 +131,9 @@ _GENERAL = {"gpr": gpr.spmv_gpr, "pallas_ell": ell_packed.spmv_ell_packed}
 _SPMM = {"pdia_stream": dia_stream.spmm_psdia,
          "dia_stream": dia_stream.spmm_sdia, "gpr": gpr.spmm_gpr,
          "pallas_ell": ell_packed.spmm_ell_packed}
+#: strategy -> the strategy of its transpose (the reference's swap table)
+_TRANSPOSED = {"csr": "csc", "csc": "csr", "coo": "coo", "dia": "dia",
+               "dia_stream": "dia_stream", "pdia_stream": "pdia_stream"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,6 +174,45 @@ class SpmvPlan:
         with the strategy's SpMM kernel; a non-contiguous ``X`` is copied
         into the kernels' row-major layout first."""
         return _SPMM.get(self.strategy, spmm)(self.matrix, X.contiguous())
+
+    def transpose(self) -> "SpmvPlan":
+        """The plan for ``A^T``, on the device (:mod:`.transpose`): CSR ↔
+        CSC, COO and DIA in place, the streaming packs through
+        ``transpose_sdia`` / ``transpose_psdia`` (the same kernels).  The
+        packed strategies (``gpr`` / ``pallas_ell``) raise: re-plan from
+        the host matrix (``plan_spmv(mat.T)``)."""
+        if self.strategy not in _TRANSPOSED:
+            raise TypeError(
+                f"strategy {self.strategy!r} has no in-place transpose; "
+                f"re-plan from the host matrix: plan_spmv(mat.T)")
+        return plan_from_matrix(transpose(self.matrix),
+                                _TRANSPOSED[self.strategy], self.stats)
+
+    def matvec_differentiable(self, plan_T: "SpmvPlan | None" = None):
+        """A matvec ``mv(x)`` differentiable in ``x`` (matrix held fixed):
+        its backward is ``x_bar = A^T g``, the forward of ``plan_T``.
+
+        Strategies with an in-place transpose get ``plan_T`` from
+        :meth:`transpose`; packed strategies (``gpr`` / ``pallas_ell``)
+        pass one, e.g. ``plan_spmv(mat.T)`` (for a symmetric matrix the
+        plan itself).  Matrix-value gradients come from the streaming
+        packs' own rules (``spmv_sdia`` / ``spmv_psdia``)."""
+        if plan_T is None:
+            plan_T = self.transpose()
+        return functools.partial(_PlanMatvec.apply, self, plan_T)
+
+
+class _PlanMatvec(torch.autograd.Function):
+    """``plan(x)`` whose backward runs ``plan_T(g)``."""
+
+    @staticmethod
+    def forward(ctx, plan, plan_T, x):
+        ctx.plan_T = plan_T
+        return plan(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, ctx.plan_T(g.contiguous())
 
 
 def plan_from_matrix(matrix, strategy: str,

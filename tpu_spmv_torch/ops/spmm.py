@@ -1,11 +1,11 @@
 """Sparse matrix × dense matrix (SpMM, multi-RHS SpMV) in plain PyTorch.
 
 Counterpart of ``tpu_spmv/ops/spmm.py`` for the formats the port has (COO,
-CSR, DIA).  Convention: ``X`` is ``[ncol, nrhs]``, the result is
+CSR, CSC, DIA).  Convention: ``X`` is ``[ncol, nrhs]``, the result is
 ``[nrow, nrhs]``.
 
 The reductions are :mod:`.spmv`'s with a trailing RHS axis, row-owned and
-deterministic: COO/CSR gather the rows of ``X``, multiply, and sum each
+deterministic: COO/CSR/CSC gather the rows of ``X``, multiply, and sum each
 row's run of products with ``torch.segment_reduce`` along axis 0; DIA is a
 static loop of shifted dense FMAs over a zero-padded ``X``.
 """
@@ -15,10 +15,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..formats import COO, CSR, DIA
+from ..formats import COO, CSC, CSR, DIA
 from .spmv import _row_sums
 
-__all__ = ["spmm", "spmm_coo", "spmm_csr", "spmm_dia"]
+__all__ = ["spmm", "spmm_coo", "spmm_csr", "spmm_csc", "spmm_dia"]
 
 
 def _check_rhs(X: torch.Tensor) -> None:
@@ -44,6 +44,14 @@ def spmm_csr(A: CSR, X: torch.Tensor) -> torch.Tensor:
     return _row_sums(A.data[:, None] * X[A.indices], A.indptr)
 
 
+def spmm_csc(A: CSC, X: torch.Tensor) -> torch.Tensor:
+    """CSC SpMM: the entries in row order, summed per row (as
+    :func:`.spmv.spmv_csc`)."""
+    _check_rhs(X)
+    order = A.row_order
+    return _row_sums(A.data[order][:, None] * X[A.col_ids[order]], A.row_ptr)
+
+
 def spmm_dia(A: DIA, X: torch.Tensor) -> torch.Tensor:
     """DIA SpMM: one shifted FMA per diagonal over a row-padded ``X``."""
     _check_rhs(X)
@@ -58,11 +66,11 @@ def spmm_dia(A: DIA, X: torch.Tensor) -> torch.Tensor:
     return out
 
 
-_DISPATCH = {COO: spmm_coo, CSR: spmm_csr, DIA: spmm_dia}
+_DISPATCH = {COO: spmm_coo, CSR: spmm_csr, CSC: spmm_csc, DIA: spmm_dia}
 
 
 def spmm(A, X: torch.Tensor) -> torch.Tensor:
-    """``A @ X`` for COO, CSR and DIA, ``X: [ncol, nrhs]``."""
+    """``A @ X`` for COO, CSR, CSC and DIA, ``X: [ncol, nrhs]``."""
     try:
         fn = _DISPATCH[type(A)]
     except KeyError:

@@ -1,4 +1,4 @@
-"""Sparse matrix–vector products for COO, CSR and DIA in plain PyTorch.
+"""Sparse matrix–vector products for COO, CSR, CSC and DIA in plain PyTorch.
 
 Counterpart of the XLA-level arms of ``tpu_spmv/ops/spmv.py``.
 ``spmv(A, x)`` returns ``A @ x``; ``spmv(A, x, y)`` returns ``y + A @ x``.
@@ -12,6 +12,9 @@ use atomics on CUDA:
   or for sorted COO the offsets found by ``searchsorted``).  Each segment
   is reduced by one owner in a fixed order, so no two rows race and the
   order never changes from run to run.
+- CSC gathers its entries in the stable row order it computed at
+  construction and takes the same segment sum over its row offsets (the
+  reference's unsorted ``segment_sum`` would be a scatter here).
 - DIA is a static loop of shifted dense FMAs over a zero-padded ``x``.
 """
 
@@ -20,9 +23,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..formats import COO, CSR, DIA
+from ..formats import COO, CSC, CSR, DIA
 
-__all__ = ["spmv", "spmv_coo", "spmv_csr", "spmv_dia"]
+__all__ = ["spmv", "spmv_coo", "spmv_csr", "spmv_csc", "spmv_dia"]
 
 
 def _finish(ax: torch.Tensor, y: torch.Tensor | None) -> torch.Tensor:
@@ -50,6 +53,15 @@ def spmv_csr(A: CSR, x: torch.Tensor,
     return _finish(_row_sums(A.data * x[A.indices], A.indptr), y)
 
 
+def spmv_csc(A: CSC, x: torch.Tensor,
+             y: torch.Tensor | None = None) -> torch.Tensor:
+    """CSC SpMV: the entries in row order, ``data * x[col]`` summed per
+    row over the row offsets (row-owned, no scatter)."""
+    order = A.row_order
+    prod = A.data[order] * x[A.col_ids[order]]
+    return _finish(_row_sums(prod, A.row_ptr), y)
+
+
 def spmv_dia(A: DIA, x: torch.Tensor,
              y: torch.Tensor | None = None) -> torch.Tensor:
     """DIA SpMV: one unit-stride FMA per diagonal over a padded ``x``
@@ -65,11 +77,11 @@ def spmv_dia(A: DIA, x: torch.Tensor,
     return _finish(ax, y)
 
 
-_DISPATCH = {COO: spmv_coo, CSR: spmv_csr, DIA: spmv_dia}
+_DISPATCH = {COO: spmv_coo, CSR: spmv_csr, CSC: spmv_csc, DIA: spmv_dia}
 
 
 def spmv(A, x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
-    """``A @ x`` (or ``y + A @ x``) for COO, CSR and DIA."""
+    """``A @ x`` (or ``y + A @ x``) for COO, CSR, CSC and DIA."""
     try:
         fn = _DISPATCH[type(A)]
     except KeyError:
