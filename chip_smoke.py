@@ -9,9 +9,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. toolchain — Python, torch and CUDA versions, ``nvcc --version``, the
    card's name and power limit;
 2. build — ``nvcc`` compiles ``tpu_spmv_torch/csrc/dia_stream.cu``,
-   ``general.cu``, ``dist_stream.cu`` and ``permute.cu`` for ``sm_90a``
-   (one process each, started together) into one library under
-   ``build/tpu_spmv_torch/``;
+   ``general.cu``, ``dist_stream.cu``, ``permute.cu`` and ``probes.cu``
+   for ``sm_90a`` (one process each, started together) into one library
+   under ``build/tpu_spmv_torch/``;
 3. kernels against their plain PyTorch versions on small operands, f32 and
    f64, each against the plain version (rel 1e-6 f32, 1e-13 f64), against
    scipy float64 (2e-5 f32, 1e-10 f64) and for bitwise reproducibility:
@@ -29,7 +29,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``apply_permutation`` at n = 1000, 16384, 60000, 99991 and
    ``apply_tile_permutation``) and ``permute_gather_batched`` (1, 3, 32, 40
    RHS), bitwise against their plain versions and ``x[perm]``, with and
-   without don't-care slots, and reproducible;
+   without don't-care slots, and reproducible; the probe kernels
+   ``copy_scale`` (K9), ``launch_probe`` (T1), ``segsum8`` (T2) and every
+   ``tile_permute`` variant of T3/T4 at the probes' shapes, bitwise against
+   their plain versions (and the tile variants against the numpy
+   composition of each probe's kernel body), reproducible; the block
+   formats' products (ELL, BSR, BDIA; torch code) with 0, 1, 3 and 32
+   right-hand sides on ``bus420.mtx`` and ``block_laplacian(12, bs=8)``,
+   f32 and f64, against the CPU path and scipy, reproducible;
 4. the main paths at full size, each with the launch counters zeroed just
    before it and read just after:
    a. streaming DIA: the 4096x4096-grid 2-D Poisson (16,777,216 rows,
@@ -78,12 +85,34 @@ Phases, in order; any failure raises and the script exits non-zero:
       ``plan_spmv(P.T)``, against scipy; the screened Poisson
       ``shift_diagonal(PSDIA, 1.0)`` with 40 CG iterations, true residual
       <= 1e-5 (the reference's ``cg16m_ms_iter`` leg);
-5. each kernel at the main paths' shapes against its plain version, timed
+   f. block formats: ``block_laplacian(512, bs=8)`` (2,097,152 rows,
+      83,755,008 nonzeros, float32) through ``plan_spmv`` to ``bdia``,
+      against scipy, and ``plan.spmm`` with 32 right-hand sides; the same
+      operand with BSR forced and with the general arm forced (its sliced
+      ELL or GPR kernel); the SPD form B + B^T + diag(row sums of |B + B^T|
+      + 1) through ``plan_spmv`` to ``bdia`` with 50 fixed CG iterations;
+      ``block_laplacian(64, bs=8)`` (the reference's ``bsr_gflops``
+      operand); f64 CG to a true residual <= 1e-10 on the SPD form at 32;
+      ``plan_dist_spmv`` of the 512 operand at 1 and 4 shards on the one
+      card (``bdia``) against the single-chip plan, and f64 ``dist_cg`` at 4
+      shards over it on the SPD form at 32, true residual <= 1e-10; ELL
+      forced on ``random_sparse(100000, 100000, 7e-5)`` against sliced ELL
+      (K4);
+5. the probe path first (``run_probes``: ``copy_scale`` and torch's
+   ``copy_`` over 256 MiB, whose higher rate is the roofline's peak, the
+   launch probe once and four in a row, ``segsum8`` and every
+   ``tile_permute`` variant at the probes' shapes), its launch counters
+   zeroed before it; then each kernel at the main paths' shapes against its plain version, timed
    (CUDA events, median) beside its bound and one library call of the
    same function, a yardstick the port never calls (cuSPARSE:
    ``torch.sparse_csr_tensor @ x``, ``torch.sparse.mm`` for the SpMMs;
    ``torch.index_select`` for the gathers); each SpMM also beside
-   ``plan.spmm`` end to end and 32 times its SpMV kernel.
+   ``plan.spmm`` end to end and 32 times its SpMV kernel; the probe
+   kernels beside their plain versions, bounds and one library call
+   (``torch.mul``, ``copy_``, ``sum``, ``take_along_dim``); the block
+   products ``spmv_bdia``, ``spmv_bsr`` and ``spmm_bdia`` (32 RHS) at 512
+   beside their bounds and cuSPARSE BSR (``torch.sparse_bsr_tensor``, or
+   the CSR product where torch refuses BSR on CUDA).
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
@@ -263,6 +292,41 @@ def backward_errors(A, coef: str, fn, m, x64, g64, dt) -> tuple:
             float((cg.cpu() - cg_cpu).abs().max() / cg_cpu.abs().max()))
 
 
+def numpy_tile_variant(name: str, t3: dict, t4: dict):
+    """The numpy composition of one probe's Pallas kernel body
+    (``tools/profile_sublane.py``, ``tools/prof_tgtg_mxu.py``)."""
+    import numpy as np
+
+    def tak(z, idx, axis):
+        return np.take_along_axis(z, idx.astype(np.int64), axis=axis)
+
+    def sum8(a):
+        a = a.reshape(*a.shape[:-1], 16, 8)
+        s = a[..., 0].copy()
+        for k in range(1, 8):
+            s = (s + a[..., k]).astype(np.float32)
+        return s
+
+    z, g = t3["z"], t3["g"]
+    T, Q = z.shape[0], z.shape[1]
+    if name == "S":
+        return tak(z, g, 1)
+    if name == "G-S-G":
+        return tak(tak(tak(z, g, 2), g, 1), g, 2)
+    if name.startswith("exchange"):
+        zz = tak(tak(z.reshape(T * Q, Q)[t3["rowsrc"]].reshape(T, Q, Q), g,
+                     1), g, 2)
+        return sum8(zz * z) if name.endswith("psum8") else zz
+    if name == "s1v2":
+        rows = tak(t3["x2d"][t3["gseg"]], t3["glidx"], 1).reshape(T, 88, Q)
+        zz = np.concatenate([rows, np.zeros((T, Q - 88, Q), np.float32)], 1)
+        return tak(tak(zz, g, 1), g, 2)
+    Z = t4["Z"]
+    zz = tak(np.swapaxes(Z, -1, -2), np.broadcast_to(t4["g2"], Z.shape), -1)
+    return tak(np.swapaxes(zz, -1, -2), np.broadcast_to(t4["g3"], Z.shape),
+               -1)
+
+
 def main() -> int:
     import torch
 
@@ -279,6 +343,7 @@ def main() -> int:
 
     from tpu_spmv_torch import dist as tdist
     from tpu_spmv_torch import utils
+    from tpu_spmv_torch.bench import probes as pr
     from tpu_spmv_torch.bench.harness import (time_chained, time_fn,
                                               verify_against_oracle)
     from tpu_spmv_torch.bench.roofline import (measured_copy_gbps,
@@ -290,7 +355,9 @@ def main() -> int:
     from tpu_spmv_torch.kernels import ell_packed as ell
     from tpu_spmv_torch.kernels import gpr
     from tpu_spmv_torch.kernels import permute as pk
-    from tpu_spmv_torch.ops.auto import plan_from_matrix, plan_spmv
+    from tpu_spmv_torch.ops.auto import (general_strategy, plan_from_matrix,
+                                         plan_spmv)
+    from tpu_spmv_torch.ops import spmm, spmv
     from tpu_spmv_torch.ops.shift import shift_diagonal
     from tpu_spmv_torch.ops.spmm import spmm_coo
     from tpu_spmv_torch.reorder import rcm_permutation, reorder_plan
@@ -516,6 +583,76 @@ def main() -> int:
             f"apply_tile_permutation {dt}")
     print("apply_tile_permutation [128, 128] f32 and f64: bitwise equal to "
           "the plain version and permute_reference")
+
+    # the probe kernels, bitwise against their plain versions (which fix
+    # the kernels' order of operations) and reproducible; tile_permute
+    # also against the numpy composition of each probe's kernel body
+    xc = torch.rand((1 << 20) + 3, device=dev)
+    tile = torch.rand(pr.Q, pr.Q, device=dev)
+    v2 = torch.from_numpy(pr.t2_operand()).to(dev)
+    for kern, plain, arg, label in (
+            (pr.copy_scale, pr.copy_scale_ref, xc, "copy_scale 2^20+3"),
+            (pr.copy_scale, pr.copy_scale_ref, xc[1:],
+             "copy_scale 2^20+2, 4-byte offset (scalar path)"),
+            (pr.launch_probe, pr.launch_probe_ref, tile, "launch_probe"),
+            (pr.segsum8, pr.segsum8_ref, v2, "segsum8 [16, 512, 128]")):
+        y1, y2, yr = kern(arg), kern(arg), plain(arg)
+        torch.cuda.synchronize()
+        require(torch.equal(y1, y2) and torch.equal(y1, yr), label)
+    print("copy_scale, launch_probe, segsum8: bitwise equal to their plain "
+          "versions, reproducible")
+    t3, t4 = pr.t3_operands(), pr.t4_operands()
+    for vname, (prog, src, mul, psum8) in pr.tile_variants(t3, t4,
+                                                           dev).items():
+        y1, y2 = (pr.tile_permute(prog, src, mul, psum8),
+                  pr.tile_permute(prog, src, mul, psum8))
+        yr = pr.tile_permute_ref(prog, src, mul, psum8)
+        torch.cuda.synchronize()
+        same_np = np.array_equal(y1.cpu().numpy(),
+                                 numpy_tile_variant(vname, t3, t4))
+        print(f"tile_permute {vname:24s} {tuple(y1.shape)}: bitwise equal to "
+              f"the plain version {torch.equal(y1, yr)}, to numpy "
+              f"{same_np}, reproducible {torch.equal(y1, y2)}")
+        require(torch.equal(y1, yr) and same_np and torch.equal(y1, y2),
+                f"tile_permute {vname}")
+    del xc, tile, v2
+
+    # the block formats' products (torch code) on the card: 1, 3 and 32
+    # right-hand sides, against the same code on the CPU and scipy
+    block_small = {"bus420.mtx": general_small["bus420.mtx"],
+                   "block_laplacian(12)": utils.block_laplacian(12, bs=8)}
+    for name, m in block_small.items():
+        x64 = rng.random(m.shape[1])
+        for dt in (torch.float32, torch.float64):
+            dname = str(dt).removeprefix("torch.")
+            for fmt in ("ell", "bsr", "bdia"):
+                Ah = convert(COO.from_scipy(m, dtype=dt), fmt)
+                A = Ah.to(dev)
+                errs = []
+                for nrhs in (0, 1, 3, 32):
+                    if nrhs:
+                        X64 = rng.random((m.shape[1], nrhs))
+                        fn = spmm
+                    else:
+                        X64, fn = x64, spmv
+                    Xd = torch.tensor(X64, dtype=dt, device=dev)
+                    y1, y2 = fn(A, Xd), fn(A, Xd)
+                    yc = fn(Ah, Xd.cpu())
+                    torch.cuda.synchronize()
+                    e_cpu = float((y1.cpu() - yc).abs().max()
+                                  / yc.abs().max())
+                    e_sc = rel_err(y1.cpu(), m @ X64)
+                    require(e_cpu <= PLAIN_TOL[dname]
+                            and e_sc <= ORACLE_TOL[dname]
+                            and torch.equal(y1, y2),
+                            f"{fmt} {name} {dname} nrhs={nrhs}: vs CPU "
+                            f"{e_cpu:.2e}, vs scipy {e_sc:.2e}")
+                    errs.append((e_cpu, e_sc))
+                print(f"{fmt:4s} {name:19s} {dname}: spmv and spmm (1, 3, 32 "
+                      f"RHS) vs the CPU path <= "
+                      f"{max(e for e, _ in errs):.2e} | vs scipy <= "
+                      f"{max(e for _, e in errs):.2e} | bitwise "
+                      f"reproducible")
 
     # -- 4a. streaming-DIA main path at full size ---------------------------
     print("== 4a. streaming-DIA main path (counters zeroed)")
@@ -1139,10 +1276,190 @@ def main() -> int:
     for k in ("permute", "permute_batched", "sdia", "psdia", "gpr"):
         require(elaunches[k] > 0, f"{k} never launched in 4e")
 
+    # -- 4f. block formats at full width ----------------------------------
+    print("== 4f. block formats: BDIA through the planners, BSR and ELL "
+          "forced (counters zeroed)")
+    t0 = time.perf_counter()
+    blap = utils.block_laplacian(512, bs=8, seed=0)
+    print(f"block_laplacian(512, bs=8): {blap.shape[0]} rows, {blap.nnz} nnz "
+          f"(scipy build {time.perf_counter() - t0:.1f} s)")
+    require(blap.nnz == 83_755_008, f"block_laplacian(512) nnz {blap.nnz}")
+    counters = (*counters, pr.LAUNCHES)
+    zero(*counters)
+    t0 = time.perf_counter()
+    plan_b = plan_spmv(blap, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    Bd = plan_b.matrix
+    print(f"plan_spmv: strategy={plan_b.strategy} ndiags={Bd.ndiags} "
+          f"offsets={Bd.offsets} nbrow={Bd.nbrow} ({Bd.data.numel()} slots, "
+          f"{Bd.data.numel() / blap.nnz:.4f} x nnz; host planning "
+          f"{time.perf_counter() - t0:.2f} s)")
+    require(plan_b.strategy == "bdia", f"block PDE planned to "
+            f"{plan_b.strategy}")
+    xb64 = rng.random(blap.shape[1])
+    xb512 = torch.tensor(xb64, dtype=torch.float32, device=dev)
+    rel = verify_against_oracle(Bd, xb512, plan_b(xb512), oracle=blap)
+    print(f"plan(x) via bdia vs scipy f64: rel err {rel:.2e}")
+    X512 = torch.rand(blap.shape[1], NRHS, generator=gen, device=dev)
+    rel = verify_against_oracle(Bd, X512, plan_b.spmm(X512), oracle=blap)
+    print(f"plan.spmm(X) via bdia, {NRHS} RHS, vs scipy f64: rel err "
+          f"{rel:.2e}")
+
+    t0 = time.perf_counter()
+    mc = blap.tocoo()
+    hb = COO.from_arrays(mc.row, mc.col, mc.data, blap.shape,
+                         dtype=torch.float32, sort=False)
+    Bsr = convert(hb, "bsr", block_size=8).to(dev)
+    bsr_s = time.perf_counter() - t0
+    rel = verify_against_oracle(Bsr, xb512, spmv(Bsr, xb512), oracle=blap)
+    print(f"BSR forced: {Bsr.nblocks} blocks of 8x8 ({bsr_s:.2f} s to "
+          f"convert): rel err vs scipy {rel:.2e}")
+    del hb, mc
+    gstrategy = general_strategy(np.diff(blap.indptr), blap.nnz, 4)
+    t0 = time.perf_counter()
+    Bg = (gpr.pack_gpr if gstrategy == "gpr" else ell.pack_ell)(
+        blap, dtype=torch.float32, device=dev)
+    gpack_s = time.perf_counter() - t0
+    gkern = gpr.spmv_gpr if gstrategy == "gpr" else ell.spmv_ell_packed
+    rel = verify_against_oracle(Bg, xb512, gkern(Bg, xb512), oracle=blap)
+    bg_ms = time_fn(gkern, Bg, xb512, iters=20).median_s * 1e3
+    bd_ms = time_fn(plan_b, xb512, iters=20).median_s * 1e3
+    print(f"general arm forced ({gstrategy}, pack {gpack_s:.2f} s): rel err "
+          f"vs scipy {rel:.2e} | {bg_ms:.4f} ms per SpMV against the bdia "
+          f"plan's {bd_ms:.4f} ms")
+    del Bg
+
+    t0 = time.perf_counter()
+    bsym = (blap + blap.T).tocsr()
+    bspd = (bsym + sp.diags(np.asarray(abs(bsym).sum(axis=1)).ravel()
+                            + 1.0)).tocsr()
+    del bsym
+    plan_bs = plan_spmv(bspd, dtype=torch.float32, device=dev)
+    print(f"SPD form B + B^T + diag: {bspd.nnz} nnz -> {plan_bs.strategy} "
+          f"({time.perf_counter() - t0:.1f} s to build and plan)")
+    require(plan_bs.strategy == "bdia", f"SPD block form planned to "
+            f"{plan_bs.strategy}")
+    bb = torch.tensor(bspd @ rng.random(bspd.shape[0]), dtype=torch.float32,
+                      device=dev)
+    run = cg_runner(plan_bs, iters=50, report_tol=1e-5)
+    run(bb)                                  # warm-up
+    start.record()
+    res = run(bb)
+    end.record()
+    end.synchronize()
+    cg_b_ms = start.elapsed_time(end) / 50
+    r50 = float(torch.linalg.norm(bb - plan_bs(res.x)) / torch.linalg.norm(bb))
+    print(f"cg_runner(iters=50) f32 on the SPD block form via bdia: "
+          f"{cg_b_ms:.4f} ms/iter | true rel residual 1.0 -> {r50:.3e}")
+    require(np.isfinite(r50) and r50 < 0.1, "block CG residual did not fall")
+    del bspd, plan_bs, bb, res, run
+
+    b64m = utils.block_laplacian(64, bs=8)
+    p64 = plan_spmv(b64m, dtype=torch.float32, device=dev)
+    x64b = torch.tensor(rng.random(b64m.shape[1]), dtype=torch.float32,
+                        device=dev)
+    rel = verify_against_oracle(p64.matrix, x64b, p64(x64b), oracle=b64m)
+    print(f"block_laplacian(64, bs=8) (the reference's bsr_gflops operand): "
+          f"{b64m.shape[0]} rows -> {p64.strategy}, rel err vs scipy "
+          f"{rel:.2e}")
+    require(p64.strategy == "bdia", f"block_laplacian(64) planned to "
+            f"{p64.strategy}")
+    del p64, x64b
+
+    s32 = utils.block_laplacian(32, bs=8)
+    s32 = (s32 + s32.T).tocsr()
+    s32 = (s32 + sp.diags(np.asarray(abs(s32).sum(axis=1)).ravel()
+                          + 1.0)).tocsr()
+    plan_s32 = plan_spmv(s32, dtype=torch.float64, device=dev)
+    b32 = rng.random(s32.shape[0])
+    res64 = cg(plan_s32, torch.tensor(b32, device=dev), tol=1e-11,
+               true_tol=1e-10, maxiter=10_000)
+    true_rel = float(np.linalg.norm(b32 - s32 @ res64.x.cpu().numpy())
+                     / np.linalg.norm(b32))
+    print(f"cg(true_tol=1e-10) f64 on the SPD form of block_laplacian(32) via "
+          f"{plan_s32.strategy}: {res64.iterations} iterations, true rel "
+          f"residual {true_rel:.3e} (scipy), converged="
+          f"{bool(res64.converged)}")
+    require(plan_s32.strategy == "bdia" and true_rel <= 1e-10,
+            f"block f64 CG: {plan_s32.strategy}, {true_rel:.3e}")
+
+    yb = plan_b(xb512)
+    for nd in (1, 4):
+        t0 = time.perf_counter()
+        dplan = tdist.plan_dist_spmv(blap, meshes[nd], dtype=torch.float32)
+        torch.cuda.synchronize()
+        dp_s = time.perf_counter() - t0
+        require(dplan.strategy == "bdia", f"dist ndev={nd} planned to "
+                f"{dplan.strategy}")
+        yd = torch.cat(dplan.spmv(dplan.shard_x(xb64.astype(np.float32)))
+                       .chunks)[:blap.shape[0]]
+        diff = float((yd - yb).abs().max() / yb.abs().max())
+        r = tdist.bench_dist_spmv(blap, meshes[nd], plan=dplan, iters=20,
+                                  quiet=True)
+        print(f"plan_dist_spmv ndev={nd} on one card: {dplan.strategy}, "
+              f"Rb={dplan.matrix.blocks_per_shard} ({dp_s:.2f} s to plan): "
+              f"vs the single-chip plan "
+              f"{'bitwise equal' if torch.equal(yd, yb) else f'rel {diff:.2e}'}"
+              f" | {r['seconds'] * 1e3:.4f} ms per SpMV (single-chip plan "
+              f"{bd_ms:.4f} ms) | rel err vs scipy {r['rel_err']:.2e}")
+        require(diff <= PLAIN_TOL["float32"], f"dist bdia ndev={nd} vs "
+                f"single chip {diff:.2e}")
+        del dplan, yd
+    del yb
+    dplan = tdist.plan_dist_spmv(s32, meshes[4], dtype=torch.float64)
+    bsh = dplan.shard_x(b32)
+    res = dist_cg(meshes[4], dplan.matrix, bsh, tol=1e-12, maxiter=5000)
+    true_rel = float(np.linalg.norm(b32 - s32 @ res.x.to_global())
+                     / np.linalg.norm(b32))
+    print(f"dist_cg({dplan.strategy}, ndev=4 on one card, f64) on the SPD "
+          f"form of block_laplacian(32): {res.iterations} iterations, "
+          f"converged={bool(res.converged)}, true rel residual "
+          f"{true_rel:.3e} (scipy)")
+    require(dplan.strategy == "bdia" and bool(res.converged)
+            and true_rel <= 1e-10, f"block dist_cg: {dplan.strategy}, "
+            f"converged={bool(res.converged)}, true {true_rel:.3e}")
+    del dplan, bsh, res, plan_s32, s32
+
+    gname = "random_sparse(100000,7e-5)"
+    m = general[gname]
+    E = convert(COO.from_scipy(m, dtype=torch.float32), "ell").to(dev)
+    K4 = (gplans[gname].matrix if gplans[gname].strategy == "pallas_ell"
+          else ell.pack_ell(m, dtype=torch.float32, device=dev))
+    xe = gx[gname]
+    ye, yk = spmv(E, xe), ell.spmv_ell_packed(K4, xe)
+    rel_e = rel_err(ye.cpu(), m @ xe.cpu().double().numpy())
+    rel_k = float((ye - yk).abs().max() / yk.abs().max())
+    print(f"ELL forced on {gname}: width {E.width}, rel err vs scipy "
+          f"{rel_e:.2e}, vs sliced ELL (K4) {rel_k:.2e}")
+    require(rel_e <= ORACLE_TOL["float32"] and rel_k <= PLAIN_TOL["float32"],
+            f"forced ELL {rel_e:.2e}/{rel_k:.2e}")
+    del K4, ye, yk
+
+    torch.cuda.synchronize()
+    blaunches = {"gpr": gpr.LAUNCHES["gpr"], "ell": ell.LAUNCHES["ell"]}
+    print(f"launch counts on the block-format path: {blaunches} (the block "
+          f"products are torch code)")
+    require(blaunches["gpr" if gstrategy == "gpr" else "ell"] > 0,
+            f"forced general arm ({gstrategy}) never launched in 4f")
+    require(blaunches["ell"] > 0, "sliced ELL (K4) never launched in 4f")
+
     # -- 5. kernels vs plain at the main paths' shapes, timed ---------------
     print("== 5. kernels vs plain versions at the main paths' shapes")
+    # the probe path first (its bandwidth probes set the roofline's peak),
+    # counters zeroed just before it and read just after
+    zero(pr.LAUNCHES)
+    probe_ms = pr.run_probes(dev)
+    torch.cuda.synchronize()
+    plaunches = dict(pr.LAUNCHES)
+    print(f"launch counts on the probe path: {plaunches}")
+    for k, c in plaunches.items():
+        require(c > 0, f"{k} never launched on the probe path")
     copy_gbps = measured_copy_gbps(dev)
-    print(f"measured copy bandwidth: {copy_gbps:.1f} GB/s ({card})")
+    print(f"bandwidth probes over 256 MiB: copy_scale (K9) "
+          f"{probe_ms['copy_scale_gbps']:.1f} GB/s, torch copy_ "
+          f"{probe_ms['copy__gbps']:.1f} GB/s -> roofline peak (the higher) "
+          f"{copy_gbps:.1f} GB/s = {100 * copy_gbps * 1e9 / PEAK_BYTES_S:.1f}% "
+          f"of 3.35 TB/s ({card})")
     records = []
     spmv_ms = {}
 
@@ -1359,10 +1676,139 @@ def main() -> int:
     print(f"    {NRHS} x permute_gather (random perm): {NRHS * one_ms:.4f} ms")
     del ro, ro_p, XB, rand_plan, xs
     print(f"cg_multi_runner f32, 8 RHS, ms/iteration: {cgm}")
+
+    # the probe kernels at the probes' shapes: the probe path's times,
+    # each beside its plain version, one library call and its bound
+    def probe_record(kname, key, kern, plain, args, lib, nbytes, flops,
+                     label, src_line):
+        ms, graph_ms = probe_ms[key], probe_ms[f"{key}:graph"]
+        yk, yp = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = float((yk - yp).abs().max())
+        require(torch.equal(yk, yp), f"{kname} {label} vs plain")
+        del yk, yp
+        plain_ms = time_fn(plain, *args, iters=20).median_s * 1e3
+        lib_ms = (time_fn(*lib, iters=20).median_s * 1e3 if lib is not None
+                  else None)
+        bound_ms, bound_by = bound(nbytes, flops)
+        lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+        print(f"{kname} {label}: {ms:.4f} ms ({graph_ms:.4f} ms replayed "
+              f"from a CUDA graph) | bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{100 * bound_ms / ms:.1f}%; {100 * bound_ms / graph_ms:.1f}% "
+              f"of the replayed time) | plain {plain_ms:.4f} ms | library "
+              f"{lib_txt} | max abs err {err:.3e}")
+        return {"name": kname, "route": "cuda",
+                "source": "tpu_spmv_torch/csrc/probes.cu",
+                "replaces": src_line, "launches": plaunches[kname],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms}
+
+    probe_records = []
+    xp = torch.rand(1 << 26, device=dev)
+    buf = torch.empty_like(xp)
+    probe_records.append(probe_record(
+        "copy_scale", "copy_scale", pr.copy_scale,
+        pr.copy_scale_ref, (xp,),
+        (lambda: torch.mul(xp, pr.SCALE, out=buf),), 2 * xp.numel() * 4,
+        xp.numel(), "2^26 f32 (256 MiB)", "bench.py:999"))
+    del xp, buf
+    tile = torch.rand(pr.Q, pr.Q, device=dev)
+    tdst_ = torch.empty_like(tile)
+    probe_records.append(probe_record(
+        "launch_probe", "launch_probe", pr.launch_probe,
+        pr.launch_probe_ref, (tile,), (lambda: tdst_.copy_(tile),),
+        2 * tile.numel() * 4, 0, "[128, 128] f32, one launch",
+        "tools/profile_gpr.py:110"))
+    x4, x4g = probe_ms["launch_probe_x4"], probe_ms["launch_probe_x4:graph"]
+    print(f"    four launches in a row {x4:.4f} ms ({x4g:.4f} ms replayed): "
+          f"marginal {(x4 - probe_ms['launch_probe']) / 3:.4f} ms per launch "
+          f"({(x4g - probe_ms['launch_probe:graph']) / 3:.4f} ms replayed); "
+          f"gpr_spmv at 100k rows (4b) "
+          f"{spmv_ms['gpr_spmv', 'random_sparse(100000,7e-5)']:.4f} ms")
+    del tile, tdst_
+    v2 = torch.from_numpy(pr.t2_operand()).to(dev)
+    probe_records.append(probe_record(
+        "segsum8", "segsum8", pr.segsum8, pr.segsum8_ref, (v2,),
+        (lambda: v2.view(-1, 16, 8).sum(-1),),
+        v2.numel() * 4 + v2.numel() // 8 * 4, v2.numel() // 8 * 7,
+        "[16, 512, 128] f32", "tools/profile_reduce.py:35"))
+    del v2
+    t3, t4 = pr.t3_operands(), pr.t4_operands()
+    for vname, (prog, src, mul, psum8) in pr.tile_variants(t3, t4,
+                                                           dev).items():
+        out_elems = (src.numel() if prog.rowsrc is None
+                     else prog.ntiles * pr.Q * pr.Q)
+        if psum8:
+            out_elems //= 8
+        nbytes = (src.numel() * 4 + prog.idx.numel() * prog.idx.element_size()
+                  + out_elems * 4)
+        for extra in (prog.rowsrc, prog.lidx, mul):
+            if extra is not None:
+                nbytes += extra.numel() * extra.element_size()
+        lib = None
+        if vname == "S":
+            gl = prog.idx[0].long()
+            lib = (lambda: torch.take_along_dim(src, gl, dim=1),)
+        rec = probe_record(
+            "tile_permute", f"tile_permute:{vname}",
+            pr.tile_permute, pr.tile_permute_ref, (prog, src, mul, psum8),
+            lib, nbytes, out_elems * 8 if psum8 else 0,
+            f"{vname} {tuple(src.shape)}",
+            "tools/prof_tgtg_mxu.py:63" if vname == "TGTG"
+            else "tools/profile_sublane.py:47")
+        if vname == "S":
+            probe_records.append(rec)
+
+    # the block products at full width (torch code, no launch counter):
+    # each beside its bound and one cuSPARSE call of the same function
+    def bsr_library(Bk, xk):
+        """One cuSPARSE call of ``A @ xk``: BSR through
+        ``torch.sparse_bsr_tensor`` (``torch.mv`` / ``torch.matmul``), or
+        the CSR product where torch refuses BSR on CUDA.  Returns the kind,
+        the ms and the product."""
+        import warnings
+
+        fn = torch.mv if xk.dim() == 1 else torch.matmul
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            A = torch.sparse_bsr_tensor(Bk.indptr, Bk.indices, Bk.data,
+                                        size=Bk.shape)
+            try:
+                y = fn(A, xk)
+                torch.cuda.synchronize()
+                return ("BSR", time_fn(fn, A, xk, iters=20).median_s * 1e3,
+                        y)
+            except (RuntimeError, NotImplementedError) as e:
+                print(f"    torch refuses BSR x dense on CUDA ({e}); "
+                      f"the yardstick is the CSR product")
+        return "CSR", library_ms(blap, xk), None
+
+    for pname, fn, A, xk, nrhs in (("spmv_bdia", spmv, Bd, xb512, 0),
+                                   ("spmv_bsr", spmv, Bsr, xb512, 0),
+                                   ("spmm_bdia", spmm, Bd, X512, NRHS)):
+        yk = fn(A, xk)
+        torch.cuda.synchronize()
+        ms = time_fn(fn, A, xk, iters=5 if nrhs else 20).median_s * 1e3
+        nbytes = (spmm_bytes(A, nrhs, torch.float32) if nrhs
+                  else spmv_bytes(A, torch.float32))
+        bound_ms, bound_by = bound(nbytes, 2 * A.nnz * max(nrhs, 1))
+        lib_kind, lib_ms, yl = bsr_library(Bsr, xk)
+        agree = ("" if yl is None else f" | vs cuSPARSE rel "
+                 f"{float((yk - yl).abs().max() / yl.abs().max()):.2e}")
+        rhs = f", {nrhs} RHS" if nrhs else ""
+        print(f"{pname} at {A.shape[0]} rows{rhs} f32 (torch code): "
+              f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s model) | bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}%) | "
+              f"copy-rate bound {nbytes / (copy_gbps * 1e9) * 1e3:.4f} ms | "
+              f"cuSPARSE {lib_kind} {lib_ms:.4f} ms (product/cuSPARSE "
+              f"{ms / lib_ms:.2f}){agree}")
+        del yk, yl
+    del Bd, Bsr, X512, xb512, plan_b
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": records + spmm_records + dist_records
-                      + perm_records}))
+                      + perm_records + probe_records}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -334,3 +334,79 @@ def test_reordered_operator_on_card(card):
     ref = shuffled @ x64
     assert np.max(np.abs(y.cpu().double().numpy() - ref)) <= \
         2e-5 * np.max(np.abs(ref))
+
+
+@pytest.mark.cuda
+def test_probe_kernels_match_plain_on_card(card):
+    """copy_scale, launch_probe, segsum8 and every tile_permute variant
+    bitwise against their plain versions, each launch counted."""
+    from tpu_spmv_torch.bench import probes as pr
+
+    x = torch.rand((1 << 20) + 3, device=card)
+    tile = torch.rand(pr.Q, pr.Q, device=card)
+    v = torch.from_numpy(pr.t2_operand()).to(card)
+    odd = x[1:1 + 64 * pr.Q].view(64, pr.Q)     # 4 bytes past alignment
+    for kern, plain, arg, key in (
+            (pr.copy_scale, pr.copy_scale_ref, x, "copy_scale"),
+            (pr.copy_scale, pr.copy_scale_ref, x[1:], "copy_scale"),
+            (pr.launch_probe, pr.launch_probe_ref, tile, "launch_probe"),
+            (pr.segsum8, pr.segsum8_ref, v, "segsum8"),
+            (pr.segsum8, pr.segsum8_ref, odd, "segsum8")):
+        before = pr.LAUNCHES[key]
+        assert torch.equal(kern(arg), plain(arg))
+        assert pr.LAUNCHES[key] == before + 1
+    for name, (prog, src, mul, psum8) in pr.tile_variants(
+            pr.t3_operands(), pr.t4_operands(T=4), card).items():
+        before = pr.LAUNCHES["tile_permute"]
+        got = pr.tile_permute(prog, src, mul, psum8)
+        assert pr.LAUNCHES["tile_permute"] == before + 1
+        assert torch.equal(got, pr.tile_permute_ref(prog, src, mul, psum8)), \
+            name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["ell", "bsr", "bdia"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_block_formats_on_card(card, fmt, dtype):
+    """ELL, BSR and BDIA SpMV and SpMM (1, 3 and 32 RHS) on the card
+    against the same products on the CPU; bitwise reproducible."""
+    from tpu_spmv_torch.ops import spmm as t_spmm
+
+    m = utils.block_laplacian(12, bs=8, seed=3)
+    rng = np.random.default_rng(11)
+    A = convert(COO.from_scipy(m, dtype=dtype), fmt)
+    Ac = A.to(card)
+    x = torch.tensor(rng.standard_normal(m.shape[1]), dtype=dtype)
+    y1, y2 = spmv(Ac, x.to(card)), spmv(Ac, x.to(card))
+    assert y1.is_cuda and torch.equal(y1, y2)
+    assert _rel(y1.cpu(), spmv(A, x)) <= TOL[dtype]
+    for nrhs in (1, 3, 32):
+        X = torch.tensor(rng.standard_normal((m.shape[1], nrhs)), dtype=dtype)
+        Y = t_spmm(Ac, X.to(card))
+        assert torch.equal(Y, t_spmm(Ac, X.to(card)))
+        assert _rel(Y.cpu(), t_spmm(A, X)) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_block_products_ignore_tf32(card):
+    """With torch's TF32 matmul flag on, float32 spmv_bdia and spmv_bsr on
+    standard-normal blocks stay within 2e-5 of scipy and bitwise equal to
+    the run with the flag off (no product goes through a matmul)."""
+    m = utils.block_laplacian(16, bs=8, seed=4)
+    x64 = np.random.default_rng(12).standard_normal(m.shape[1])
+    x = torch.tensor(x64, dtype=torch.float32, device=card)
+    ref = m @ x64
+    flag = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for fmt in ("bdia", "bsr"):
+            A = convert(COO.from_scipy(m, dtype=torch.float32, device=card),
+                        fmt)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            off = spmv(A, x)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            on = spmv(A, x)
+            assert torch.equal(on, off), fmt
+            assert np.max(np.abs(on.cpu().double().numpy() - ref)) <= \
+                2e-5 * np.max(np.abs(ref)), fmt
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag

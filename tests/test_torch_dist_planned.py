@@ -231,15 +231,15 @@ def test_sharded_dia_matches_reference():
 def test_plan_dist_spmv_picks():
     """The port's picks and each divergence from the reference's, as the
     port's stated rules: streaming at every size (the reference streams
-    only past 32 MiB per device and plans small bands to "dia"), GPR for
-    BDIA-shaped patterns (BDIA not ported), csr_neighbor for an empty
+    only past 32 MiB per device and plans small bands to "dia"), BDIA for
+    block-banded patterns as in the reference, csr_neighbor for an empty
     matrix (as the reference's cost model picks there)."""
     mesh = _mesh(4)
     cases = [("laplacian_2d(24)", utils.laplacian_2d(24), "dia",
               "pdia_stream"),
              ("banded(777,5)", utils.banded(777, 5), "dia", "dia_stream"),
              ("block_laplacian(12)", utils.block_laplacian(12, bs=8, seed=2),
-              "bdia", "gpr"),
+              "bdia", "bdia"),
              ("random_sparse(300,300)",
               utils.random_sparse(300, 300, 0.03, seed=3), "gpr", "gpr"),
              ("empty", sp.csr_matrix((10, 10)), "csr_neighbor",
@@ -259,16 +259,15 @@ def test_plan_dist_spmv_picks():
     # every forced strategy runs and verifies
     lap = utils.laplacian_2d(16)
     x = np.random.default_rng(4).standard_normal(256)
-    for strategy in ("dia", "dia_stream", "pdia_stream", "gpr", "csr_halo",
-                     "csr_neighbor", "csr_allgather"):
+    for strategy in ("dia", "dia_stream", "pdia_stream", "bdia", "gpr",
+                     "csr_halo", "csr_neighbor", "csr_allgather"):
         plan = tdist.plan_dist_spmv(lap, mesh, strategy=strategy,
                                     sdia_rb=RB)
         assert plan.strategy == strategy
         y = plan.y_to_global(plan.spmv(plan.shard_x(x)))
         assert _rel(y, lap @ x) <= 1e-13, strategy
-    for bad in ("bdia", "bogus"):
-        with pytest.raises(ValueError, match="distributed strategy"):
-            tdist.plan_dist_spmv(lap, mesh, strategy=bad)
+    with pytest.raises(ValueError, match="distributed strategy"):
+        tdist.plan_dist_spmv(lap, mesh, strategy="bogus")
     with pytest.raises(ValueError, match="periodic"):
         tdist.plan_dist_spmv(utils.banded(3000, 4, seed=33), mesh,
                              strategy="pdia_stream", sdia_rb=RB)

@@ -4,15 +4,16 @@ The port mirrors the JAX reference package ``tpu_spmv`` module for module
 and is held against it in the tests.  It imports neither JAX nor the
 reference package.
 
-- **Formats** (:mod:`.formats`): COO, CSR, CSC, DIA as dataclasses of
-  tensors.
+- **Formats** (:mod:`.formats`): COO, CSR, CSC, ELL, DIA, BSR, BDIA as
+  dataclasses of tensors.
 - **Ops** (:mod:`.ops`): deterministic SpMV per format, BLAS-1, the
   planner :func:`plan_spmv` that picks and packs the operator, transpose
   and diagonal shift.
 - **Kernels** (:mod:`.kernels`): hand-written CUDA kernels (``csrc/``)
   for the streaming DIA operators, the general-sparsity arm (GPR and
   sliced ELL) and the permutation engine, built at first use, each beside
-  its plain PyTorch version.
+  its plain PyTorch version (the probe kernels live in
+  :mod:`.bench.probes`).
 - **Reorder** (:mod:`.reorder`): RCM reordering, ``reorder_plan`` and the
   ``ReorderedOperator`` that permutes on the device.
 - **Solvers** (:mod:`.solvers`): CG, multi-RHS CG and distributed CG.
@@ -20,8 +21,9 @@ reference package.
   (one device may hold several shards), the distributed planner and its
   sharded kernels.
 - **I/O** (:mod:`.io`): MatrixMarket read/write.
-- **Bench** (:mod:`.bench`): the ``### <FMT> <MODE> GFLOPS`` protocol and
-  a roofline against the card's measured copy bandwidth.
+- **Bench** (:mod:`.bench`): the ``### <FMT> <MODE> GFLOPS`` protocol, a
+  roofline against the card's measured copy bandwidth, and the probe
+  path (bandwidth, launch cost, lane sums, in-tile gathers).
 - **Interop** (:mod:`.interop`): operators packed by the reference carried
   over unchanged.
 """
@@ -29,7 +31,8 @@ reference package.
 from __future__ import annotations
 
 from . import dist, reorder, solvers
-from .formats import COO, CSC, CSR, DIA, FORMATS, convert, to_coo
+from .formats import (BDIA, BSR, COO, CSC, CSR, DIA, ELL, FORMATS, convert,
+                      to_coo)
 from .interop import from_reference
 from .io import read_matrix, write_matrix
 from .kernels import (GPCSR, PSDIA, SDIA, PackedELL, PermutationPlan,
@@ -44,7 +47,8 @@ from .reorder import ReorderedOperator, reorder_plan
 __version__ = "0.1.0"
 
 __all__ = [
-    "COO", "CSR", "CSC", "DIA", "FORMATS", "convert", "to_coo",
+    "COO", "CSR", "CSC", "ELL", "DIA", "BSR", "BDIA", "FORMATS", "convert",
+    "to_coo",
     "SDIA", "PSDIA", "pack_sdia", "pack_psdia",
     "GPCSR", "pack_gpr", "spmv_gpr", "PackedELL", "pack_ell",
     "spmv_ell_packed",

@@ -1,4 +1,6 @@
-"""Benchmarking: the reference's GFLOPS protocol and a roofline model."""
+"""Benchmarking: the reference's GFLOPS protocol, a roofline model and
+the probe kernels (:mod:`.probes`: bandwidth, launch cost, width-8 lane
+sum, in-tile gathers)."""
 
 from .harness import (DEFAULT_ITERS, TimingResult, bench_format_sweep,
                       bench_spmm, bench_spmv, format_name, time_chained,

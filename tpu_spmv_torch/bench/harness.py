@@ -18,7 +18,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..formats import COO, CSR, DIA, convert, to_coo
+from ..formats import BDIA, BSR, COO, CSC, CSR, DIA, ELL, convert, to_coo
 from ..kernels.dia_stream import PSDIA, SDIA
 from ..kernels.ell_packed import PackedELL
 from ..kernels.gpr import GPCSR
@@ -34,7 +34,8 @@ __all__ = ["DEFAULT_ITERS", "TimingResult", "format_name", "time_fn",
 DEFAULT_ITERS = 50
 
 #: protocol names; the general-arm packs print their strategy's name
-_NAMES = {COO: "COO", CSR: "CSR", DIA: "DIA", SDIA: "SDIA", PSDIA: "PSDIA",
+_NAMES = {COO: "COO", CSR: "CSR", CSC: "CSC", ELL: "ELL", DIA: "DIA",
+          BSR: "BSR", BDIA: "BDIA", SDIA: "SDIA", PSDIA: "PSDIA",
           GPCSR: "GPR", PackedELL: "PALLAS_ELL"}
 
 

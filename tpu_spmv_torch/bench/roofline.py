@@ -3,18 +3,14 @@
 Counterpart of ``tpu_spmv/bench/roofline.py``.  SpMV is memory-bound, so
 the efficiency metric is achieved bytes/s against the card's bandwidth.
 Byte counts are the minimum-traffic model: each matrix byte read once, x
-read once, y written once.  The bandwidth is the card's own, measured as a
-device-to-device copy (:func:`measured_copy_gbps`), not a table of
-published figures; a CPU run has no roofline.
+read once, y written once.  The bandwidth is the card's own, measured by
+the two bandwidth probes of :mod:`.probes` (:func:`measured_copy_gbps`),
+not a table of published figures; a CPU run has no roofline.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
-import statistics
-
-import torch
 
 __all__ = ["spmv_bytes", "spmm_bytes", "gpr_matrix_bytes",
            "ell_matrix_bytes", "measured_copy_gbps", "Roofline", "roofline"]
@@ -35,7 +31,7 @@ def ell_matrix_bytes(slots: int, slices: int, itemsize: int) -> int:
 
 def _matrix_bytes(A) -> int:
     """Device-memory bytes of the operator that one product reads once."""
-    from ..formats import COO, CSC, CSR, DIA
+    from ..formats import BDIA, BSR, COO, CSC, CSR, DIA, ELL
     from ..kernels.dia_stream import PSDIA, SDIA
     from ..kernels.ell_packed import PackedELL
     from ..kernels.gpr import GPCSR
@@ -48,8 +44,12 @@ def _matrix_bytes(A) -> int:
         return A.nnz * (val + 2 * idx) + (A.shape[0] + 1) * idx
     if isinstance(A, CSC):
         return A.nnz * (val + 2 * idx) + (A.shape[1] + 1) * idx
-    if isinstance(A, (DIA, SDIA)):
+    if isinstance(A, ELL):
+        return A.data.numel() * (val + idx)
+    if isinstance(A, (DIA, SDIA, BDIA)):
         return A.data.numel() * val
+    if isinstance(A, BSR):
+        return A.data.numel() * val + A.nblocks * idx
     if isinstance(A, GPCSR):
         # + the closing row pointer and the fold's owner rows and runs
         return (gpr_matrix_bytes(A.nnz, A.nrow_internal, val) + 8
@@ -100,30 +100,14 @@ def spmm_bytes(A, nrhs: int, x_dtype=None) -> int:
     return _matrix_bytes(A) + nrhs * vec * xval
 
 
-@functools.cache
 def measured_copy_gbps(device) -> float:
-    """The card's copy bandwidth in GB/s: ``2·bytes / t`` of a 256 MiB
-    device-to-device ``copy_`` (far past the 50 MB L2), timed with CUDA
-    events, median of 10 runs of 20 copies after warm-up."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"copy bandwidth is measured on a CUDA device, "
-                         f"not {device}")
-    src = torch.rand(1 << 26, device=device)
-    dst = torch.empty_like(src)
-    for _ in range(3):
-        dst.copy_(src)
-    times = []
-    for _ in range(10):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(20):
-            dst.copy_(src)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / 1e3 / 20)
-    return 2 * src.numel() * src.element_size() / statistics.median(times) / 1e9
+    """The card's copy bandwidth in GB/s: the higher of the two bandwidth
+    probes over 256 MiB (:func:`.probes.copy_bandwidths`: K9's
+    ``copy_scale`` kernel and torch's ``copy_``), so a slow probe cannot
+    inflate any share of a bound."""
+    from .probes import copy_bandwidths
+
+    return max(copy_bandwidths(device).values())
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,6 +21,8 @@ Usage::
     python -m tpu_spmv_torch --synthetic laplacian:256 --auto --solve cg \
         --solve-nrhs 8
     python -m tpu_spmv_torch --synthetic laplacian:4096 --dist 1   # sharded
+    python -m tpu_spmv_torch --synthetic laplacian:512 --dist 4 \
+        --device cuda:0 --dist-strategy bdia     # sharded block diagonals
 """
 
 from __future__ import annotations
@@ -69,8 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
         help="generate a matrix: laplacian:N[,M] | laplacian3d:N[,M,K] "
              "| random:N[,M,density_permille] | banded:N[,bw] "
              "| powerlaw:N[,avg_nnz]")
-    p.add_argument("--formats", default="coo,csr,dia",
-                   help="comma-separated format list (coo, csr, dia)")
+    p.add_argument("--formats", default="coo,csr,csc,ell,dia,bsr",
+                   help="comma-separated format list (coo, csr, csc, ell, "
+                        "dia, bsr, bdia)")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "float64"], help="compute dtype")
     p.add_argument("--device", default="cuda",
@@ -90,8 +93,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "on one device with --device cuda:N or cpu (square "
                         "matrices only)")
     p.add_argument("--dist-strategy", default=None,
-                   choices=["dia", "dia_stream", "pdia_stream", "gpr",
-                            "csr_halo", "csr_neighbor", "csr_allgather"],
+                   choices=["dia", "dia_stream", "pdia_stream", "bdia",
+                            "gpr", "csr_halo", "csr_neighbor",
+                            "csr_allgather"],
                    help="force the distributed strategy (default: the "
                         "distributed planner's pick)")
     p.add_argument("--solve", choices=["cg", "pcg"], default=None,
@@ -110,24 +114,35 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-#: cap on the sweep's dense DIA expansion (a scattered pattern occupies
-#: thousands of diagonals and would need nrow values for each)
+#: cap on the sweep's dense expansions (a scattered pattern occupies
+#: thousands of diagonals and would need nrow values for each; one long row
+#: widens every row of an ELL)
 _DENSE_CAP_BYTES = 1 << 30
 
 
 def _drop_explosive_formats(formats, host_mat, itemsize):
     """Drop sweep formats whose dense expansion would not fit the cap."""
-    if host_mat.nnz == 0 or "dia" not in formats:
+    if host_mat.nnz == 0:
         return formats
-    ndiags = int(np.count_nonzero(np.bincount(
-        host_mat.col.astype(np.int64) - host_mat.row + host_mat.shape[0] - 1)))
-    est = ndiags * host_mat.shape[0] * itemsize
-    if est <= _DENSE_CAP_BYTES:
-        return formats
-    print(f"tpu_spmv_torch: skipping DIA — dense expansion needs "
-          f"~{est / 2**30:.1f} GiB (cap {_DENSE_CAP_BYTES >> 30} GiB)",
-          file=sys.stderr)
-    return [f for f in formats if f != "dia"]
+    nrow = host_mat.shape[0]
+    row = host_mat.row.astype(np.int64)
+    keep = []
+    for name in formats:
+        est = None
+        if name == "ell":
+            width = int(np.bincount(row, minlength=nrow).max())
+            est = nrow * width * (itemsize + 4)
+        elif name == "dia":
+            ndiags = int(np.count_nonzero(np.bincount(
+                host_mat.col.astype(np.int64) - row + nrow - 1)))
+            est = ndiags * nrow * itemsize
+        if est is not None and est > _DENSE_CAP_BYTES:
+            print(f"tpu_spmv_torch: skipping {name.upper()} — dense "
+                  f"expansion needs ~{est / 2**30:.1f} GiB (cap "
+                  f"{_DENSE_CAP_BYTES >> 30} GiB)", file=sys.stderr)
+            continue
+        keep.append(name)
+    return keep
 
 
 def main(argv=None) -> int:

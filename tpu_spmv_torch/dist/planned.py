@@ -12,6 +12,10 @@ static slice of ``[left | own | right]`` neighbour chunks:
   the ring neighbours — the tail of the previous shard's chunk, the head of
   the next one's.  At one shard both slivers are the shard's own, and the
   wrapped reads meet zero data or masked rows, as in the reference;
+- :class:`ShardedBDIA` owns whole block rows per shard and runs the
+  torch-code block-diagonal contraction of :func:`..ops.spmv.spmv_bdia` on
+  its chunk and two slivers of ``band`` block rows from the ring
+  neighbours (:func:`spmv_bdia_sharded`);
 - :class:`ShardedGPR` packs each shard's row block with the port's
   ``pack_gpr`` and runs ``gpr_spmv`` over the all-gathered x.
 
@@ -19,11 +23,12 @@ The single controller lets every shard pack its own rows, so the
 reference's forced per-shard pack shapes and its 900k-entry routing cap
 (SPMD and Clos facts) are not ported.  :func:`plan_dist_spmv` follows the
 port's single-chip planner (streaming at every size): a square periodic
-band gets ``"pdia_stream"``, then ``"dia_stream"``, then ``"dia"``; every
-other nonempty pattern ``"gpr"``; the CSR strategies are taken when forced,
-and ``"csr_neighbor"`` when GPR cannot pack or the matrix is empty.  The
-reference's VMEM size rule, its GPR envelope and ``predict_dist_costs``
-(TPU constants) are not ported, nor the BDIA arm.
+band gets ``"pdia_stream"``, then ``"dia_stream"``, then ``"dia"``; a
+square block-banded pattern (8x8 block-DIA storage at most 4x nnz)
+``"bdia"``; every other nonempty pattern ``"gpr"``; the CSR strategies are
+taken when forced, and ``"csr_neighbor"`` when GPR cannot pack or the
+matrix is empty.  The reference's VMEM size rule, its GPR envelope and
+``predict_dist_costs`` (TPU constants) are not ported.
 """
 
 from __future__ import annotations
@@ -34,21 +39,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..formats import DIA, to_coo
+from ..formats import BDIA, DIA, to_coo
 from ..formats.base import torch_dtype
 from ..kernels import dia_stream, gpr
 from ..kernels.dist_stream import halo_size, spmv_psdia_ring, spmv_sdia_ring
 from ..ops.auto import _host_coo, _stats
+from ..ops.spmv import bdia_blocks
 from . import blas
 from .mesh import Mesh, make_mesh
 from .partition import RowPlan, plan_uniform
 from .sharded import HaloCSR, NeighborCSR, ShardedCSR, ShardedVector
 from .spmv import place, spmv_allgather, spmv_halo, spmv_neighbor
 
-__all__ = ["ShardedDIA", "ShardedSDIA", "ShardedPSDIA", "ShardedGPR",
-           "spmv_dia_sharded", "spmv_sdia_sharded", "spmv_psdia_sharded",
-           "spmv_gpr_sharded", "DistPlan", "plan_dist_spmv",
-           "bench_dist_spmv"]
+__all__ = ["ShardedDIA", "ShardedBDIA", "ShardedSDIA", "ShardedPSDIA",
+           "ShardedGPR", "spmv_dia_sharded", "spmv_bdia_sharded",
+           "spmv_sdia_sharded", "spmv_psdia_sharded", "spmv_gpr_sharded",
+           "DistPlan", "plan_dist_spmv", "bench_dist_spmv"]
 
 
 def _band(offsets) -> int:
@@ -74,8 +80,8 @@ def _ring(mesh: Mesh, x: ShardedVector, h: int):
     """For each shard ``s``: the last ``h`` values of the previous shard's
     chunk and the first ``h`` of the next one's, on ``s``'s device (the two
     ``ppermute``s; at one shard, both are the shard's own)."""
-    n = x.ndev
-    return [(x.chunks[(s - 1) % n][-h:].to(dev),
+    n, C = x.ndev, x.chunk_size
+    return [(x.chunks[(s - 1) % n][C - h:].to(dev),
              x.chunks[(s + 1) % n][:h].to(dev))
             for s, dev in enumerate(mesh.devices)]
 
@@ -140,6 +146,96 @@ def spmv_dia_sharded(mesh: Mesh, A: ShardedDIA,
     for s, (left, right) in enumerate(_ring(mesh, x, A.rows_per_shard)):
         ys.append(spmv_sdia_ring(A.data[s], A.offsets, x.chunks[s], left,
                                  right))
+    return ShardedVector(chunks=tuple(ys), starts=A.row_plan.starts,
+                         length=A.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedBDIA:
+    """Block-row-uniform-sharded BDIA: shard ``s`` owns block rows
+    ``[s*Rb, (s+1)*Rb)`` (zero-padded past ``nbrow``), ``data[s][d, r] =
+    A_block[s*Rb + r, s*Rb + r + offsets[d]]``; its scalar chunk is ``C =
+    Rb * bs`` rows and the x chunk of the same span."""
+
+    data: tuple[torch.Tensor, ...]        # [ndiags, Rb, bs, bs] each
+    offsets: tuple[int, ...]
+    shape: tuple[int, int]
+    block_size: int
+    nnz: int
+
+    @property
+    def ndev(self) -> int:
+        return len(self.data)
+
+    @property
+    def blocks_per_shard(self) -> int:
+        return int(self.data[0].shape[1])
+
+    def _plan(self, length: int) -> RowPlan:
+        C = self.blocks_per_shard * self.block_size
+        return RowPlan(tuple(min(i * C, length)
+                             for i in range(self.ndev + 1)),
+                       self.ndev, length)
+
+    @property
+    def row_plan(self) -> RowPlan:
+        return self._plan(self.shape[0])
+
+    @property
+    def x_plan(self) -> RowPlan:
+        return self._plan(self.shape[1])
+
+    @property
+    def row_starts(self) -> tuple[int, ...]:
+        return self.row_plan.starts
+
+    @property
+    def col_starts(self) -> tuple[int, ...]:
+        return self.x_plan.starts
+
+    @staticmethod
+    def build(bdia: BDIA, ndev: int) -> "ShardedBDIA":
+        """Shard a BDIA on its own device; raises ``ValueError`` for a
+        non-square matrix or a block band wider than a shard's block
+        rows (the one-hop halo cannot cover it)."""
+        nrow, ncol = bdia.shape
+        if nrow != ncol:
+            raise ValueError("ShardedBDIA requires a square matrix")
+        nbrow = bdia.nbrow
+        Rb = max(-(-nbrow // ndev), 1)
+        band = _band(bdia.offsets)
+        if band > Rb:
+            raise ValueError(f"block band {band} exceeds block chunk {Rb}: "
+                             f"the 1-hop halo cannot cover it")
+        data = bdia.data
+        if ndev * Rb > nbrow:
+            data = F.pad(data, (0, 0, 0, 0, 0, ndev * Rb - nbrow))
+        return ShardedBDIA(data=tuple(data[:, s * Rb:(s + 1) * Rb]
+                                      .contiguous() for s in range(ndev)),
+                           offsets=tuple(bdia.offsets),
+                           shape=tuple(bdia.shape),
+                           block_size=bdia.block_size, nnz=bdia.nnz)
+
+
+def spmv_bdia_sharded(mesh: Mesh, A: ShardedBDIA,
+                      x: ShardedVector) -> ShardedVector:
+    """Row-sharded BDIA SpMV: each shard receives the last ``band`` block
+    rows of the previous shard's chunk and the first ``band`` of the next
+    one's and contracts its block diagonals with the static slices of
+    ``[left | own | right]`` (global block row ``s*Rb + r`` reads window
+    block ``band + r + off``; at one shard the slivers are its own, and
+    the wrapped reads meet zero blocks)."""
+    _check_x(A, x, A.x_plan)
+    Rb, bs = A.blocks_per_shard, A.block_size
+    C, band, size = Rb * bs, _band(A.offsets), x.chunk_size
+    if size < C:                # the matrix ends inside a shard's last block
+        x = dataclasses.replace(x, chunks=tuple(F.pad(c, (0, C - size))
+                                                for c in x.chunks))
+    ys = []
+    for s, (left, right) in enumerate(_ring(mesh, x, band * bs)):
+        xw = torch.cat([left, x.chunks[s], right]).reshape(-1, bs)
+        y = bdia_blocks(A.data[s], A.offsets, xw, band, Rb).reshape(-1)
+        ys.append(y[:size])
     return ShardedVector(chunks=tuple(ys), starts=A.row_plan.starts,
                          length=A.shape[0])
 
@@ -364,7 +460,8 @@ def spmv_gpr_sharded(mesh: Mesh, A: ShardedGPR,
 # ---------------------------------------------------------------------------
 
 _SPMV = {"dia": spmv_dia_sharded, "dia_stream": spmv_sdia_sharded,
-         "pdia_stream": spmv_psdia_sharded, "gpr": spmv_gpr_sharded,
+         "pdia_stream": spmv_psdia_sharded, "bdia": spmv_bdia_sharded,
+         "gpr": spmv_gpr_sharded,
          "csr_neighbor": spmv_neighbor, "csr_allgather": spmv_allgather,
          "csr_halo": spmv_halo}
 _STREAMING = ("dia_stream", "pdia_stream")
@@ -377,7 +474,7 @@ class DistPlan:
     host arrays and the mesh; ``spmv`` runs one distributed SpMV."""
 
     matrix: object
-    strategy: str   # "dia" | "dia_stream" | "pdia_stream" | "gpr"
+    strategy: str   # "dia" | "dia_stream" | "pdia_stream" | "bdia" | "gpr"
     #                 | "csr_neighbor" | "csr_allgather" | "csr_halo"
     x_plan: RowPlan
     row_plan: RowPlan
@@ -451,7 +548,12 @@ def plan_dist_spmv(host_mat, mesh, *, dtype=None, strategy: str | None = None,
             hdia, period=period, rb=sdia_rb, verify=False), ndev)
         return DistPlan(A, "pdia_stream", A.pad_plan, A.pad_plan, mesh)
 
-    arms = {"dia": try_dia, "dia_stream": try_sdia, "pdia_stream": try_psdia}
+    def try_bdia():
+        A = ShardedBDIA.build(BDIA.from_coo(coo, block_size=8), ndev)
+        return DistPlan(A, "bdia", A.x_plan, A.row_plan, mesh)
+
+    arms = {"dia": try_dia, "dia_stream": try_sdia, "pdia_stream": try_psdia,
+            "bdia": try_bdia}
     if strategy in arms:
         return _placed(arms[strategy]())
     if strategy is None and square and stats.nnz:
@@ -463,6 +565,11 @@ def plan_dist_spmv(host_mat, mesh, *, dtype=None, strategy: str | None = None,
                     return _placed(arm())
                 except ValueError:
                     pass
+        if bdia_storage <= 4 * stats.nnz:
+            try:
+                return _placed(try_bdia())
+            except ValueError:
+                pass
     sp_csr = coo.to_scipy().tocsr()
     sp_csr.sort_indices()
     if strategy == "gpr" or (strategy is None and stats.nnz):

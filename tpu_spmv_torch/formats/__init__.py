@@ -1,23 +1,27 @@
 """Sparse matrix formats as dataclasses of torch tensors: COO, CSR, CSC,
-DIA.
+ELL, DIA, BSR and BDIA.
 
-Counterpart of ``tpu_spmv/formats``; conversions go through COO.  ELL, BSR
-and BDIA are not ported yet (ROADMAP.md).
+Counterpart of ``tpu_spmv/formats``; conversions go through COO and pass
+their keyword arguments on (``convert(A, "bsr", block_size=8)``).
 """
 
 from __future__ import annotations
 
 from .base import INDEX_DTYPE, torch_dtype
+from .bdia import BDIA
+from .bsr import BSR
 from .coo import COO
 from .csc import CSC
 from .csr import CSR
 from .dia import DIA
+from .ell import ELL
 
-__all__ = ["COO", "CSR", "CSC", "DIA", "INDEX_DTYPE", "torch_dtype",
-           "convert", "to_coo", "FORMATS"]
+__all__ = ["COO", "CSR", "CSC", "ELL", "DIA", "BSR", "BDIA", "INDEX_DTYPE",
+           "torch_dtype", "convert", "to_coo", "FORMATS"]
 
 #: name → class registry (the CLI's ``--formats`` sweep uses it)
-FORMATS = {"coo": COO, "csr": CSR, "csc": CSC, "dia": DIA}
+FORMATS = {"coo": COO, "csr": CSR, "csc": CSC, "ell": ELL, "dia": DIA,
+           "bsr": BSR, "bdia": BDIA}
 
 
 def to_coo(mat) -> COO:
@@ -31,8 +35,10 @@ def to_coo(mat) -> COO:
     raise TypeError(f"cannot convert {type(mat).__name__} to COO")
 
 
-def convert(mat, target: str | type):
-    """Convert between formats via COO: ``convert(A, "csr")``."""
+def convert(mat, target: str | type, **kwargs):
+    """Convert between formats via COO: ``convert(A, "csr")``,
+    ``convert(A, "bsr", block_size=8)`` (keyword arguments go to the
+    target's ``from_coo``)."""
     if isinstance(target, str):
         try:
             target_cls = FORMATS[target.lower()]
@@ -42,9 +48,9 @@ def convert(mat, target: str | type):
             ) from None
     else:
         target_cls = target
-    if isinstance(mat, target_cls):
+    if isinstance(mat, target_cls) and not kwargs:
         return mat
     coo = to_coo(mat)
     if target_cls is COO:
         return coo
-    return target_cls.from_coo(coo)
+    return target_cls.from_coo(coo, **kwargs)

@@ -1,8 +1,8 @@
 """Carry operators packed by the JAX reference package into the port.
 
 In this system the "weights" are the packed operators.  The port keeps the
-reference's dataclass fields for COO, CSR, CSC, DIA, SDIA and PSDIA, so an
-operator carries over field by field: array leaves through numpy, static
+reference's dataclass fields for COO, CSR, CSC, ELL, DIA, BSR, BDIA, SDIA
+and PSDIA, so an operator carries over field by field: array leaves through numpy, static
 fields as they are.  A reference ``PackedELL`` carries over through the
 logical matrix its tiles hold (the arithmetic of ``PackedELL.to_coo``),
 repacked as the port's sliced ELL.  A reference ``GPCSR`` or
@@ -17,7 +17,8 @@ the ``(g1, g2, g3)`` planes of a tile permutation.  A reference
 ``ReorderedOperator`` carries over with its plan and its permutation.
 
 The distributed containers (``ShardedVector``, ``ShardedDIA``,
-``ShardedSDIA``, ``ShardedPSDIA``, ``ShardedCSR``, ``HaloCSR``,
+``ShardedBDIA``, ``ShardedSDIA``, ``ShardedPSDIA``, ``ShardedCSR``,
+``HaloCSR``,
 ``NeighborCSR``, ``ColShardedCSR``) and a ``DistPlan`` over them carry over
 onto a port mesh: each stacked ``[ndev, ...]`` leaf becomes one tensor per
 shard on that shard's device, and the port's bucket row pointers are
@@ -33,10 +34,10 @@ import numpy as np
 import torch
 
 from .dist import (ColShardedCSR, DistPlan, HaloCSR, NeighborCSR, RowPlan,
-                   ShardedCSR, ShardedDIA, ShardedPSDIA, ShardedSDIA,
-                   ShardedVector, place)
+                   ShardedBDIA, ShardedCSR, ShardedDIA, ShardedPSDIA,
+                   ShardedSDIA, ShardedVector, place)
 from .dist.sharded import rowptrs
-from .formats import COO, CSC, CSR, DIA
+from .formats import BDIA, BSR, COO, CSC, CSR, DIA, ELL
 from .formats.base import INDEX_DTYPE, torch_dtype
 from .kernels.dia_stream import PSDIA, SDIA
 from .kernels.ell_packed import pack_ell
@@ -47,22 +48,25 @@ from .reorder import ReorderedOperator
 
 __all__ = ["from_reference", "compose_permutation", "tile_plan_from_planes"]
 
-_TYPES = {cls.__name__: cls for cls in (COO, CSR, CSC, DIA, SDIA, PSDIA)}
+_TYPES = {cls.__name__: cls for cls in (COO, CSR, CSC, ELL, DIA, BSR, BDIA,
+                                         SDIA, PSDIA)}
 _DIST = {cls.__name__: cls for cls in (
-    ShardedVector, ShardedDIA, ShardedSDIA, ShardedPSDIA, ShardedCSR,
-    HaloCSR, NeighborCSR, ColShardedCSR)}
+    ShardedVector, ShardedDIA, ShardedBDIA, ShardedSDIA, ShardedPSDIA,
+    ShardedCSR, HaloCSR, NeighborCSR, ColShardedCSR)}
 #: the port's row-pointer fields and the (rows, data) buckets they index
 _ROWPTR = {"rowptr": ("rows", "data"), "rowptr_int": ("rows_int", "data_int"),
            "rowptr_bnd": ("rows_bnd", "data_bnd")}
 #: reference strategies the port can run
-_STRATEGIES = ("pdia_stream", "dia_stream", "dia", "csr", "pallas_ell",
-               "gpr")
+_STRATEGIES = ("pdia_stream", "dia_stream", "dia", "bdia", "csr",
+               "pallas_ell", "gpr")
 
 
 def _leaf(value, device, dtype) -> torch.Tensor:
     t = torch.from_numpy(np.array(value))
     if t.is_floating_point():
         return t.to(device=device, dtype=dtype or t.dtype)
+    if t.dtype == torch.bool:            # ELL's slot mask
+        return t.to(device)
     return t.to(device=device, dtype=INDEX_DTYPE)
 
 
@@ -178,7 +182,8 @@ def _from_dist(obj, cls, mesh, dtype):
 
 def from_reference(obj, *, device=None, dtype=None, mesh=None):
     """The port's counterpart of a reference ``COO`` / ``CSR`` / ``CSC`` /
-    ``DIA`` / ``SDIA`` / ``PSDIA`` / ``PackedELL``, ``SpmvPlan``,
+    ``ELL`` / ``DIA`` / ``BSR`` / ``BDIA`` / ``SDIA`` / ``PSDIA`` /
+    ``PackedELL``, ``SpmvPlan``,
     ``PermutationPlan`` / ``TwoLevelPlan`` or ``ReorderedOperator``, with
     its tensors on ``device`` — or of a reference distributed container or
     ``DistPlan``, placed on the port :class:`~.dist.Mesh` ``mesh`` (float
@@ -212,8 +217,10 @@ def from_reference(obj, *, device=None, dtype=None, mesh=None):
             bandwidth_after=int(obj.bandwidth_after))
     if hasattr(obj, "matrix") and hasattr(obj, "strategy"):
         if obj.strategy not in _STRATEGIES:
-            raise ValueError(f"strategy {obj.strategy!r} is not ported yet "
-                             f"(ported: {', '.join(_STRATEGIES)})")
+            raise ValueError(f"strategy {obj.strategy!r} is not ported "
+                             f"as a planner arm (ported: "
+                             f"{', '.join(_STRATEGIES)}); carry the matrix "
+                             f"over on its own")
         stats = (PatternStats(**dataclasses.asdict(obj.stats))
                  if obj.stats is not None else None)
         return plan_from_matrix(from_reference(obj.matrix, device=device,

@@ -28,11 +28,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = ("dia_stream.cu", "general.cu", "dist_stream.cu", "permute.cu")
+_SOURCES = ("dia_stream.cu", "general.cu", "dist_stream.cu", "permute.cu",
+            "probes.cu")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_U32 = ctypes.c_uint32
 #: C signature of every exported function: name -> argtypes (restype int)
 _SIGNATURES = {
     "tsp_sdia_spmv_f32": [_P, _P, _I, _P, _P, _I64, _P],
@@ -59,6 +61,11 @@ _SIGNATURES = {
     "tsp_psdia_ring_f64": [_P, _P, _I, _I64] + [_P] * 4 + [_I64] * 5 + [_P],
     "tsp_permute_gather": [_P, _P, _I, _P, _I64, _I, _P],
     "tsp_permute_gather_batched": [_P, _P, _I, _P, _I64, _I, _I, _P],
+    "tsp_copy_scale": [_P, _P, _I64, _P],
+    "tsp_launch_probe": [_P, _P, _P],
+    "tsp_segsum8": [_P, _P, _I64, _P],
+    "tsp_tile_permute": [_P, _P, _P, _I, _P, _I, _I, _U32, _P, _I, _P, _I64,
+                         _P],
 }
 
 

@@ -20,6 +20,12 @@ The streaming arms are taken at every size: the reference's switchover
 below a VMEM-residency threshold and its float64 reroute are TPU facts and
 are not ported.
 
+Otherwise a block-banded matrix, whose 8x8 block-DIA storage is at most
+4x nnz (a structured PDE with 8 coupled components per grid point), gets
+``"bdia"``: :class:`..formats.BDIA` with the torch-code
+:func:`.spmv.spmv_bdia` / :func:`.spmm.spmm_bdia` (the reference's arm is
+XLA-level code too).
+
 Every other nonempty matrix takes the general arm, in the reference's
 order (``tpu_spmv/ops/auto.py:416-474``):
 
@@ -34,9 +40,10 @@ order (``tpu_spmv/ops/auto.py:416-474``):
 The strategy names are the reference's, so plans carry over.  The
 reference's TPU cost models (``pallas_ell_cost_s``, ``gpr_cost_s``), its
 ``ncol`` envelope and its row chunking are TPU facts and are not ported.
-Where the reference would take an arm the port lacks (``"bdia"``,
-``"bsr"``, ``"ell"``), the port takes the general arm.  An empty matrix
-gets ``"csr"``.
+The reference reaches its ``"bsr"`` and ``"ell"`` arms only off its
+kernel path (no Pallas general kernel for the matrix); the port's general
+kernels cover every matrix, so it has no such arms (the formats themselves
+run through :func:`.spmv.spmv`).  An empty matrix gets ``"csr"``.
 """
 
 from __future__ import annotations
@@ -49,10 +56,10 @@ import numpy as np
 import torch
 
 from ..bench.roofline import ell_matrix_bytes, gpr_matrix_bytes
-from ..formats import COO, CSR, DIA, to_coo
+from ..formats import BDIA, COO, CSR, DIA, to_coo
 from ..kernels import dia_stream, ell_packed, gpr
-from .spmm import spmm
-from .spmv import spmv
+from .spmm import spmm, spmm_bdia
+from .spmv import spmv, spmv_bdia
 from .transpose import transpose
 
 __all__ = ["PatternStats", "SpmvPlan", "analyze", "plan_spmv",
@@ -124,13 +131,15 @@ def analyze(mat) -> PatternStats:
 _KERNELS = {"pdia_stream": (dia_stream.spmv_psdia,
                             dia_stream.spmv_psdia_padded),
             "dia_stream": (dia_stream.spmv_sdia, dia_stream.spmv_sdia_padded)}
-#: general-arm strategy -> kernel (solver_space is the identity for these)
-_GENERAL = {"gpr": gpr.spmv_gpr, "pallas_ell": ell_packed.spmv_ell_packed}
+#: block and general-arm strategy -> kernel (solver_space is the identity
+#: for these)
+_GENERAL = {"bdia": spmv_bdia, "gpr": gpr.spmv_gpr,
+            "pallas_ell": ell_packed.spmv_ell_packed}
 #: strategy -> SpMM kernel for ``[ncol, nrhs]`` operands ("dia" and "csr"
 #: take :func:`.spmm.spmm`)
 _SPMM = {"pdia_stream": dia_stream.spmm_psdia,
-         "dia_stream": dia_stream.spmm_sdia, "gpr": gpr.spmm_gpr,
-         "pallas_ell": ell_packed.spmm_ell_packed}
+         "dia_stream": dia_stream.spmm_sdia, "bdia": spmm_bdia,
+         "gpr": gpr.spmm_gpr, "pallas_ell": ell_packed.spmm_ell_packed}
 #: strategy -> the strategy of its transpose (the reference's swap table)
 _TRANSPOSED = {"csr": "csc", "csc": "csr", "coo": "coo", "dia": "dia",
                "dia_stream": "dia_stream", "pdia_stream": "pdia_stream"}
@@ -142,7 +151,7 @@ class SpmvPlan:
 
     matrix: object              # the converted / packed format instance
     strategy: str               # "pdia_stream" | "dia_stream" | "dia" |
-    #                             "gpr" | "pallas_ell" | "csr"
+    #                             "bdia" | "gpr" | "pallas_ell" | "csr"
     stats: PatternStats | None = None
     _kernel: Callable = spmv
 
@@ -179,8 +188,9 @@ class SpmvPlan:
         """The plan for ``A^T``, on the device (:mod:`.transpose`): CSR ↔
         CSC, COO and DIA in place, the streaming packs through
         ``transpose_sdia`` / ``transpose_psdia`` (the same kernels).  The
-        packed strategies (``gpr`` / ``pallas_ell``) raise: re-plan from
-        the host matrix (``plan_spmv(mat.T)``)."""
+        packed and block strategies (``gpr`` / ``pallas_ell`` / ``bdia``,
+        whose layouts bake in the row grouping) raise, as in the reference:
+        re-plan from the host matrix (``plan_spmv(mat.T)``)."""
         if self.strategy not in _TRANSPOSED:
             raise TypeError(
                 f"strategy {self.strategy!r} has no in-place transpose; "
@@ -272,6 +282,10 @@ def plan_spmv(mat, *, dtype=None, device="cuda") -> SpmvPlan:
             return plan_from_matrix(dia_stream.pack_sdia(hdia, device=device),
                                     "dia_stream", stats)
         return plan_from_matrix(hdia.to(device), "dia", stats)
+    if bdia_storage <= 4 * stats.nnz:
+        # block-banded: the gather-free block-diagonal contraction
+        return plan_from_matrix(BDIA.from_coo(hc, block_size=8).to(device),
+                                "bdia", stats)
     if not gpr.supports(hc.shape, stats.nnz):
         return plan_from_matrix(CSR.from_coo(hc).to(device), "csr", stats)
     counts = np.bincount(hc.row.numpy(), minlength=stats.nrow)

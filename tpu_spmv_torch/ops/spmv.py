@@ -1,4 +1,5 @@
-"""Sparse matrix–vector products for COO, CSR, CSC and DIA in plain PyTorch.
+"""Sparse matrix–vector products for COO, CSR, CSC, ELL, DIA, BSR and BDIA
+in plain PyTorch.
 
 Counterpart of the XLA-level arms of ``tpu_spmv/ops/spmv.py``.
 ``spmv(A, x)`` returns ``A @ x``; ``spmv(A, x, y)`` returns ``y + A @ x``.
@@ -15,7 +16,18 @@ use atomics on CUDA:
 - CSC gathers its entries in the stable row order it computed at
   construction and takes the same segment sum over its row offsets (the
   reference's unsorted ``segment_sum`` would be a scatter here).
+- ELL gathers ``x`` by its ``[nrow, width]`` columns and sums each row of
+  products (pad slots hold 0).
 - DIA is a static loop of shifted dense FMAs over a zero-padded ``x``.
+- BSR gathers ``x`` a block at a time, contracts each block with its
+  ``bs`` values, and sums each block row's run of blocks with
+  ``torch.segment_reduce`` over ``indptr``.
+- BDIA contracts each block diagonal with a shifted slice of the blocked,
+  zero-padded ``x`` (no index arrays, no gather).
+
+The block contractions are elementwise products summed over the block's
+columns, never a matrix product, so float32 sums stay float32 with no TF32
+whatever torch's matmul flags say.
 """
 
 from __future__ import annotations
@@ -23,9 +35,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..formats import COO, CSC, CSR, DIA
+from ..formats import BDIA, BSR, COO, CSC, CSR, DIA, ELL
 
-__all__ = ["spmv", "spmv_coo", "spmv_csr", "spmv_csc", "spmv_dia"]
+__all__ = ["spmv", "spmv_coo", "spmv_csr", "spmv_csc", "spmv_ell",
+           "spmv_dia", "spmv_bsr", "spmv_bdia"]
 
 
 def _finish(ax: torch.Tensor, y: torch.Tensor | None) -> torch.Tensor:
@@ -62,6 +75,13 @@ def spmv_csc(A: CSC, x: torch.Tensor,
     return _finish(_row_sums(prod, A.row_ptr), y)
 
 
+def spmv_ell(A: ELL, x: torch.Tensor,
+             y: torch.Tensor | None = None) -> torch.Tensor:
+    """ELL SpMV: ``data * x[cols]`` summed along each row (pad slots hold
+    value 0, so no mask is needed)."""
+    return _finish((A.data * x[A.cols]).sum(dim=1), y)
+
+
 def spmv_dia(A: DIA, x: torch.Tensor,
              y: torch.Tensor | None = None) -> torch.Tensor:
     """DIA SpMV: one unit-stride FMA per diagonal over a padded ``x``
@@ -77,11 +97,64 @@ def spmv_dia(A: DIA, x: torch.Tensor,
     return _finish(ax, y)
 
 
-_DISPATCH = {COO: spmv_coo, CSR: spmv_csr, CSC: spmv_csc, DIA: spmv_dia}
+def blocked(x: torch.Tensor, nblocks: int, bs: int) -> torch.Tensor:
+    """``x [n, ...]`` zero-padded to ``nblocks * bs`` rows as ``[nblocks,
+    bs, ...]``."""
+    pad = nblocks * bs - x.shape[0]
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    return x.reshape((nblocks, bs) + tuple(x.shape[1:]))
+
+
+def bdia_pad(offsets, nbrow: int, nbcol: int) -> tuple[int, int]:
+    """Block rows of zeros before and after the blocked ``x`` so that
+    every block diagonal's slice ``[off + lo, off + lo + nbrow)`` is in
+    range."""
+    return (max(0, -min(offsets)),
+            max(0, (nbrow - 1) + max(offsets) - (nbcol - 1)))
+
+
+def bdia_blocks(data: torch.Tensor, offsets, xbp: torch.Tensor, lo: int,
+                nbrow: int) -> torch.Tensor:
+    """``[nbrow, bs]`` block products ``sum_d data[d] @ xbp[off_d + lo :
+    off_d + lo + nbrow]`` as elementwise products summed over the block's
+    columns (``xbp`` is the blocked, padded ``x``)."""
+    acc = None
+    for d, off in enumerate(offsets):
+        xs = xbp[off + lo:off + lo + nbrow]
+        part = (data[d] * xs[:, None, :]).sum(dim=-1)
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def spmv_bsr(A: BSR, x: torch.Tensor,
+             y: torch.Tensor | None = None) -> torch.Tensor:
+    """BSR SpMV: each block times its gathered ``bs`` values of ``x``, the
+    blocks of a block row summed over ``indptr`` (row-owned)."""
+    xb = blocked(x, A.nbcol, A.block_size)
+    yb = (A.data * xb[A.indices][:, None, :]).sum(dim=-1)
+    ax = _row_sums(yb, A.indptr).reshape(-1)[:A.shape[0]]
+    return _finish(ax, y)
+
+
+def spmv_bdia(A: BDIA, x: torch.Tensor,
+              y: torch.Tensor | None = None) -> torch.Tensor:
+    """BDIA SpMV: one contraction per block diagonal with a shifted slice
+    of the blocked, zero-padded ``x`` (out-of-range blocks are zero)."""
+    lo, hi = bdia_pad(A.offsets, A.nbrow, A.nbcol)
+    xb = blocked(x, A.nbcol, A.block_size)
+    xbp = F.pad(xb, (0, 0, lo, hi))
+    ax = bdia_blocks(A.data, A.offsets, xbp, lo, A.nbrow).reshape(-1)
+    return _finish(ax[:A.shape[0]], y)
+
+
+_DISPATCH = {COO: spmv_coo, CSR: spmv_csr, CSC: spmv_csc, ELL: spmv_ell,
+             DIA: spmv_dia, BSR: spmv_bsr, BDIA: spmv_bdia}
 
 
 def spmv(A, x: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
-    """``A @ x`` (or ``y + A @ x``) for COO, CSR, CSC and DIA."""
+    """``A @ x`` (or ``y + A @ x``) for COO, CSR, CSC, ELL, DIA, BSR and
+    BDIA."""
     try:
         fn = _DISPATCH[type(A)]
     except KeyError:

@@ -3,7 +3,8 @@
 Counterpart of ``tpu_spmv/solvers/dist_cg.py``: the matrix is a row-sharded
 :class:`~..dist.sharded.ShardedCSR`, ``HaloCSR`` or ``NeighborCSR`` whose
 row partition equals its column partition (square, built with
-``square=True``), vectors are :class:`~..dist.sharded.ShardedVector`, and
+``square=True``), or the ``"bdia"`` plan's
+:class:`~..dist.planned.ShardedBDIA` (square by construction), vectors are :class:`~..dist.sharded.ShardedVector`, and
 every dot product sums over the shards in shard order.  Where the reference
 runs one jitted ``while_loop``, the port's loop is Python over the shards'
 tensors and reads the residual on the host once per iteration, as the
@@ -17,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from ..dist import blas
+from ..dist.planned import ShardedBDIA, spmv_bdia_sharded
 from ..dist.sharded import HaloCSR, NeighborCSR, ShardedCSR, ShardedVector
 from ..dist.spmv import spmv_allgather, spmv_halo, spmv_neighbor
 
@@ -43,7 +45,8 @@ def _dist_matvec(mesh, A, b: ShardedVector, name: str):
         raise ValueError(f"{name} needs row partition == column partition; "
                          f"build the sharded matrix with square=True")
     for cls, fn in ((NeighborCSR, spmv_neighbor), (HaloCSR, spmv_halo),
-                    (ShardedCSR, spmv_allgather)):
+                    (ShardedCSR, spmv_allgather),
+                    (ShardedBDIA, spmv_bdia_sharded)):
         if isinstance(A, cls):
             return lambda v: fn(mesh, A, v)
     raise TypeError(f"unsupported sharded matrix {type(A).__name__}")
