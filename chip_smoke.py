@@ -102,17 +102,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``copy_`` over 256 MiB, whose higher rate is the roofline's peak, the
    launch probe once and four in a row, ``segsum8`` and every
    ``tile_permute`` variant at the probes' shapes), its launch counters
-   zeroed before it; then each kernel at the main paths' shapes against its plain version, timed
-   (CUDA events, median) beside its bound and one library call of the
-   same function, a yardstick the port never calls (cuSPARSE:
-   ``torch.sparse_csr_tensor @ x``, ``torch.sparse.mm`` for the SpMMs;
-   ``torch.index_select`` for the gathers); each SpMM also beside
-   ``plan.spmm`` end to end and 32 times its SpMV kernel; the probe
-   kernels beside their plain versions, bounds and one library call
-   (``torch.mul``, ``copy_``, ``sum``, ``take_along_dim``); the block
+   zeroed before it; the host breakdown of one launch (µs per call by the
+   host clock over 10,000 calls of each step of the launch path: the
+   steps of the former per-wrapper launch and of the launcher, the bare
+   ctypes call under ``CDLL`` and ``PyDLL``, the whole ``launch_probe``
+   wrapper beside ``clone()``); ``cg_runner(iters=200)`` in f32 on the 256x256 Poisson,
+   where the launches set the pace; then each kernel at the main paths'
+   shapes against its plain version, timed (CUDA events, median) beside
+   its bound and one library call of the same function, a yardstick the
+   port never calls (cuSPARSE: ``torch.sparse_csr_tensor @ x``,
+   ``torch.sparse.mm`` for the SpMMs; ``torch.index_select`` for the
+   gathers); each SpMM also beside ``plan.spmm`` end to end and 32 times
+   its SpMV kernel; the probe kernels beside their plain versions, bounds
+   and one library call (``torch.mul``, ``copy_`` and ``clone()``,
+   ``sum``, ``take_along_dim``; timed in turns with the kernel); the block
    products ``spmv_bdia``, ``spmv_bsr`` and ``spmm_bdia`` (32 RHS) at 512
    beside their bounds and cuSPARSE BSR (``torch.sparse_bsr_tensor``, or
-   the CSR product where torch refuses BSR on CUDA).
+   the CSR product where torch refuses BSR on CUDA); last, one line of
+   the launch-bound rows (T1, T2, T3 S, ``gpr_spmv`` and the sharded GPR
+   at 100k rows, the 256x256 CG).
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as ``nvidia-smi`` gives them, and ``{"ok": true, "device": ...}``.
@@ -327,6 +335,95 @@ def numpy_tile_variant(name: str, t3: dict, t4: dict):
                -1)
 
 
+def host_breakdown(dev, n: int = 10_000) -> dict:
+    """µs per call by the host clock, over ``n`` calls each, of every host
+    step of one T1 launch (``launch_probe`` on a ``[128, 128]`` tile): the
+    steps of the former per-wrapper launch (device context, stream
+    object, ``CDLL`` call) and those of the launcher, each alone, then
+    the whole wrappers.  Steps that launch return before the card runs
+    the copy; the card is drained after each step."""
+    import ctypes
+
+    import torch
+
+    from tpu_spmv_torch.bench import probes as pr
+    from tpu_spmv_torch.kernels import _build
+
+    tile = torch.rand(pr.Q, pr.Q, device=dev)
+    out = torch.empty_like(tile)
+    v = torch.from_numpy(pr.t2_operand()).to(dev)
+    vout = torch.empty(16, 512, 16, device=dev)
+    index = tile.get_device()
+    pylib = _build.load()
+    clib = _build.declare(ctypes.CDLL(pylib._name))
+    current, raw = _build._cuda_hooks()
+    xp, op = tile.data_ptr(), out.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def former_launch_probe(x):
+        """The wrapper as it was before the launcher, step for step
+        (``_device_kind``, ``_aligned``, the allocation, ``_call``)."""
+        if tuple(x.shape) != (pr.Q, pr.Q):
+            raise ValueError("launch_probe: needs a tile")
+        if x.dtype != torch.float32 or x.device.type not in ("cpu", "cuda"):
+            raise TypeError("launch_probe: needs float32 on cpu or cuda")
+        x = x.contiguous()
+        x = x if x.data_ptr() % 16 == 0 else x.clone()
+        y = torch.empty_like(x)
+        _build.load()
+        with torch.cuda.device(x.device):         # then called via CDLL
+            s_ = torch.cuda.current_stream(x.device).cuda_stream
+            code = getattr(clib, "tsp_launch_probe")(x.data_ptr(),
+                                                     y.data_ptr(), s_)
+        _build.check(clib, "launch_probe", code)
+        return y
+
+    def enter_device():
+        with torch.cuda.device(dev):
+            pass
+
+    steps = {
+        "the timing loop alone (an empty call)": lambda: None,
+        "torch.cuda.device(dev) entered and left (former path)":
+            enter_device,
+        "torch.cuda.current_stream(dev).cuda_stream (former path)":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw stream handle, torch._C._cuda_getCurrentRawStream (launcher)":
+            lambda: raw(index),
+        "torch.cuda.current_device()": torch.cuda.current_device,
+        "torch._C._cuda_getDevice() (launcher's device check)": current,
+        "torch.empty_like(tile)": lambda: torch.empty_like(tile),
+        "bare ctypes tsp_launch_probe, CDLL (releases the GIL)":
+            lambda: clib.tsp_launch_probe(xp, op, stream),
+        "bare ctypes tsp_launch_probe, PyDLL (holds the GIL; launcher)":
+            lambda: pylib.tsp_launch_probe(xp, op, stream),
+        "the launcher alone (pointers given)":
+            lambda: pr._LAUNCH_PROBE(tile, xp, op),
+        "launch_probe wrapper, former path":
+            lambda: former_launch_probe(tile),
+        "launch_probe wrapper (launcher)": lambda: pr.launch_probe(tile),
+        "tile.clone()": tile.clone,
+        "out.copy_(tile)": lambda: out.copy_(tile),
+        "T2's output, v.new_empty((16, 512, 16))":
+            lambda: v.new_empty((16, 512, 16)),
+        "segsum8's launcher alone (pointers given)":
+            lambda: pr._SEGSUM8(v, v.data_ptr(), vout.data_ptr(), 131072),
+        "segsum8 wrapper, [16, 512, 128] (launcher)": lambda: pr.segsum8(v),
+        "v.view(-1, 16, 8).sum(-1), [16, 512, 128]":
+            lambda: v.view(-1, 16, 8).sum(-1),
+    }
+    us = {}
+    for label, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us[label] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+    return us
+
+
 def main() -> int:
     import torch
 
@@ -346,6 +443,7 @@ def main() -> int:
     from tpu_spmv_torch.bench import probes as pr
     from tpu_spmv_torch.bench.harness import (time_chained, time_fn,
                                               verify_against_oracle)
+    from tpu_spmv_torch.bench.launch_ab import interleaved_ms
     from tpu_spmv_torch.bench.roofline import (measured_copy_gbps,
                                                spmm_bytes, spmv_bytes)
     from tpu_spmv_torch.formats import COO, DIA, convert
@@ -1059,9 +1157,10 @@ def main() -> int:
     rel_g = float((ys - yp).abs().max() / yp.abs().max())
     gplain_ms = time_chained(lambda v: gpr.spmv_gpr(G.gpcsr[0], v) * gscale,
                              xg, iters=100).median_s * 1e3
+    gpr_parity = r["seconds"] * 1e3 / gplain_ms
     print(f"    gpr ndev=1 on {gname}: {r['seconds'] * 1e3:.4f} ms per SpMV, "
           f"plain gpr_spmv chain on the same pack {gplain_ms:.4f} ms -> "
-          f"parity {r['seconds'] * 1e3 / gplain_ms:.3f} | vs plain "
+          f"parity {gpr_parity:.3f} | vs plain "
           f"{rel_g:.2e} | rel err vs scipy {r['rel_err']:.2e}")
     require(rel_g <= PLAIN_TOL["float32"], f"sharded GPR vs gpr_spmv {rel_g}")
     del G, gplan, ys, yp
@@ -1454,6 +1553,35 @@ def main() -> int:
     print(f"launch counts on the probe path: {plaunches}")
     for k, c in plaunches.items():
         require(c > 0, f"{k} never launched on the probe path")
+    breakdown = host_breakdown(dev)
+    print(f"host breakdown of one launch, us per call by the host clock over "
+          f"10,000 calls each ({card}):")
+    for label, us in breakdown.items():
+        print(f"    {us:8.3f} us  {label}")
+    m256f = utils.laplacian_2d(256)
+    plan256 = plan_spmv(m256f, dtype=torch.float32, device=dev)
+    # b = A x_true, as in 4a: its residual falls from the first iterations
+    b256f = torch.tensor(m256f @ rng.random(m256f.shape[0]),
+                         dtype=torch.float32, device=dev)
+    run = cg_runner(plan256, iters=200, report_tol=1e-5)
+    run(b256f)                                       # warm-up
+    zero(ds.LAUNCHES)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    res = run(b256f)
+    end.record()
+    end.synchronize()
+    cg256_ms = start.elapsed_time(end) / 200
+    k2_256 = ds.LAUNCHES["psdia"]
+    r256 = float(torch.linalg.norm(b256f - plan256(res.x))
+                 / torch.linalg.norm(b256f))
+    print(f"cg_runner(iters=200) f32 on laplacian_2d(256) via "
+          f"{plan256.strategy}: {cg256_ms:.4f} ms/iteration | K2 launches "
+          f"{k2_256} | true rel residual {r256:.3e}")
+    require(plan256.strategy == "pdia_stream" and k2_256 > 0,
+            "the 256^2 CG did not run through K2")
+    require(np.isfinite(r256) and r256 < 0.1, "256^2 CG residual did not fall")
+    del plan256, b256f, run, res
     copy_gbps = measured_copy_gbps(dev)
     print(f"bandwidth probes over 256 MiB: copy_scale (K9) "
           f"{probe_ms['copy_scale_gbps']:.1f} GB/s, torch copy_ "
@@ -1679,21 +1807,30 @@ def main() -> int:
 
     # the probe kernels at the probes' shapes: the probe path's times,
     # each beside its plain version, one library call and its bound
-    def probe_record(kname, key, kern, plain, args, lib, nbytes, flops,
-                     label, src_line):
-        ms, graph_ms = probe_ms[key], probe_ms[f"{key}:graph"]
+    def probe_record(kname, key, kern, plain, args, libs, nbytes, flops,
+                     label, src_line, iters=0):
+        """The record of one probe kernel; with ``libs`` (name -> one
+        PyTorch call of the same function; the first is the record's
+        library) the kernel and the calls are timed in turns (``iters``
+        calls a round), else the kernel's time is the probe path's."""
+        graph_ms = probe_ms[f"{key}:graph"]
         yk, yp = kern(*args), plain(*args)
         torch.cuda.synchronize()
         err = float((yk - yp).abs().max())
         require(torch.equal(yk, yp), f"{kname} {label} vs plain")
         del yk, yp
         plain_ms = time_fn(plain, *args, iters=20).median_s * 1e3
-        lib_ms = (time_fn(*lib, iters=20).median_s * 1e3 if lib is not None
-                  else None)
+        lib_ms, lib_txt, ms = None, "none", probe_ms[key]
+        if libs:
+            t = interleaved_ms({kname: lambda: kern(*args), **libs}, iters)
+            ms, lib_ms = t.pop(kname), t[next(iter(libs))]
+            paired[kname] = t
+            lib_txt = "(timed in turns with the kernel) " + ", ".join(
+                f"{n} {v:.4f} ms" for n, v in t.items())
         bound_ms, bound_by = bound(nbytes, flops)
-        lib_txt = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
-        print(f"{kname} {label}: {ms:.4f} ms ({graph_ms:.4f} ms replayed "
-              f"from a CUDA graph) | bound {bound_ms:.4f} ms ({bound_by}, "
+        print(f"{kname} {label}: {ms:.4f} ms (probe path "
+              f"{probe_ms[key]:.4f} ms; {graph_ms:.4f} ms replayed from a "
+              f"CUDA graph) | bound {bound_ms:.4f} ms ({bound_by}, "
               f"{100 * bound_ms / ms:.1f}%; {100 * bound_ms / graph_ms:.1f}% "
               f"of the replayed time) | plain {plain_ms:.4f} ms | library "
               f"{lib_txt} | max abs err {err:.3e}")
@@ -1704,35 +1841,38 @@ def main() -> int:
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": lib_ms}
 
-    probe_records = []
+    probe_records, paired = [], {}
     xp = torch.rand(1 << 26, device=dev)
     buf = torch.empty_like(xp)
     probe_records.append(probe_record(
         "copy_scale", "copy_scale", pr.copy_scale,
         pr.copy_scale_ref, (xp,),
-        (lambda: torch.mul(xp, pr.SCALE, out=buf),), 2 * xp.numel() * 4,
-        xp.numel(), "2^26 f32 (256 MiB)", "bench.py:999"))
+        {"torch.mul": lambda: torch.mul(xp, pr.SCALE, out=buf)},
+        2 * xp.numel() * 4, xp.numel(), "2^26 f32 (256 MiB)", "bench.py:999",
+        iters=20))
     del xp, buf
     tile = torch.rand(pr.Q, pr.Q, device=dev)
     tdst_ = torch.empty_like(tile)
     probe_records.append(probe_record(
         "launch_probe", "launch_probe", pr.launch_probe,
-        pr.launch_probe_ref, (tile,), (lambda: tdst_.copy_(tile),),
+        pr.launch_probe_ref, (tile,),
+        {"copy_": lambda: tdst_.copy_(tile), "clone()": tile.clone},
         2 * tile.numel() * 4, 0, "[128, 128] f32, one launch",
-        "tools/profile_gpr.py:110"))
+        "tools/profile_gpr.py:110", iters=400))
     x4, x4g = probe_ms["launch_probe_x4"], probe_ms["launch_probe_x4:graph"]
     print(f"    four launches in a row {x4:.4f} ms ({x4g:.4f} ms replayed): "
           f"marginal {(x4 - probe_ms['launch_probe']) / 3:.4f} ms per launch "
           f"({(x4g - probe_ms['launch_probe:graph']) / 3:.4f} ms replayed); "
           f"gpr_spmv at 100k rows (4b) "
           f"{spmv_ms['gpr_spmv', 'random_sparse(100000,7e-5)']:.4f} ms")
+    clone_ms = paired["launch_probe"]["clone()"]
     del tile, tdst_
     v2 = torch.from_numpy(pr.t2_operand()).to(dev)
     probe_records.append(probe_record(
         "segsum8", "segsum8", pr.segsum8, pr.segsum8_ref, (v2,),
-        (lambda: v2.view(-1, 16, 8).sum(-1),),
+        {"sum": lambda: v2.view(-1, 16, 8).sum(-1)},
         v2.numel() * 4 + v2.numel() // 8 * 4, v2.numel() // 8 * 7,
-        "[16, 512, 128] f32", "tools/profile_reduce.py:35"))
+        "[16, 512, 128] f32", "tools/profile_reduce.py:35", iters=300))
     del v2
     t3, t4 = pr.t3_operands(), pr.t4_operands()
     for vname, (prog, src, mul, psum8) in pr.tile_variants(t3, t4,
@@ -1746,17 +1886,18 @@ def main() -> int:
         for extra in (prog.rowsrc, prog.lidx, mul):
             if extra is not None:
                 nbytes += extra.numel() * extra.element_size()
-        lib = None
+        libs = None
         if vname == "S":
             gl = prog.idx[0].long()
-            lib = (lambda: torch.take_along_dim(src, gl, dim=1),)
+            libs = {"take_along_dim":
+                    lambda: torch.take_along_dim(src, gl, dim=1)}
         rec = probe_record(
             "tile_permute", f"tile_permute:{vname}",
             pr.tile_permute, pr.tile_permute_ref, (prog, src, mul, psum8),
-            lib, nbytes, out_elems * 8 if psum8 else 0,
+            libs, nbytes, out_elems * 8 if psum8 else 0,
             f"{vname} {tuple(src.shape)}",
             "tools/prof_tgtg_mxu.py:63" if vname == "TGTG"
-            else "tools/profile_sublane.py:47")
+            else "tools/profile_sublane.py:47", iters=100)
         if vname == "S":
             probe_records.append(rec)
 
@@ -1805,6 +1946,17 @@ def main() -> int:
               f"{ms / lib_ms:.2f}){agree}")
         del yk, yl
     del Bd, Bsr, X512, xb512, plan_b
+    pk_ = {r["name"]: r for r in probe_records}
+    print(f"launch-bound rows ({card}): launch_probe "
+          f"{pk_['launch_probe']['ms']:.4f} ms (copy_ "
+          f"{pk_['launch_probe']['library_ms']:.4f}, clone() "
+          f"{clone_ms:.4f}) | segsum8 {pk_['segsum8']['ms']:.4f} ms (sum "
+          f"{pk_['segsum8']['library_ms']:.4f}) | tile_permute S "
+          f"{pk_['tile_permute']['ms']:.4f} ms (take_along_dim "
+          f"{pk_['tile_permute']['library_ms']:.4f}) | gpr_spmv at 100k "
+          f"rows {spmv_ms['gpr_spmv', 'random_sparse(100000,7e-5)']:.4f} ms "
+          f"| sharded GPR parity at 100k rows {gpr_parity:.3f} | CG "
+          f"laplacian_2d(256) {cg256_ms:.4f} ms/iteration")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": records + spmm_records + dist_records

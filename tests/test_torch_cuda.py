@@ -410,3 +410,120 @@ def test_block_products_ignore_tf32(card):
                 2e-5 * np.max(np.abs(ref)), fmt
     finally:
         torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+def _launch_cases(card):
+    """T1, T2, K2, ``gpr_spmv`` and ``permute_gather`` on small operands:
+    name -> (input, kernel, plain version, launch counter, key, bitwise)."""
+    from tpu_spmv_torch.bench import probes as pr
+
+    rng = np.random.default_rng(13)
+    dia = convert(COO.from_scipy(utils.laplacian_2d(32), dtype=torch.float32,
+                                 device=card), "dia")
+    P = tds.pack_psdia(dia, period=32)
+    G = tgpr.pack_gpr(utils.power_law(3000, 3000, 12, seed=2),
+                      dtype=torch.float32, device=card)
+    plan = tperm.plan_permutation(rng.permutation(60_013), device=card)
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(card)
+
+    return {
+        "launch_probe": (dev(rng.random((pr.Q, pr.Q))), pr.launch_probe,
+                         pr.launch_probe_ref, pr.LAUNCHES, "launch_probe",
+                         True),
+        "segsum8": (dev(rng.random((16, 64, pr.Q))), pr.segsum8,
+                    pr.segsum8_ref, pr.LAUNCHES, "segsum8", True),
+        "psdia_spmv": (tds.pad_x(P, dev(rng.random(dia.shape[0]))),
+                       lambda v: tds.spmv_psdia_padded(P, v),
+                       lambda v: tds.spmv_psdia_padded_ref(P, v),
+                       tds.LAUNCHES, "psdia", False),
+        "gpr_spmv": (dev(rng.random(3000)), lambda v: tgpr.spmv_gpr_rows(G, v),
+                     lambda v: tgpr.spmv_gpr_ref(G, v), tgpr.LAUNCHES, "gpr",
+                     False),
+        "permute_gather": (dev(rng.random(60_013)),
+                           lambda v: tperm.apply_permutation(plan, v),
+                           lambda v: tperm.apply_permutation_ref(plan, v),
+                           tperm.LAUNCHES, "permute", True),
+    }
+
+
+_LAUNCH_NAMES = ["launch_probe", "segsum8", "psdia_spmv", "gpr_spmv",
+                 "permute_gather"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _LAUNCH_NAMES)
+def test_launch_goes_to_the_current_side_stream(card, name):
+    """On a side stream, after a producer kernel held back by a spin on
+    that stream: the kernel reads what the producer wrote (a launch on any
+    other stream would run first and read garbage) and equals its plain
+    version and its launch on the default stream."""
+    x, kern, plain, launches, key, bitwise = _launch_cases(card)[name]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    before = launches[key]
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(20_000_000)       # ~10 ms of device time
+        v = x * 2.0                         # the producer
+        y = kern(v)
+    torch.cuda.current_stream().wait_stream(side)
+    assert launches[key] == before + 1
+    want = plain(x * 2.0)
+    torch.cuda.synchronize()
+    if bitwise:
+        assert torch.equal(y, want)
+    else:
+        assert _rel(y, want) <= TOL[torch.float32]
+    assert torch.equal(y, kern(x * 2.0))
+
+
+@pytest.mark.cuda
+def test_launches_replay_from_one_cuda_graph(card):
+    """The five kernels captured in one CUDA graph: each wrapper call is
+    counted once at capture (a replay is no launch of the wrapper), and
+    every replay equals the eager results bitwise, also after the inputs
+    change in place."""
+    cases = _launch_cases(card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # warm-up off the capture
+        for x, kern, *_ in cases.values():
+            kern(x)
+    torch.cuda.current_stream().wait_stream(side)
+    before = {n: c[3][c[4]] for n, c in cases.items()}
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = {n: c[1](c[0]) for n, c in cases.items()}
+    for n, c in cases.items():
+        assert c[3][c[4]] == before[n] + 1, n
+    for scale in (1.0, 0.5):
+        for c in cases.values():
+            c[0].mul_(scale)
+        for out in outs.values():
+            out.zero_()
+        graph.replay()
+        eager = {n: c[1](c[0]) for n, c in cases.items()}
+        torch.cuda.synchronize()
+        for n in cases:
+            assert torch.equal(outs[n], eager[n]), n
+    for n, c in cases.items():
+        assert c[3][c[4]] == before[n] + 3, n      # capture + two eager
+
+
+@pytest.mark.cuda
+def test_launch_switches_to_the_tensors_card(card):
+    """A tensor on a card that is not the current one launches on its own
+    card, and the current device stays as it was."""
+    from tpu_spmv_torch.bench import probes as pr
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    other = torch.device("cuda", 1)
+    tile = torch.rand(pr.Q, pr.Q, device=other)
+    v = torch.rand(4, pr.Q, device=other)
+    assert torch.cuda.current_device() == 0
+    y, s = pr.launch_probe(tile), pr.segsum8(v)
+    assert torch.cuda.current_device() == 0
+    assert y.device == other and torch.equal(y, tile)
+    assert torch.equal(s, pr.segsum8_ref(v))

@@ -54,28 +54,29 @@ SCALE = 0.9999999
 LAUNCHES = {"copy_scale": 0, "launch_probe": 0, "segsum8": 0,
             "tile_permute": 0}
 _OPS = {"S": 1, "G": 2, "T": 3}
+_TILE = (Q, Q)
+#: T1's and T2's launches, resolved once (the library loads at first call)
+_LAUNCH_PROBE = _build.launcher("launch_probe")
+_SEGSUM8 = _build.launcher("segsum8")
 
 
-def _device_kind(name: str, x: torch.Tensor) -> str:
-    if x.dtype != torch.float32:
+def _on_cpu(name: str, x: torch.Tensor) -> bool:
+    """Raise unless ``x`` is float32; True on the CPU (the plain version
+    runs), False elsewhere (the launch raises off a CUDA device)."""
+    if x.dtype is not torch.float32:
         raise TypeError(f"{name}: needs float32, got {x.dtype}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: no kernel for {x.device}")
-    return x.device.type
+    return x.is_cpu
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
     """``x`` contiguous at a 16-byte address (the kernels load float4)."""
     x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
+    return x if not x.data_ptr() & 15 else x.clone()
 
 
-def _call(name: str, device: torch.device, *args) -> None:
-    lib = _build.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, f"tsp_{name}")(*args, stream)
-    _build.check(lib, name, code)
+def _call(name: str, x: torch.Tensor, *args) -> None:
+    """Launch kernel ``name`` on ``x``'s card and count it."""
+    _build.launcher(name)(x, *args)
     LAUNCHES[name] += 1
 
 
@@ -89,11 +90,11 @@ def copy_scale_ref(x: torch.Tensor) -> torch.Tensor:
 def copy_scale(x: torch.Tensor) -> torch.Tensor:
     """``x * 0.9999999`` in float32.  CUDA tensor: launches ``copy_scale``
     (``csrc/probes.cu``); CPU tensor: :func:`copy_scale_ref`."""
-    if _device_kind("copy_scale", x) == "cpu":
+    if _on_cpu("copy_scale", x):
         return copy_scale_ref(x)
     x = x.contiguous()
     out = torch.empty_like(x)
-    _call("copy_scale", x.device, x.data_ptr(), out.data_ptr(), x.numel())
+    _call("copy_scale", x, x.data_ptr(), out.data_ptr(), x.numel())
     return out
 
 
@@ -107,14 +108,18 @@ def launch_probe_ref(x: torch.Tensor) -> torch.Tensor:
 def launch_probe(x: torch.Tensor) -> torch.Tensor:
     """A copy of one ``[128, 128]`` float32 tile.  CUDA tensor: launches
     ``launch_probe``; CPU tensor: :func:`launch_probe_ref`."""
-    if tuple(x.shape) != (Q, Q):
+    if x.shape != _TILE:
         raise ValueError(f"launch_probe: needs a [{Q}, {Q}] tile, got "
                          f"{tuple(x.shape)}")
-    if _device_kind("launch_probe", x) == "cpu":
+    if x.dtype is not torch.float32:
+        raise TypeError(f"launch_probe: needs float32, got {x.dtype}")
+    if x.is_cpu:
         return launch_probe_ref(x)
-    x = _aligned(x)
+    if x.data_ptr() & 15 or not x.is_contiguous():
+        x = _aligned(x)
     out = torch.empty_like(x)
-    _call("launch_probe", x.device, x.data_ptr(), out.data_ptr())
+    _LAUNCH_PROBE(x, x.data_ptr(), out.data_ptr())
+    LAUNCHES["launch_probe"] += 1
     return out
 
 
@@ -133,14 +138,19 @@ def segsum8_ref(x: torch.Tensor) -> torch.Tensor:
 def segsum8(x: torch.Tensor) -> torch.Tensor:
     """The width-8 segmented lane sum ``[..., 128] -> [..., 16]``.  CUDA
     tensor: launches ``segsum8``; CPU tensor: :func:`segsum8_ref`."""
-    if x.dim() < 1 or x.shape[-1] != Q:
+    shape = x.shape
+    if not shape or shape[-1] != Q:
         raise ValueError(f"segsum8: the last axis must have {Q} lanes, got "
-                         f"{tuple(x.shape)}")
-    if _device_kind("segsum8", x) == "cpu":
+                         f"{tuple(shape)}")
+    if x.dtype is not torch.float32:
+        raise TypeError(f"segsum8: needs float32, got {x.dtype}")
+    if x.is_cpu:
         return segsum8_ref(x)
-    x = _aligned(x)
-    out = torch.empty(*x.shape[:-1], Q // 8, dtype=x.dtype, device=x.device)
-    _call("segsum8", x.device, x.data_ptr(), out.data_ptr(), out.numel())
+    if x.data_ptr() & 15 or not x.is_contiguous():
+        x = _aligned(x)
+    out = x.new_empty(shape[:-1] + (Q // 8,))
+    _SEGSUM8(x, x.data_ptr(), out.data_ptr(), x.numel() >> 3)
+    LAUNCHES["segsum8"] += 1
     return out
 
 
@@ -297,7 +307,7 @@ def tile_permute(prog: TileProgram, src: torch.Tensor,
 
     CUDA tensor: launches ``tile_permute``; CPU tensor:
     :func:`tile_permute_ref`."""
-    kind = _device_kind("tile_permute", src)
+    on_cpu = _on_cpu("tile_permute", src)
     T = _tiles(prog, src)
     if mul is not None and (mul.dtype != src.dtype or mul.numel() != T * Q * Q
                             or mul.device != src.device):
@@ -306,7 +316,7 @@ def tile_permute(prog: TileProgram, src: torch.Tensor,
     if prog.idx.device != src.device:
         raise ValueError(f"tile_permute: program on {prog.idx.device}, src "
                          f"on {src.device}")
-    if kind == "cpu":
+    if on_cpu:
         return tile_permute_ref(prog, src, mul, psum8)
     src = src.contiguous()
     mul = mul.contiguous() if mul is not None else None
@@ -316,7 +326,7 @@ def tile_permute(prog: TileProgram, src: torch.Tensor,
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    _call("tile_permute", src.device, src.data_ptr(), ptr(prog.rowsrc),
+    _call("tile_permute", src, src.data_ptr(), ptr(prog.rowsrc),
           ptr(prog.lidx), prog.nload, prog.idx.data_ptr(),
           prog.idx.element_size(), int(prog.idx.shape[1]), prog.code,
           ptr(mul), int(psum8), out.data_ptr(), T)

@@ -6,6 +6,11 @@ build takes seconds.  The build runs at first use, into
 ``build/tpu_spmv_torch/`` beside the package, keyed by a hash of the
 sources and flags: a changed source rebuilds, an unchanged one loads the
 library already built.  A failed build raises; nothing falls back.
+
+Every kernel wrapper launches through :func:`launcher`: one callable per C
+function, bound to its ctypes function when the library loads, that reads
+the current stream of the tensor's card on every call and raises with
+CUDA's message when a launch is refused.
 """
 
 from __future__ import annotations
@@ -19,7 +24,10 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_dir", "library_path", "load", "check"]
+import torch
+
+__all__ = ["NVCC_FLAGS", "build_dir", "library_path", "declare", "load",
+           "check", "symbol", "launcher"]
 
 #: compile flags; ``sm_90a`` is Hopper with its architecture-specific
 #: features (wgmma, setmaxnreg) available to later kernels.  The link adds
@@ -128,13 +136,9 @@ def _compile(out: Path) -> None:
         os.replace(lib, out)
 
 
-@functools.cache
-def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; raises on failure."""
-    path = library_path()
-    if not path.exists():
-        _compile(path)
-    lib = ctypes.CDLL(str(path))
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set ``argtypes`` and ``restype`` of every exported function of a
+    handle on the library."""
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -144,8 +148,81 @@ def load() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def load() -> ctypes.PyDLL:
+    """Build (if needed) and load the kernel library; raises on failure.
+
+    Loaded as ``PyDLL``: a call keeps the GIL, which costs nothing because
+    every function only enqueues work and returns, and skips the release
+    and re-acquire of ``CDLL`` (no slower on the H100's host, up to 0.13
+    µs a call faster: ``chip_smoke.py``'s host breakdown)."""
+    path = library_path()
+    if not path.exists():
+        _compile(path)
+    return declare(ctypes.PyDLL(str(path)))
+
+
 def check(lib: ctypes.CDLL, name: str, code: int) -> None:
     """Raise if a launch returned a CUDA error code."""
     if code != 0:
         msg = lib.tsp_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({code}): {msg}")
+
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def symbol(name: str, dtype: torch.dtype | None = None) -> str:
+    """The C function of kernel ``name``: ``tsp_<name>``, or
+    ``tsp_<name>_f32`` / ``_f64`` for a kernel built once per value type
+    (``dtype``).  Raises for a type or a name that has no function."""
+    if dtype is None:
+        sym = f"tsp_{name}"
+    elif dtype in _SUFFIX:
+        sym = f"tsp_{name}_{_SUFFIX[dtype]}"
+    else:
+        raise TypeError(f"{name}: no kernel for {dtype}")
+    if sym not in _SIGNATURES:
+        raise ValueError(f"{name}: the library exports no {sym}")
+    return sym
+
+
+def _cuda_hooks():
+    # PyTorch's private bindings (torch.cuda.current_device's own, and the
+    # raw stream Triton and Inductor launch on): the current device, and a
+    # device's current cudaStream_t as an int
+    return torch._C._cuda_getDevice, torch._C._cuda_getCurrentRawStream
+
+
+@functools.cache
+def launcher(name: str, dtype: torch.dtype | None = None):
+    """The launch of kernel ``name`` (:func:`symbol`): ``launch(t, *args)``
+    calls the C function with ``args`` and the current stream of ``t``'s
+    card, from that card.
+
+    ``t`` not on a CUDA device raises ``ValueError`` before the library is
+    loaded; a launch that returns an error code raises with CUDA's
+    message.  The stream is read on every call, so a launch goes to
+    whatever stream is current then (a side stream, a graph capture).  The
+    device is switched only when ``t``'s card is not the current one."""
+    sym = symbol(name, dtype)
+    fn = current = stream_of = None
+
+    def launch(t: torch.Tensor, *args) -> None:
+        nonlocal fn, current, stream_of
+        if not t.is_cuda:
+            raise ValueError(f"{name}: no kernel for {t.device}")
+        if fn is None:
+            fn = getattr(load(), sym)
+            current, stream_of = _cuda_hooks()
+        index = t.get_device()
+        if index == current():
+            code = fn(*args, stream_of(index))
+        else:
+            with torch.cuda.device(index):
+                code = fn(*args, stream_of(index))
+        if code:
+            check(load(), name, code)
+
+    launch.symbol = sym
+    return launch

@@ -364,8 +364,13 @@ def spmm_psdia_padded_t_ref(A: PSDIA, Xt_pad: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)
+@functools.cache
 def _offsets_on(offsets: tuple[int, ...], device: torch.device):
-    """The offsets as a device ``int32`` tensor, made once per pack."""
+    """The offsets as a device ``int32`` tensor, made once per offsets and
+    device: the copy from the host waits for the stream, so it must not
+    run on every launch (nor inside a CUDA graph's capture).  Entries are
+    never dropped (a few hundred bytes each), so no kernel still queued on
+    another stream can read a freed one."""
     return torch.tensor(offsets, dtype=torch.int32, device=device)
 
 
@@ -396,11 +401,6 @@ def _check(name: str, coef: torch.Tensor, A, xpad: torch.Tensor,
                          f"kernel's {_MAX_DIAGS}")
 
 
-def _fn(lib, kernel: str, dtype: torch.dtype):
-    suffix = "f32" if dtype == torch.float32 else "f64"
-    return getattr(lib, f"tsp_{kernel}_{suffix}")
-
-
 def spmv_sdia_padded(A: SDIA, xpad: torch.Tensor) -> torch.Tensor:
     """``ypad = A @ xpad`` in padded row space (``[npad] -> [npad]``,
     chainable: the pads stay zero because the pad rows hold zero data).
@@ -408,20 +408,13 @@ def spmv_sdia_padded(A: SDIA, xpad: torch.Tensor) -> torch.Tensor:
     CUDA tensor: launches K1 (``sdia_spmv`` in ``csrc/dia_stream.cu``);
     CPU tensor: :func:`spmv_sdia_padded_ref`."""
     _check("spmv_sdia_padded", A.data, A, xpad, A.npad)
-    if xpad.device.type == "cpu":
+    if xpad.is_cpu:
         return spmv_sdia_padded_ref(A, xpad)
-    if xpad.device.type != "cuda":
-        raise ValueError(f"spmv_sdia_padded: no kernel for {xpad.device}")
-    lib = _build.load()
     y = torch.empty_like(xpad)
     offs = _offsets_on(A.offsets, xpad.device)
-    # the launch goes to the calling thread's current device: make it x's
-    with torch.cuda.device(xpad.device):
-        stream = torch.cuda.current_stream(xpad.device).cuda_stream
-        code = _fn(lib, "sdia_spmv", xpad.dtype)(
-            A.data.data_ptr(), offs.data_ptr(), A.ndiags, xpad.data_ptr(),
-            y.data_ptr(), A.npad, stream)
-    _build.check(lib, "sdia_spmv", code)
+    _build.launcher("sdia_spmv", xpad.dtype)(
+        xpad, A.data.data_ptr(), offs.data_ptr(), A.ndiags, xpad.data_ptr(),
+        y.data_ptr(), A.npad)
     LAUNCHES["sdia"] += 1
     return y
 
@@ -433,19 +426,13 @@ def spmv_psdia_padded(A: PSDIA, xpad: torch.Tensor) -> torch.Tensor:
     CUDA tensor: launches K2 (``psdia_spmv`` in ``csrc/dia_stream.cu``);
     CPU tensor: :func:`spmv_psdia_padded_ref`."""
     _check("spmv_psdia_padded", A.pattern, A, xpad, A.rb)
-    if xpad.device.type == "cpu":
+    if xpad.is_cpu:
         return spmv_psdia_padded_ref(A, xpad)
-    if xpad.device.type != "cuda":
-        raise ValueError(f"spmv_psdia_padded: no kernel for {xpad.device}")
-    lib = _build.load()
     y = torch.empty_like(xpad)
     offs = _offsets_on(A.offsets, xpad.device)
-    with torch.cuda.device(xpad.device):
-        stream = torch.cuda.current_stream(xpad.device).cuda_stream
-        code = _fn(lib, "psdia_spmv", xpad.dtype)(
-            A.pattern.data_ptr(), offs.data_ptr(), A.ndiags, A.rb,
-            xpad.data_ptr(), y.data_ptr(), A.npad, A.L, A.shape[0], stream)
-    _build.check(lib, "psdia_spmv", code)
+    _build.launcher("psdia_spmv", xpad.dtype)(
+        xpad, A.pattern.data_ptr(), offs.data_ptr(), A.ndiags, A.rb,
+        xpad.data_ptr(), y.data_ptr(), A.npad, A.L, A.shape[0])
     LAUNCHES["psdia"] += 1
     return y
 
@@ -592,19 +579,13 @@ def spmm_sdia_padded_t(A: SDIA, Xt_pad: torch.Tensor) -> torch.Tensor:
     CUDA tensor: launches K3a (``sdia_spmm`` in ``csrc/dia_stream.cu``);
     CPU tensor: :func:`spmm_sdia_padded_t_ref`."""
     _check("spmm_sdia_padded_t", A.data, A, Xt_pad, A.npad, rhs_axis=True)
-    if Xt_pad.device.type == "cpu":
+    if Xt_pad.is_cpu:
         return spmm_sdia_padded_t_ref(A, Xt_pad)
-    if Xt_pad.device.type != "cuda":
-        raise ValueError(f"spmm_sdia_padded_t: no kernel for {Xt_pad.device}")
-    lib = _build.load()
     Yt = torch.empty_like(Xt_pad)
     offs = _offsets_on(A.offsets, Xt_pad.device)
-    with torch.cuda.device(Xt_pad.device):
-        stream = torch.cuda.current_stream(Xt_pad.device).cuda_stream
-        code = _fn(lib, "sdia_spmm", Xt_pad.dtype)(
-            A.data.data_ptr(), offs.data_ptr(), A.ndiags, Xt_pad.data_ptr(),
-            Yt.data_ptr(), A.npad, Xt_pad.shape[0], stream)
-    _build.check(lib, "sdia_spmm", code)
+    _build.launcher("sdia_spmm", Xt_pad.dtype)(
+        Xt_pad, A.data.data_ptr(), offs.data_ptr(), A.ndiags,
+        Xt_pad.data_ptr(), Yt.data_ptr(), A.npad, Xt_pad.shape[0])
     LAUNCHES["sdia_spmm"] += 1
     return Yt
 
@@ -617,21 +598,14 @@ def spmm_psdia_padded_t(A: PSDIA, Xt_pad: torch.Tensor) -> torch.Tensor:
     CUDA tensor: launches K3b (``psdia_spmm`` in ``csrc/dia_stream.cu``);
     CPU tensor: :func:`spmm_psdia_padded_t_ref`."""
     _check("spmm_psdia_padded_t", A.pattern, A, Xt_pad, A.rb, rhs_axis=True)
-    if Xt_pad.device.type == "cpu":
+    if Xt_pad.is_cpu:
         return spmm_psdia_padded_t_ref(A, Xt_pad)
-    if Xt_pad.device.type != "cuda":
-        raise ValueError(f"spmm_psdia_padded_t: no kernel for "
-                         f"{Xt_pad.device}")
-    lib = _build.load()
     Yt = torch.empty_like(Xt_pad)
     offs = _offsets_on(A.offsets, Xt_pad.device)
-    with torch.cuda.device(Xt_pad.device):
-        stream = torch.cuda.current_stream(Xt_pad.device).cuda_stream
-        code = _fn(lib, "psdia_spmm", Xt_pad.dtype)(
-            A.pattern.data_ptr(), offs.data_ptr(), A.ndiags, A.rb,
-            Xt_pad.data_ptr(), Yt.data_ptr(), A.npad, A.L, A.shape[0],
-            Xt_pad.shape[0], stream)
-    _build.check(lib, "psdia_spmm", code)
+    _build.launcher("psdia_spmm", Xt_pad.dtype)(
+        Xt_pad, A.pattern.data_ptr(), offs.data_ptr(), A.ndiags, A.rb,
+        Xt_pad.data_ptr(), Yt.data_ptr(), A.npad, A.L, A.shape[0],
+        Xt_pad.shape[0])
     LAUNCHES["psdia_spmm"] += 1
     return Yt
 

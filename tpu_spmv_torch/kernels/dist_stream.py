@@ -25,8 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from . import _build
 from .dia_stream import _MAX_DIAGS, _offsets_on
-from .gpr import _launch
 
 __all__ = ["LAUNCHES", "halo_size", "spmv_sdia_ring", "spmv_sdia_ring_ref",
            "spmv_psdia_ring", "spmv_psdia_ring_ref"]
@@ -121,13 +121,14 @@ def spmv_sdia_ring(data: torch.Tensor, offsets, x: torch.Tensor,
     CUDA tensor: launches K8a (``sdia_ring`` in ``csrc/dist_stream.cu``);
     CPU tensor: :func:`spmv_sdia_ring_ref`."""
     _check("spmv_sdia_ring", data, offsets, x, left, right, x.shape[0])
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return spmv_sdia_ring_ref(data, offsets, x, left, right)
     offs = _offsets_on(tuple(offsets), x.device)
     y = torch.empty_like(x)
-    _launch("sdia_ring", x, y, data.data_ptr(), offs.data_ptr(),
-            len(offsets), x.data_ptr(), left.data_ptr(), right.data_ptr(),
-            y.data_ptr(), x.shape[0], left.shape[0])
+    _build.launcher("sdia_ring", x.dtype)(
+        x, data.data_ptr(), offs.data_ptr(), len(offsets), x.data_ptr(),
+        left.data_ptr(), right.data_ptr(), y.data_ptr(), x.shape[0],
+        left.shape[0])
     LAUNCHES["sdia_ring"] += 1
     return y
 
@@ -146,13 +147,14 @@ def spmv_psdia_ring(pattern: torch.Tensor, offsets, x: torch.Tensor,
     if x.shape[0] % rb:
         raise ValueError(f"spmv_psdia_ring: the chunk of {x.shape[0]} is not "
                          f"a multiple of the row tile {rb}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return spmv_psdia_ring_ref(pattern, offsets, x, left, right,
                                    base=base, L=L, nrow=nrow)
     offs = _offsets_on(tuple(offsets), x.device)
     y = torch.empty_like(x)
-    _launch("psdia_ring", x, y, pattern.data_ptr(), offs.data_ptr(),
-            len(offsets), rb, x.data_ptr(), left.data_ptr(), right.data_ptr(),
-            y.data_ptr(), x.shape[0], left.shape[0], base, L, nrow)
+    _build.launcher("psdia_ring", x.dtype)(
+        x, pattern.data_ptr(), offs.data_ptr(), len(offsets), rb,
+        x.data_ptr(), left.data_ptr(), right.data_ptr(), y.data_ptr(),
+        x.shape[0], left.shape[0], base, L, nrow)
     LAUNCHES["psdia_ring"] += 1
     return y

@@ -32,7 +32,8 @@ import torch
 
 from ..formats import COO
 from ..formats.base import sparse_dataclass
-from .gpr import _check, _host_csr, _launch, _value_dtype
+from . import _build
+from .gpr import _check, _host_csr, _value_dtype
 
 __all__ = ["PackedELL", "SLICE", "MAX_WIDTH", "LAUNCHES", "pack_ell",
            "slice_slots", "spmv_ell_main", "spmv_ell_packed_ref",
@@ -159,11 +160,12 @@ def spmv_ell_main(A: PackedELL, x: torch.Tensor) -> torch.Tensor:
     CUDA tensor: launches ``ell_spmv`` (``csrc/general.cu``); CPU tensor:
     :func:`spmv_ell_packed_ref`."""
     _check_ell("spmv_ell", A, x)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return spmv_ell_packed_ref(A, x)
-    y = torch.empty(A.shape[0], dtype=x.dtype, device=x.device)
-    _launch("ell_spmv", x, y, A.vals.data_ptr(), A.cols.data_ptr(),
-            A.slice_ptr.data_ptr(), x.data_ptr(), y.data_ptr(), A.shape[0])
+    y = x.new_empty(A.shape[0])
+    _build.launcher("ell_spmv", x.dtype)(
+        x, A.vals.data_ptr(), A.cols.data_ptr(), A.slice_ptr.data_ptr(),
+        x.data_ptr(), y.data_ptr(), A.shape[0])
     LAUNCHES["ell"] += 1
     return y
 
@@ -175,12 +177,12 @@ def spmm_ell_main(A: PackedELL, X: torch.Tensor) -> torch.Tensor:
     CUDA tensor: launches ``ell_spmm`` (``csrc/general.cu``); CPU tensor:
     :func:`spmm_ell_packed_ref`."""
     _check_ell("spmm_ell", A, X, ndim=2)
-    if X.device.type == "cpu":
+    if X.is_cpu:
         return spmm_ell_packed_ref(A, X)
-    Y = torch.empty(A.shape[0], X.shape[1], dtype=X.dtype, device=X.device)
-    _launch("ell_spmm", X, Y, A.vals.data_ptr(), A.cols.data_ptr(),
-            A.slice_ptr.data_ptr(), X.data_ptr(), Y.data_ptr(), A.shape[0],
-            X.shape[1])
+    Y = X.new_empty(A.shape[0], X.shape[1])
+    _build.launcher("ell_spmm", X.dtype)(
+        X, A.vals.data_ptr(), A.cols.data_ptr(), A.slice_ptr.data_ptr(),
+        X.data_ptr(), Y.data_ptr(), A.shape[0], X.shape[1])
     LAUNCHES["ell_spmm"] += 1
     return Y
 

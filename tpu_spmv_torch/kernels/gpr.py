@@ -234,19 +234,6 @@ def _check(name: str, A, x: torch.Tensor, ndim: int = 1, *,
         raise ValueError(f"{name}: operands must be contiguous")
 
 
-def _launch(name: str, x: torch.Tensor, y: torch.Tensor, *args) -> None:
-    """Launch ``tsp_<name>_<dtype>(*args, stream)`` on ``x``'s card;
-    raises with CUDA's message on failure."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for {x.device}")
-    lib = _build.load()
-    suffix = "f32" if x.dtype == torch.float32 else "f64"
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = getattr(lib, f"tsp_{name}_{suffix}")(*args, stream)
-    _build.check(lib, name, code)
-
-
 def spmv_gpr_rows(A: GPCSR, x: torch.Tensor) -> torch.Tensor:
     """Every internal row's sum, in internal row order (``[ncol] ->
     [nrow + nv]``), before the virtual-row fold.
@@ -254,12 +241,12 @@ def spmv_gpr_rows(A: GPCSR, x: torch.Tensor) -> torch.Tensor:
     CUDA tensor: launches ``gpr_spmv`` (``csrc/general.cu``), one launch
     for all classes; CPU tensor: :func:`spmv_gpr_ref`."""
     _check("spmv_gpr", A, x)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return spmv_gpr_ref(A, x)
-    y = torch.empty(A.nrow_internal, dtype=x.dtype, device=x.device)
-    _launch("gpr_spmv", x, y, A.rows.data_ptr(), A.indptr.data_ptr(),
-            A.indices.data_ptr(), A.data.data_ptr(), x.data_ptr(),
-            y.data_ptr(), *A.class_rows)
+    y = x.new_empty(A.nrow_internal)
+    _build.launcher("gpr_spmv", x.dtype)(
+        x, A.rows.data_ptr(), A.indptr.data_ptr(), A.indices.data_ptr(),
+        A.data.data_ptr(), x.data_ptr(), y.data_ptr(), *A.class_rows)
     LAUNCHES["gpr"] += 1
     return y
 
@@ -271,13 +258,13 @@ def spmm_gpr_rows(A: GPCSR, X: torch.Tensor) -> torch.Tensor:
     CUDA tensor: launches ``gpr_spmm`` (``csrc/general.cu``); CPU tensor:
     :func:`spmm_gpr_ref`."""
     _check("spmm_gpr", A, X, ndim=2)
-    if X.device.type == "cpu":
+    if X.is_cpu:
         return spmm_gpr_ref(A, X)
-    Y = torch.empty(A.nrow_internal, X.shape[1], dtype=X.dtype,
-                    device=X.device)
-    _launch("gpr_spmm", X, Y, A.rows.data_ptr(), A.indptr.data_ptr(),
-            A.indices.data_ptr(), A.data.data_ptr(), X.data_ptr(),
-            Y.data_ptr(), A.nrow_internal, X.shape[1])
+    Y = X.new_empty(A.nrow_internal, X.shape[1])
+    _build.launcher("gpr_spmm", X.dtype)(
+        X, A.rows.data_ptr(), A.indptr.data_ptr(), A.indices.data_ptr(),
+        A.data.data_ptr(), X.data_ptr(), Y.data_ptr(), A.nrow_internal,
+        X.shape[1])
     LAUNCHES["gpr_spmm"] += 1
     return Y
 

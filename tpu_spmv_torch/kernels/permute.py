@@ -113,14 +113,10 @@ def _gather_ref(plan: PermutationPlan, x2: torch.Tensor) -> torch.Tensor:
 
 def _launch(kernel: str, key: str, plan: PermutationPlan, src: torch.Tensor,
             *nrhs: int) -> torch.Tensor:
-    lib = _build.load()
     out = torch.empty_like(src)
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        code = getattr(lib, f"tsp_{kernel}")(
-            src.data_ptr(), plan.perm.data_ptr(), plan.perm.element_size(),
-            out.data_ptr(), plan.n, *nrhs, src.element_size(), stream)
-    _build.check(lib, kernel, code)
+    _build.launcher(kernel)(
+        src, src.data_ptr(), plan.perm.data_ptr(), plan.perm.element_size(),
+        out.data_ptr(), plan.n, *nrhs, src.element_size())
     LAUNCHES[key] += 1
     return out
 
@@ -141,10 +137,8 @@ def apply_permutation(plan: PermutationPlan, x: torch.Tensor) -> torch.Tensor:
     if x.numel() != plan.n:
         raise ValueError(f"apply_permutation: x has {x.numel()} elements, "
                          f"the plan {plan.n}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return apply_permutation_ref(plan, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"apply_permutation: no kernel for {x.device}")
     return _launch("permute_gather", "permute", plan,
                    x.reshape(-1).contiguous()).reshape(x.shape)
 
@@ -166,11 +160,8 @@ def apply_permutation_batched(plan: PermutationPlan,
     if X.dim() != 2 or X.shape[1] != plan.n:
         raise ValueError(f"apply_permutation_batched: X must be [nrhs, "
                          f"{plan.n}], got {tuple(X.shape)}")
-    if X.device.type == "cpu":
+    if X.is_cpu:
         return apply_permutation_batched_ref(plan, X)
-    if X.device.type != "cuda":
-        raise ValueError(f"apply_permutation_batched: no kernel for "
-                         f"{X.device}")
     if not X.is_contiguous():
         raise ValueError("apply_permutation_batched: X must be contiguous")
     return _launch("permute_gather_batched", "permute_batched", plan, X,
