@@ -11,7 +11,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build — ``nvcc`` compiles ``tpu_spmv_torch/csrc/dia_stream.cu``,
    ``general.cu``, ``dist_stream.cu``, ``permute.cu`` and ``probes.cu``
    for ``sm_90a`` (one process each, started together) into one library
-   under ``build/tpu_spmv_torch/``;
+   under ``build/tpu_spmv_torch/``; then ``nvcc -Xptxas -v`` of
+   ``general.cu`` and ``dia_stream.cu`` prints the registers, spills and
+   static shared memory of every instantiation of ``gpr_spmv`` and of
+   K3b's two walks (``psdia_spmm_stride``, ``psdia_spmm_clusters``);
 3. kernels against their plain PyTorch versions on small operands, f32 and
    f64, each against the plain version (rel 1e-6 f32, 1e-13 f64), against
    scipy float64 (2e-5 f32, 1e-10 f64) and for bitwise reproducibility:
@@ -21,7 +24,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    forced, with the virtual-row fold checked against a host fold; the
    SpMM kernels K3a (``sdia_spmm``), K3b (``psdia_spmm``), ``gpr_spmm`` and
    ``ell_spmm`` on the same operands with 1, 3, 32 and 40 right-hand
-   sides, each column also against the SpMV kernel; K1/K2 on the
+   sides (K3a and K3b also 8), each column also against the SpMV kernel
+   (K3b's bitwise against K2's); K1/K2 on the
    transposed packs (``transpose_sdia`` / ``transpose_psdia``) against
    scipy ``A^T x``, and the backward of ``spmv_sdia`` / ``spmv_psdia``
    (``x.grad`` against scipy ``A^T g``, the coefficient gradient against
@@ -56,7 +60,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    c. multi-RHS (32 right-hand sides): ``plan.spmm`` on the 4096x4096
       Poisson (PSDIA) and on the four general operands (GPR or sliced ELL,
       GPR forced on the shuffled Poisson), and K3b/K3a on PSDIA/SDIA packs
-      built for 32 RHS, each against scipy float64; 50 fixed
+      built for 32 RHS, each against scipy float64 (every K3b column also
+      bitwise against K2 on the same pack); 50 fixed
       ``cg_multi_runner`` iterations with 8 RHS on the Poisson and on the
       power-law SPD operator; f64 ``cg_multi`` with 4 RHS on the 256x256
       Poisson and ``bus420.mtx``, every column's true residual <= 1e-10;
@@ -113,7 +118,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    port never calls (cuSPARSE: ``torch.sparse_csr_tensor @ x``,
    ``torch.sparse.mm`` for the SpMMs; ``torch.index_select`` for the
    gathers); each SpMM also beside ``plan.spmm`` end to end and 32 times
-   its SpMV kernel; the probe kernels beside their plain versions, bounds
+   its SpMV kernel; K3b's two walks (the plan's pick and the cluster walk)
+   timed in turns on the 32-RHS pack and, with 8 right-hand sides, on the
+   plan's own pack (``cg_multi_runner``'s shape) beside 8 launches of K2,
+   each with its shared-memory plan; the GPR packs' rows per width class;
+   the probe kernels beside their plain versions, bounds
    and one library call (``torch.mul``, ``copy_`` and ``clone()``,
    ``sum``, ``take_along_dim``; timed in turns with the kernel); the block
    products ``spmv_bdia``, ``spmv_bsr`` and ``spmm_bdia`` (32 RHS) at 512
@@ -198,6 +207,48 @@ def library_ms(mat, x) -> float:
             size=csr.shape).to(x.device)
     fn = torch.mv if x.dim() == 1 else torch.sparse.mm
     return time_fn(fn, A, x, iters=20).median_s * 1e3
+
+
+def ptxas_usage(sources: dict) -> list[str]:
+    """Registers, spills and static shared memory of kernels, as
+    ``nvcc -Xptxas -v`` reports them: ``sources`` maps a ``csrc`` file to
+    the kernel names to report (one nvcc per file, all started together,
+    into a temporary directory)."""
+    import re
+    import tempfile
+
+    from tpu_spmv_torch.kernels import _build
+
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {src: subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+             f"{tmp}/{src}.o", str(ROOT / "tpu_spmv_torch" / "csrc" / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in sources}
+        for src, proc in procs.items():
+            out = proc.communicate()[0]
+            require(proc.returncode == 0, f"nvcc -Xptxas -v {src}:\n{out}")
+            entry = None
+            for line in out.splitlines():
+                m = re.search(r"(?:Compiling entry function|Function "
+                              r"properties for) '?([^' ]+)", line)
+                if m:
+                    entry = m.group(1)
+                    continue
+                name = next((k for k in sources[src]
+                             if entry and re.search(rf"\d{k}I", entry)), None)
+                if name and ("spill" in line or "Used" in line):
+                    # the template arguments follow the name in the mangling
+                    # (I ... E; a type letter, or Li<n>E for an int)
+                    seg = entry.split(f"{name}I", 1)[1]
+                    toks = re.findall(r"Li(-?\d+)E|([fd])",
+                                      seg[:seg.index("EEv")])
+                    args = ", ".join({"f": "float", "d": "double"}.get(t, n)
+                                     for n, t in toks)
+                    lines.append(f"{name}<{args}>: "
+                                 f"{' '.join(line.split(':', 1)[-1].split())}")
+    return lines
 
 
 def read_fixture(name: str):
@@ -486,6 +537,18 @@ def main() -> int:
           f"of tpu_spmv_torch/csrc/{{{','.join(_build._SOURCES)}}}, then "
           f"-shared -> {_build.library_path().relative_to(ROOT)} "
           f"in {time.perf_counter() - t0:.2f} s")
+    # the two kernels redesigned last: what ptxas gives each instantiation
+    # (gpr_spmv<value type>; K3b's two walks psdia_spmm_stride and
+    # psdia_spmm_clusters<value type, threads along the RHS, elements per
+    # window copy>, whose dynamic shared memory the host plan sets per
+    # launch: phase 5 prints it)
+    t0 = time.perf_counter()
+    for line in ptxas_usage({"general.cu": ("gpr_spmv",),
+                             "dia_stream.cu": ("psdia_spmm_stride",
+                                               "psdia_spmm_clusters")}):
+        print(f"ptxas {line}")
+    print(f"(nvcc -Xptxas -v of general.cu and dia_stream.cu: "
+          f"{time.perf_counter() - t0:.2f} s)")
 
     # -- 3. kernels against plain versions, small operands ------------------
     print("== 3. kernels vs plain versions (small operands)")
@@ -557,7 +620,7 @@ def main() -> int:
             dname = str(dt).removeprefix("torch.")
             dia = convert(COO.from_scipy(m, dtype=dt, device=dev), "dia")
             period = ds.detect_period(dia.to("cpu"))
-            for nrhs in (1, 3, 32, 40):
+            for nrhs in (1, 3, 8, 32, 40):
                 X64 = rng.random((n, nrhs))
                 packs = [("sdia_spmm", ds.pack_sdia(dia, nrhs=nrhs),
                           ds.spmm_sdia_padded_t, ds.spmm_sdia_padded_t_ref,
@@ -579,6 +642,12 @@ def main() -> int:
                     require(bool((Y[:, :A.L] == 0).all()
                                  and (Y[:, A.L + n:] == 0).all()),
                             f"{kname} {name} pads not zero")
+                    if kname == "psdia_spmm":
+                        # K3b sums each RHS in K2's order: bit for bit
+                        require(all(torch.equal(Y[q], spmv_kern(A, Xt[q]))
+                                    for q in range(nrhs)),
+                                f"{kname} {name} {dname} nrhs={nrhs}: a "
+                                f"column differs from K2")
 
     general_small = {
         "bus420.mtx": read_fixture("bus420.mtx"),
@@ -980,9 +1049,15 @@ def main() -> int:
         Yt = kern(A, Xt)
         rel = rel_err(Yt[:, A.L:A.L + n].T.cpu(), ref)
         pads = bool((Yt[:, :A.L] == 0).all() and (Yt[:, A.L + n:] == 0).all())
+        extra = ""
+        if kname == "psdia_spmm":
+            same = all(torch.equal(Yt[q], ds.spmv_psdia_padded(A, Xt[q]))
+                       for q in range(NRHS))
+            extra = f" | every column bitwise K2's {same}"
+            require(same, f"{kname} at 4096^2: a column differs from K2")
         print(f"{kname} on the {NRHS}-RHS pack, [{NRHS}, {A.npad}] "
               f"({Xt.numel() * 4 / 1e9:.2f} GB): rel err {rel:.2e} | pads "
-              f"zero {pads}")
+              f"zero {pads}{extra}")
         require(rel <= ORACLE_TOL["float32"] and pads, f"{kname} at 4096^2")
         del Yt
     del ref
@@ -1671,7 +1746,9 @@ def main() -> int:
                              **nums})
     del dist1
     spmm_records = []
-    for kname, A, kern, plain, src_line, spmv_name in (
+    # each SpMM beside the SpMV kernel it is compared with (K3b beside K2,
+    # K3a beside K1): NRHS launches of that kernel, timed at 4096^2 above
+    for kname, A, kern, plain, src_line, compared_spmv in (
             ("psdia_spmm", P32, ds.spmm_psdia_padded_t,
              ds.spmm_psdia_padded_t_ref,
              "tpu_spmv/kernels/dia_stream.py:875", "psdia_spmv"),
@@ -1680,12 +1757,42 @@ def main() -> int:
              "tpu_spmv/kernels/dia_stream.py:339", "sdia_spmv")):
         nums = timed(kname, A, kern, plain, Xt, mat,
                      f"{n} rows, {NRHS} RHS (rb {A.rb})", nrhs=NRHS, lib_x=X)
-        print(f"    {NRHS} x {spmv_name} at 4096^2: "
-              f"{NRHS * spmv_ms[spmv_name, '4096^2']:.4f} ms")
+        print(f"    {NRHS} x {compared_spmv} at 4096^2: "
+              f"{NRHS * spmv_ms[compared_spmv, '4096^2']:.4f} ms")
         spmm_records.append({"name": kname, "route": "cuda",
                              "source": "tpu_spmv_torch/csrc/dia_stream.cu",
                              "replaces": src_line,
                              "launches": mlaunches[kname], **nums})
+    # K3b's two walks on the same pack, timed in turns: the plan's pick
+    # (the stride walk at 4096^2) and the cluster walk (one window per
+    # cluster of offsets a tile); then at cg_multi_runner's shape, 8 RHS
+    # on the plan's own pack (4c), also beside 8 launches of K2
+    X8 = F.pad(X[:, :8].T, (P.L, P.npad - P.L - n)).contiguous()
+    x8 = [X8[q] for q in range(8)]
+    for A, Xk, extra in ((P32, Xt, {}), (P, X8, {
+            "8 x K2": lambda: [ds.spmv_psdia_padded(P, v) for v in x8]})):
+        k = Xk.shape[0]
+        pick = ds.psdia_spmm_plan(A.offsets, k, 4)
+        clusters = ds._cluster_walk(A.offsets, k, 4)
+        walks = interleaved_ms({
+            "pick": lambda: ds._spmm_psdia_launch(A, Xk, pick),
+            "clusters": lambda: ds._spmm_psdia_launch(A, Xk, clusters),
+            **extra}, 5 if k == NRHS else 10)
+        bk, _ = bound(spmm_bytes(A, k, torch.float32), 2 * A.nnz * k)
+        same = torch.equal(ds._spmm_psdia_launch(A, Xk, pick),
+                           ds._spmm_psdia_launch(A, Xk, clusters))
+        lib = library_ms(mat, X[:, :k].contiguous())
+        print(f"psdia_spmm {n} rows, {k} RHS (rb {A.rb}) f32, in turns: "
+              f"the plan's walk (stride {pick.stride}) {walks['pick']:.4f} "
+              f"ms ({100 * bk / walks['pick']:.1f}% of {bk:.4f}) | cluster "
+              f"walk ({clusters.nclusters} windows) {walks['clusters']:.4f} "
+              f"ms ({100 * bk / walks['clusters']:.1f}%)"
+              + (f" | 8 x K2 {walks['8 x K2']:.4f} ms" if extra else "")
+              + f" | cuSPARSE {lib:.4f} ms | equal {same}")
+        print(f"    plan {pick}")
+        print(f"    cluster walk {clusters}")
+        require(same, f"K3b's two walks differ at {k} RHS")
+    del X8, x8
     pms = time_fn(plan.spmm, X, iters=10).median_s * 1e3
     print(f"plan.spmm(X) end to end ({NRHS} RHS: transpose and pad, K3b at "
           f"rb {P.rb}, slice and transpose): {pms:.4f} ms")
@@ -1705,6 +1812,9 @@ def main() -> int:
             A = (p.matrix if p.strategy == strategy
                  else pack(m, dtype=torch.float32, device=dev))
             tag = "pick" if p.strategy == strategy else "forced"
+            if kname == "gpr_spmv":
+                print(f"    GPR rows per width class {gpr.CLASS_W}: "
+                      f"{A.class_rows} (+{A.nv} virtual)")
             nums = timed(kname, A, kern, plain, xg, m, f"{name} ({tag})")
             spmv_ms[kname, name] = nums["ms"]
             if recorded[kname] == name:

@@ -5,6 +5,8 @@ runs where JAX is not installed::
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -149,6 +151,117 @@ def test_streaming_spmm_kernels_match_plain_on_card(card, dtype, nrhs):
                     and (Y1[:, A.L + m.shape[0]:] == 0).all())
         assert _rel(Y1, plain(A, Xt)) <= TOL[dtype]
         assert _rel(Y1[-1], spmv_kern(A, Xt[-1].contiguous())) <= TOL[dtype]
+
+
+def _every_width(seed: int = 0):
+    """Rows of every length 0..300: every width class, empty rows and hub
+    rows (more than 128 entries)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    lens = np.concatenate([np.arange(301), np.zeros(7, int)])
+    rows = np.repeat(np.arange(len(lens)), lens)
+    cols = np.concatenate([rng.choice(4000, k, replace=False) for k in lens])
+    return sp.csr_matrix((rng.standard_normal(len(rows)), (rows, cols)),
+                         shape=(len(lens), 4000))
+
+
+def _gpr_operand(name: str):
+    import scipy.sparse as sp
+
+    from tpu_spmv_torch.io.mmio import read_mtx_arrays
+
+    if name == "every width":
+        return _every_width()
+    if name == "two classes":           # classes 16, 32 and 64 empty
+        return sp.csr_matrix(sp.vstack([_every_width()[1:8],
+                                        _every_width()[120:128]]))
+    row, col, val, shape = read_mtx_arrays(
+        Path(__file__).resolve().parent / "fixtures" / name, use_native=False)
+    return sp.csr_matrix((val, (row, col)), shape=shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["every width", "two classes",
+                                  "powerlaw800.mtx"])
+def test_gpr_spmv_every_width_class_on_card(card, dtype, name):
+    """``gpr_spmv`` (a quarter of the class width in lanes per row) against
+    its plain version on rows of every width class, with empty classes,
+    empty rows and hub rows: within the limit, bitwise reproducible, one
+    launch each; the folded product matches scipy."""
+    m = _gpr_operand(name)
+    A = tgpr.pack_gpr(m, dtype=dtype, device=card)
+    x64 = np.random.default_rng(5).standard_normal(m.shape[1])
+    x = torch.tensor(x64, dtype=dtype, device=card)
+    before = tgpr.LAUNCHES["gpr"]
+    y1, y2 = tgpr.spmv_gpr_rows(A, x), tgpr.spmv_gpr_rows(A, x)
+    assert tgpr.LAUNCHES["gpr"] == before + 2
+    assert torch.equal(y1, y2)
+    assert _rel(y1, tgpr.spmv_gpr_ref(A, x)) <= TOL[dtype]
+    ref = m @ x64
+    y = tgpr.spmv_gpr(A, x).cpu().double().numpy()
+    gate = 2e-5 if dtype == torch.float32 else 1e-10
+    assert np.max(np.abs(y - ref)) <= gate * np.max(np.abs(ref))
+
+
+def _toeplitz_band(n: int, half: int):
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(half)
+    offs = list(range(-half, half + 1))
+    return sp.diags([rng.standard_normal() for _ in offs], offs,
+                    shape=(n, n), format="csr")
+
+
+_SPMM_OPERANDS = ["laplacian_2d(40)", "laplacian_2d(40), rb 80",
+                  "laplacian_2d(128)", "laplacian_2d(256), rb 512",
+                  "laplacian_2d(300, 101)", "laplacian_3d(10)",
+                  "band of 301 diagonals"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nrhs", [1, 3, 8, 32, 40])
+@pytest.mark.parametrize("name", _SPMM_OPERANDS)
+def test_psdia_spmm_windows_match_plain_and_k2_on_card(card, dtype, nrhs,
+                                                      name):
+    """K3b with its shared-memory windows, the plan's walk and the
+    cluster walk on every operand: the 2-D and 3-D Poisson, a row tile
+    shorter than the kernel's tile, a band whose clusters the plan cuts,
+    ragged last tiles and columns of the stride walk of unequal length,
+    each with Xt's rows 16-byte aligned and not (a view one value into its
+    buffer): within the limit of the plain version, rows outside [L, L +
+    nrow) zero, bitwise reproducible, and every column bitwise equal to K2
+    on the same pack."""
+    m, rb = {"laplacian_2d(40)": (utils.laplacian_2d(40), None),
+             "laplacian_2d(40), rb 80": (utils.laplacian_2d(40), 80),
+             "laplacian_2d(128)": (utils.laplacian_2d(128), None),
+             "laplacian_2d(256), rb 512": (utils.laplacian_2d(256), 512),
+             "laplacian_2d(300, 101)": (utils.laplacian_2d(300, 101), None),
+             "laplacian_3d(10)": (utils.laplacian_3d(10), None),
+             "band of 301 diagonals": (_toeplitz_band(1500, 150), None)}[name]
+    dia = convert(COO.from_scipy(m, dtype=dtype), "dia")
+    A = tds.pack_psdia(dia, period=tds.detect_period(dia), nrhs=nrhs, rb=rb,
+                       device=card)
+    n = m.shape[0]
+    X = torch.tensor(np.random.default_rng(nrhs).random((nrhs, n)),
+                     dtype=dtype, device=card)
+    for shift in (0, 1):
+        buf = torch.zeros(nrhs * A.npad + 1, dtype=dtype, device=card)
+        Xt = buf[shift:shift + nrhs * A.npad].view(nrhs, A.npad)
+        Xt[:, A.L:A.L + n] = X
+        before = tds.LAUNCHES["psdia_spmm"]
+        Y1, Y2 = tds.spmm_psdia_padded_t(A, Xt), tds.spmm_psdia_padded_t(A, Xt)
+        Yc = tds._spmm_psdia_launch(A, Xt, tds._cluster_walk(
+            A.offsets, nrhs, A.pattern.element_size()))
+        assert tds.LAUNCHES["psdia_spmm"] == before + 3
+        assert torch.equal(Y1, Y2) and torch.equal(Y1, Yc)
+        assert bool((Y1[:, :A.L] == 0).all() and (Y1[:, A.L + n:] == 0).all())
+        assert _rel(Y1, tds.spmm_psdia_padded_t_ref(A, Xt)) <= TOL[dtype]
+        for q in range(nrhs):
+            assert torch.equal(Y1[q], tds.spmv_psdia_padded(
+                A, Xt[q].contiguous())), q
 
 
 @pytest.mark.cuda
@@ -413,14 +526,16 @@ def test_block_products_ignore_tf32(card):
 
 
 def _launch_cases(card):
-    """T1, T2, K2, ``gpr_spmv`` and ``permute_gather`` on small operands:
-    name -> (input, kernel, plain version, launch counter, key, bitwise)."""
+    """T1, T2, K2, ``gpr_spmv``, ``permute_gather`` and K3b on small
+    operands: name -> (input, kernel, plain version, launch counter, key,
+    bitwise)."""
     from tpu_spmv_torch.bench import probes as pr
 
     rng = np.random.default_rng(13)
     dia = convert(COO.from_scipy(utils.laplacian_2d(32), dtype=torch.float32,
                                  device=card), "dia")
     P = tds.pack_psdia(dia, period=32)
+    P8 = tds.pack_psdia(dia, period=32, nrhs=8)
     G = tgpr.pack_gpr(utils.power_law(3000, 3000, 12, seed=2),
                       dtype=torch.float32, device=card)
     plan = tperm.plan_permutation(rng.permutation(60_013), device=card)
@@ -441,6 +556,12 @@ def _launch_cases(card):
         "gpr_spmv": (dev(rng.random(3000)), lambda v: tgpr.spmv_gpr_rows(G, v),
                      lambda v: tgpr.spmv_gpr_ref(G, v), tgpr.LAUNCHES, "gpr",
                      False),
+        "psdia_spmm": (torch.nn.functional.pad(
+                           dev(rng.random((8, dia.shape[0]))),
+                           (P8.L, P8.npad - P8.L - dia.shape[0])),
+                       lambda v: tds.spmm_psdia_padded_t(P8, v),
+                       lambda v: tds.spmm_psdia_padded_t_ref(P8, v),
+                       tds.LAUNCHES, "psdia_spmm", False),
         "permute_gather": (dev(rng.random(60_013)),
                            lambda v: tperm.apply_permutation(plan, v),
                            lambda v: tperm.apply_permutation_ref(plan, v),
@@ -449,7 +570,7 @@ def _launch_cases(card):
 
 
 _LAUNCH_NAMES = ["launch_probe", "segsum8", "psdia_spmv", "gpr_spmv",
-                 "permute_gather"]
+                 "permute_gather", "psdia_spmm"]
 
 
 @pytest.mark.cuda
@@ -480,7 +601,7 @@ def test_launch_goes_to_the_current_side_stream(card, name):
 
 @pytest.mark.cuda
 def test_launches_replay_from_one_cuda_graph(card):
-    """The five kernels captured in one CUDA graph: each wrapper call is
+    """The six kernels captured in one CUDA graph: each wrapper call is
     counted once at capture (a replay is no launch of the wrapper), and
     every replay equals the eager results bitwise, also after the inputs
     change in place."""

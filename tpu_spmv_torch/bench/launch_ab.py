@@ -9,10 +9,14 @@ It prints one JSON line: ms per call (CUDA events, median of repeats,
 after warm-up; each kernel and its yardsticks timed in turns, so that
 drift in the host's speed falls on all of them) of ``launch_probe`` (T1)
 beside ``copy_`` and ``clone()``, ``segsum8`` (T2) beside ``sum``,
-``tile_permute`` S (T3) beside ``take_along_dim``, ``gpr_spmv`` on
-``random_sparse(100000, 100000, 7e-5)`` beside cuSPARSE, K2 and K1 on the
-4096x4096-grid Poisson, CG on the 256x256-grid Poisson (ms per
-iteration), with the root, the card's name and power limit.
+``tile_permute`` S (T3) beside ``take_along_dim``, ``gpr_spmv`` beside
+cuSPARSE on ``random_sparse(100000, 100000, 7e-5)``, ``power_law(400000,
+400000, 13)`` and ``random_sparse(2000000, 2000000, 8e-6)`` (there also
+``ell_spmv`` and ``gpr_spmm`` with 32 right-hand sides), K2 and K1 on
+the 4096x4096-grid Poisson, K3b there at 8 right-hand sides (the plan's
+own pack) and at 32 (the pack for 32) beside 8 and 32 launches of K2, CG
+on the 256x256-grid Poisson (ms per iteration), with the root, the card's
+name and power limit.
 
 The script calls only functions that every checkout since the probe
 kernels were ported has, and carries its own timing helpers, so any such
@@ -75,6 +79,7 @@ def main(argv=None) -> int:
 
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         raise SystemExit("launch_ab: needs a CUDA card")
@@ -83,6 +88,7 @@ def main(argv=None) -> int:
     from tpu_spmv_torch.bench import probes as pr
     from tpu_spmv_torch.formats import COO, DIA
     from tpu_spmv_torch.kernels import dia_stream as ds
+    from tpu_spmv_torch.kernels import ell_packed as ell
     from tpu_spmv_torch.kernels import gpr
     from tpu_spmv_torch.ops.auto import plan_spmv
     from tpu_spmv_torch.solvers import cg_runner
@@ -112,38 +118,70 @@ def main(argv=None) -> int:
          "take_along_dim": lambda: torch.take_along_dim(src, gl, dim=1)},
         100))
 
-    m = utils.random_sparse(100_000, 100_000, 7e-5, seed=0)
-    G = gpr.pack_gpr(m, dtype=torch.float32, device=dev)
-    xg = torch.tensor(rng.random(m.shape[1]), dtype=torch.float32,
-                      device=dev)
-    csr = m.tocsr()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)     # "beta state"
-        A = torch.sparse_csr_tensor(
-            torch.from_numpy(csr.indptr).int(),
-            torch.from_numpy(csr.indices).int(),
-            torch.from_numpy(csr.data).float(), size=csr.shape).to(dev)
-    out.update(interleaved_ms(
-        {"gpr_spmv 100k": lambda: gpr.spmv_gpr_rows(G, xg),
-         "cuSPARSE 100k": lambda: torch.mv(A, xg)}, 200))
-    del G, A
+    # gpr_spmv beside cuSPARSE on phase 4b's operands: 100k rows (launch
+    # bound), the power law, 2M rows (past the L2)
+    for label, m, iters in (
+            ("100k", utils.random_sparse(100_000, 100_000, 7e-5, seed=0),
+             200),
+            ("power law", utils.power_law(400_000, 400_000, 13, alpha=1.5,
+                                          seed=6), 50),
+            ("2M", utils.random_sparse(2_000_000, 2_000_000, 8e-6, seed=2),
+             50)):
+        G = gpr.pack_gpr(m, dtype=torch.float32, device=dev)
+        xg = torch.tensor(rng.random(m.shape[1]), dtype=torch.float32,
+                          device=dev)
+        csr = m.tocsr()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)     # "beta state"
+            A = torch.sparse_csr_tensor(
+                torch.from_numpy(csr.indptr).int(),
+                torch.from_numpy(csr.indices).int(),
+                torch.from_numpy(csr.data).float(), size=csr.shape).to(dev)
+        out.update(interleaved_ms(
+            {f"gpr_spmv {label}": lambda: gpr.spmv_gpr_rows(G, xg),
+             f"cuSPARSE {label}": lambda: torch.mv(A, xg)}, iters))
+        if label == "2M":
+            # the other general kernels on the same operand: sliced ELL
+            # and the GPR SpMM at 32 RHS
+            E = ell.pack_ell(m, dtype=torch.float32, device=dev)
+            X = torch.rand(m.shape[1], 32, device=dev)
+            out.update(interleaved_ms(
+                {"ell_spmv 2M": lambda: ell.spmv_ell_main(E, xg),
+                 "gpr_spmm 2M 32 RHS": lambda: gpr.spmm_gpr_rows(G, X)},
+                iters))
+            del E, X
+        del G, A, m, csr
 
     mat = utils.laplacian_2d(4096)
+    n = mat.shape[0]
     plan = plan_spmv(mat, dtype=torch.float32, device=dev)
     P = plan.matrix
-    x = torch.tensor(rng.random(mat.shape[0]), dtype=torch.float32,
-                     device=dev)
+    x = torch.tensor(rng.random(n), dtype=torch.float32, device=dev)
     xp = ds.pad_x(P, x)
     out["K2 4096^2"] = event_ms(lambda: ds.spmv_psdia_padded(P, xp), 50, 5)
-    del plan, P, xp
     mc = mat.tocoo()
-    S = ds.pack_sdia(DIA.from_coo(COO.from_arrays(
-        mc.row, mc.col, mc.data, mat.shape, dtype=torch.float32,
-        sort=False)), device=dev)
+    hdia = DIA.from_coo(COO.from_arrays(
+        mc.row, mc.col, mc.data, mat.shape, dtype=torch.float32, sort=False))
     del mc, mat
+    S = ds.pack_sdia(hdia, device=dev)
     xs = ds.pad_x(S, x)
     out["K1 4096^2"] = event_ms(lambda: ds.spmv_sdia_padded(S, xs), 50, 5)
-    del S, xs, x
+    del S, xs, x, xp
+    # K3b at 8 RHS on the plan's own pack (cg_multi_runner's shape) and at
+    # 32 on the pack for 32 RHS (phase 4c), beside as many K2 launches on
+    # the same pack, timed in turns
+    P32 = ds.pack_psdia(hdia, period=P.period, nrhs=32, device=dev)
+    del hdia
+    for nrhs, A, iters in ((8, P, 10), (32, P32, 5)):
+        Xt = F.pad(torch.rand(nrhs, n, device=dev),
+                   (A.L, A.npad - A.L - n)).contiguous()
+        cols = [Xt[q] for q in range(nrhs)]
+        out.update(interleaved_ms(
+            {f"K3b {nrhs} RHS": lambda: ds.spmm_psdia_padded_t(A, Xt),
+             f"{nrhs} x K2": lambda: [ds.spmv_psdia_padded(A, v)
+                                     for v in cols]}, iters, rounds=5))
+        del Xt, cols
+    del plan, P, P32
 
     m256 = utils.laplacian_2d(256)
     plan256 = plan_spmv(m256, dtype=torch.float32, device=dev)

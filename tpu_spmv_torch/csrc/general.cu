@@ -22,20 +22,30 @@
 // slice (slot j of row i of slice s at slice_ptr[s] + 32 j + i); pad slots
 // hold value 0 and column 0.
 //
-// What bounds them on this card: device-memory bytes.  Per entry both read
-// a value and an int32 column (8 B in f32) and gather one x value; x is
-// reused across rows and mostly served from the 50 MB L2, and the random
-// gather is a 32 B sector per value where it misses.  GPR adds 12 B of row
-// data per row (int32 row id, int64 pointer), ELL its pad slots and 8 B per
-// 32-row slice.  Two FLOPs per entry are far below the card's FLOP rate.
+// What bounds them on this card: device-memory bytes and the x gather.
+// Per entry both read a value and an int32 column (8 B in f32) and gather
+// one x value; x is reused across rows and mostly served from the 50 MB
+// L2, and the random gather is a 32 B sector of L2 per value where L1
+// misses (32M sectors for the 2M-row operand's 32M entries, as many as a
+// library CSR kernel pays).  GPR adds 12 B of row data per row (int32 row
+// id, int64 pointer), ELL its pad slots and 8 B per 32-row slice.  Two
+// FLOPs per entry are far below the card's FLOP rate.
 //
-// What the designs do about it.  gpr_spmv: each width class gets
-// min(W, 32) threads per row (classes 8 and 16 pack 4 and 2 rows into a
-// warp, classes 32, 64 and 128 loop a full warp over the row), so the
-// threads of a row read neighbouring entries and a narrow row does not
-// idle a whole warp.  Lane l sums entries l, l + T, l + 2T, ... in order;
-// a fixed __shfl_xor_sync butterfly combines the lanes; one lane writes
-// the row.  All classes go in one launch: the block index picks the class.
+// What the designs do about it.  gpr_spmv: a row of class W (8, 16, 32,
+// 64, 128 entries at most) gets T = W / 4 lanes, so each lane holds at
+// most four of its entries (kPerLane) and a warp serves 32 / T rows.  One
+// lane per class width would leave each lane one entry and a chain of
+// three dependent loads (row pointer, column, x) with one FMA at its end;
+// here the warp reads its rows' pointers and row ids with one coalesced
+// load each and hands them out with __shfl_sync, and each lane then
+// issues all its column and value loads, then all its x gathers, before
+// the first FMA: four independent chains in flight per lane.  The columns
+// and values are read once and carry the streaming hint (__ldcs, evict
+// first); x goes through the read-only path (__ldg), its reuse left to L1
+// and L2.  Lane
+// l sums entries l, l + T, l + 2T, ... in order; a fixed __shfl_xor_sync
+// butterfly combines the lanes; one lane writes the row.  All classes go
+// in one launch: the block index picks the class.
 // ell_spmv: one thread per row sums its slots j = 0 .. width-1 in order;
 // neighbouring threads read neighbouring slots, so every value and column
 // load is coalesced.  Neither kernel uses atomics: every row has one
@@ -74,10 +84,10 @@ constexpr int kClasses = 5;
 // one full wave on an H100: 132 SMs x 8 resident blocks of 256 threads
 constexpr int kMaxBlocks = 132 * 8;
 
-// threads per row of each width class (8, 16, 32, 64, 128)
-__host__ __device__ constexpr int class_tpr(int c) {
-  return c == 0 ? 8 : (c == 1 ? 16 : 32);
-}
+// gpr_spmv: lanes per row of each width class (8, 16, 32, 64, 128), a
+// quarter of the class width, so a lane holds at most kPerLane entries
+constexpr int kPerLane = 4;
+__host__ __device__ constexpr int class_lanes(int c) { return 2 << c; }
 
 struct ClassLayout {
   int64_t first_row[kClasses];      // first sorted row of the class
@@ -91,30 +101,59 @@ __device__ __forceinline__ void gpr_rows(
     const int* __restrict__ indices, const T* __restrict__ data,
     const T* __restrict__ x, T* __restrict__ y, int64_t first_row,
     int64_t nrows, int64_t block) {
-  constexpr int kRowsPerBlock = kThreads / TPR;
-  const int lane = threadIdx.x % TPR;
-  const int64_t r = block * kRowsPerBlock + threadIdx.x / TPR;
-  const bool valid = r < nrows;
+  constexpr int kRowsPerWarp = 32 / TPR;
+  const int lane = threadIdx.x % 32;
+  const int64_t r0 =
+      (block * (kThreads / 32) + threadIdx.x / 32) * kRowsPerWarp;
+  if (r0 >= nrows) return;            // the whole warp: no shuffle is left
+  // the warp's row metadata in one coalesced load each: lanes 0..nw read
+  // the nw + 1 row pointers, lanes 0..nw-1 the internal row ids
+  const int nw = nrows - r0 < kRowsPerWarp ? static_cast<int>(nrows - r0)
+                                            : kRowsPerWarp;
+  const int64_t g0 = first_row + r0;
+  long long ip = 0;
+  int id = 0;
+  if (lane <= nw)
+    ip = __ldcs(reinterpret_cast<const long long*>(indptr) + g0 + lane);
+  if (lane < nw) id = __ldcs(rows + g0 + lane);
+  const int sub = lane / TPR, l = lane % TPR;
+  // a row past the warp's last gets begin >= end (lane nw + 1 holds 0)
+  const int64_t begin = __shfl_sync(0xffffffffu, ip, sub);
+  const int64_t end = __shfl_sync(0xffffffffu, ip, sub + 1);
+  const int row = __shfl_sync(0xffffffffu, id, sub);
   T acc = T(0);
-  if (valid) {
-    const int64_t g = first_row + r;
-    const int64_t end = indptr[g + 1];
-    for (int64_t j = indptr[g] + lane; j < end; j += TPR)
-      acc += data[j] * x[indices[j]];
+  // lane l sums entries l, l + TPR, l + 2 TPR, ... in order; a row of its
+  // class has at most kPerLane of them per lane, so the loop runs once,
+  // with every value and column load issued before the first x gather
+  for (int64_t j0 = begin + l; j0 < end; j0 += kPerLane * TPR) {
+    int col[kPerLane];
+    T v[kPerLane];
+#pragma unroll
+    for (int e = 0; e < kPerLane; ++e) {
+      const int64_t j = j0 + e * TPR;
+      col[e] = j < end ? __ldcs(indices + j) : 0;
+      v[e] = j < end ? __ldcs(data + j) : T(0);
+    }
+    T xv[kPerLane];
+#pragma unroll
+    for (int e = 0; e < kPerLane; ++e)
+      xv[e] = j0 + e * TPR < end ? __ldg(x + col[e]) : T(0);
+#pragma unroll
+    for (int e = 0; e < kPerLane; ++e)
+      if (j0 + e * TPR < end) acc = fma(v[e], xv[e], acc);
   }
   // every lane of the warp takes part in the butterfly (TPR divides 32)
 #pragma unroll
   for (int off = TPR / 2; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off, TPR);
-  if (valid && lane == 0) y[rows[first_row + r]] = acc;
+  if (sub < nw && l == 0) y[row] = acc;
 }
 
 template <typename T>
-__global__ void gpr_spmv(const int* __restrict__ rows,
-                         const int64_t* __restrict__ indptr,
-                         const int* __restrict__ indices,
-                         const T* __restrict__ data, const T* __restrict__ x,
-                         T* __restrict__ y, ClassLayout layout) {
+__global__ void __launch_bounds__(kThreads)
+    gpr_spmv(const int* __restrict__ rows, const int64_t* __restrict__ indptr,
+             const int* __restrict__ indices, const T* __restrict__ data,
+             const T* __restrict__ x, T* __restrict__ y, ClassLayout layout) {
   // the block's class: the last one that starts at or before it (an empty
   // class starts where the next one does).  The unrolled loop indexes the
   // layout with constants, so it stays in registers.
@@ -130,7 +169,13 @@ __global__ void gpr_spmv(const int* __restrict__ rows,
       n = layout.nrows[k];
     }
   }
-  switch (class_tpr(c)) {
+  switch (class_lanes(c)) {
+    case 2:
+      gpr_rows<T, 2>(rows, indptr, indices, data, x, y, first, n, block);
+      break;
+    case 4:
+      gpr_rows<T, 4>(rows, indptr, indices, data, x, y, first, n, block);
+      break;
     case 8:
       gpr_rows<T, 8>(rows, indptr, indices, data, x, y, first, n, block);
       break;
@@ -211,7 +256,7 @@ int launch_gpr(const void* rows, const void* indptr, const void* indices,
   ClassLayout layout;
   int64_t row = 0, blocks = 0;
   for (int c = 0; c < kClasses; ++c) {
-    const int64_t rows_per_block = kThreads / class_tpr(c);
+    const int64_t rows_per_block = kThreads / class_lanes(c);
     layout.first_row[c] = row;
     layout.nrows[c] = class_rows[c];
     layout.first_block[c] = blocks;

@@ -55,10 +55,12 @@ _SIGNATURES = {
     "tsp_ell_spmv_f64": [_P] * 5 + [_I64, _P],
     "tsp_sdia_spmm_f32": [_P, _P, _I, _P, _P, _I64, _I, _P],
     "tsp_sdia_spmm_f64": [_P, _P, _I, _P, _P, _I64, _I, _P],
-    "tsp_psdia_spmm_f32": [_P, _P, _I, _I64, _P, _P, _I64, _I64, _I64, _I,
-                           _P],
-    "tsp_psdia_spmm_f64": [_P, _P, _I, _I64, _P, _P, _I64, _I64, _I64, _I,
-                           _P],
+    "tsp_psdia_spmm_f32": [_P, _P, _I, _P] + [_I] * 6 + [_I64, _P, _P,
+                                                           _I64, _I64, _I64,
+                                                           _I, _P],
+    "tsp_psdia_spmm_f64": [_P, _P, _I, _P] + [_I] * 6 + [_I64, _P, _P,
+                                                           _I64, _I64, _I64,
+                                                           _I, _P],
     "tsp_gpr_spmm_f32": [_P] * 6 + [_I64, _I, _P],
     "tsp_gpr_spmm_f64": [_P] * 6 + [_I64, _I, _P],
     "tsp_ell_spmm_f32": [_P] * 5 + [_I64, _I, _P],

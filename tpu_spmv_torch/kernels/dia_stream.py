@@ -54,7 +54,8 @@ __all__ = ["SDIA", "PSDIA", "LAUNCHES", "pack_sdia", "supports_sdia",
            "spmv_sdia_padded", "spmv_sdia_padded_ref", "spmv_sdia",
            "spmv_psdia_padded", "spmv_psdia_padded_ref", "spmv_psdia",
            "spmm_sdia_padded_t", "spmm_sdia_padded_t_ref", "spmm_sdia",
-           "spmm_psdia_padded_t", "spmm_psdia_padded_t_ref", "spmm_psdia"]
+           "spmm_psdia_padded_t", "spmm_psdia_padded_t_ref", "spmm_psdia",
+           "SpmmWindowPlan", "psdia_spmm_plan"]
 
 #: floor rows per row tile (the reference's rule, see module docstring)
 RB = 16384
@@ -68,6 +69,18 @@ _RHS_PANEL_BUDGET = 8 << 20
 LAUNCHES = {"sdia": 0, "psdia": 0, "sdia_spmm": 0, "psdia_spmm": 0}
 #: the kernels keep the offsets in 48 KB of shared memory
 _MAX_DIAGS = 12288
+#: K3b (``psdia_spmm``, the same constants in ``csrc/dia_stream.cu``):
+#: stage slots in a block's ring, the most dynamic shared memory a block
+#: may ask for on sm_90, threads per block, and the outputs a thread keeps
+#: (rows x right-hand sides)
+SPMM_STAGES = 4
+SPMM_SMEM_MAX = 232448
+_SPMM_THREADS = 256
+_SPMM_ROWS = 4
+_SPMM_RHS = 4
+#: what each of two blocks may hold of an H100 SM's 233472 bytes of
+#: shared memory (the card keeps 1024 a block)
+_TWO_BLOCK_SMEM = 233472 // 2 - 1024
 #: largest period :func:`detect_period` tries
 _MAX_PERIOD = 1 << 20
 
@@ -366,11 +379,11 @@ def spmm_psdia_padded_t_ref(A: PSDIA, Xt_pad: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=64)
 @functools.cache
 def _offsets_on(offsets: tuple[int, ...], device: torch.device):
-    """The offsets as a device ``int32`` tensor, made once per offsets and
-    device: the copy from the host waits for the stream, so it must not
-    run on every launch (nor inside a CUDA graph's capture).  Entries are
-    never dropped (a few hundred bytes each), so no kernel still queued on
-    another stream can read a freed one."""
+    """The offsets (or K3b's plan table) as a device ``int32`` tensor, made
+    once per tuple and device: the copy from the host waits for the
+    stream, so it must not run on every launch (nor inside a CUDA graph's
+    capture).  Entries are never dropped (a few hundred bytes each), so no
+    kernel still queued on another stream can read a freed one."""
     return torch.tensor(offsets, dtype=torch.int32, device=device)
 
 
@@ -590,24 +603,192 @@ def spmm_sdia_padded_t(A: SDIA, Xt_pad: torch.Tensor) -> torch.Tensor:
     return Yt
 
 
+@dataclasses.dataclass(frozen=True)
+class SpmmWindowPlan:
+    """K3b's tiling of one operand for one RHS count
+    (:func:`psdia_spmm_plan`).
+
+    A tile is ``tk`` padded rows of a chunk of ``qcap`` right-hand sides
+    (``nchunks`` chunks); ``qt`` of the kernel's threads run along the
+    RHS.  Its windows are columns of ``Xt``, staged in shared memory with
+    the tile's coefficient rows in a ring of ``nslot`` slots of ``slot``
+    elements (``smem_bytes`` a block).
+
+    - ``stride == 0``, the cluster walk: the diagonals fall into clusters
+      of nearby offsets, cluster ``c`` being diagonals ``starts[c]:starts[c
+      + 1]``; for the tile at row ``k0`` each cluster has its own window,
+      columns ``k0 + a0[c] .. k0 + a0[c] + width[c]``.
+    - ``stride == M > 0``, the stride walk: one window per tile, columns
+      ``k0 + a0[0] .. k0 + a0[0] + width[0]``, and diagonal ``d`` reads
+      the window of the tile ``jd[d] * M`` tiles away (its offset is near
+      ``jd[d] * M * tk``), so a block that walks tiles ``M`` apart reads
+      each window from device memory once and keeps it for every tile
+      that needs it; ``lookahead`` windows are in flight."""
+
+    qt: int
+    tk: int
+    qcap: int
+    nchunks: int
+    stride: int
+    starts: tuple[int, ...]
+    a0: tuple[int, ...]
+    width: tuple[int, ...]
+    jd: tuple[int, ...]
+    lookahead: int
+    slot: int
+    nslot: int
+    smem_bytes: int
+
+    @property
+    def nclusters(self) -> int:
+        return len(self.a0)
+
+    @property
+    def table(self) -> tuple[int, ...]:
+        """What the kernel reads: the cluster walk's ``starts``, ``a0``
+        and ``width``; the stride walk's ``min(jd)``, the span of ``jd``,
+        ``a0``, ``width``, ``lookahead`` and then ``jd``."""
+        if not self.stride:
+            return self.starts + self.a0 + self.width
+        lo = min(self.jd)
+        return ((lo, max(self.jd) - lo + 1, self.a0[0], self.width[0],
+                 self.lookahead) + self.jd)
+
+
+def _tile(nrhs: int) -> tuple[int, int, int, int]:
+    """The kernel's tile for ``nrhs`` RHS: ``qt`` (1, 2, 4 or 8) threads
+    along the RHS, the smallest that holds ``nrhs`` at :data:`_SPMM_RHS`
+    each; ``tk = _SPMM_ROWS * _SPMM_THREADS / qt`` rows; ``qcap`` RHS a
+    chunk; ``nchunks`` chunks."""
+    qt = 1
+    while qt < 8 and qt * _SPMM_RHS < nrhs:
+        qt *= 2
+    qcap = _SPMM_RHS * qt
+    nchunks = -(-max(nrhs, 1) // qcap)
+    return qt, _SPMM_ROWS * _SPMM_THREADS // qt, qcap, nchunks
+
+
+def _cluster_walk(offsets: tuple[int, ...], nrhs: int,
+                  itemsize: int) -> SpmmWindowPlan:
+    """The cluster walk: runs of consecutive diagonals, each offset closer
+    than ``tk`` to the one before (a gap that wide costs more in the
+    window than a stage of its own), cut where the slot would pass the
+    budget: a :data:`SPMM_STAGES`-th of what two blocks may each hold on
+    one SM, or of :data:`SPMM_SMEM_MAX` where one diagonal alone needs
+    more.  A cluster of one diagonal always fits, so every operand has
+    this plan."""
+    qt, tk, qcap, nchunks = _tile(nrhs)
+    vec = 16 // itemsize
+    nq = min(max(nrhs, 1), qcap)
+
+    def window(d0: int, d1: int) -> tuple[int, int]:
+        lo, hi = min(offsets[d0:d1]), max(offsets[d0:d1])
+        a0 = lo - lo % vec
+        return a0, tk + _roundup(hi, vec) - a0
+
+    def slot(d0: int, d1: int) -> int:
+        return (d1 - d0) * tk + nq * window(d0, d1)[1]
+
+    budget = _TWO_BLOCK_SMEM // SPMM_STAGES // itemsize
+    if max(slot(d, d + 1) for d in range(len(offsets))) > budget:
+        budget = SPMM_SMEM_MAX // SPMM_STAGES // itemsize
+    starts = [0]
+    for d in range(1, len(offsets)):
+        if (abs(offsets[d] - offsets[d - 1]) >= tk
+                or slot(starts[-1], d + 1) > budget):
+            starts.append(d)
+    starts.append(len(offsets))
+    spans = list(zip(starts[:-1], starts[1:]))
+    windows = [window(d0, d1) for d0, d1 in spans]
+    slot_elems = _roundup(max(slot(d0, d1) for d0, d1 in spans), 4)
+    return SpmmWindowPlan(
+        qt=qt, tk=tk, qcap=qcap, nchunks=nchunks, stride=0,
+        starts=tuple(starts), a0=tuple(a for a, _ in windows),
+        width=tuple(w for _, w in windows), jd=(), lookahead=SPMM_STAGES - 1,
+        slot=slot_elems, nslot=SPMM_STAGES,
+        smem_bytes=SPMM_STAGES * slot_elems * itemsize)
+
+
+def _stride_walk(offsets: tuple[int, ...], nrhs: int,
+                 itemsize: int) -> SpmmWindowPlan | None:
+    """The stride walk with the narrowest window, or ``None``: strides
+    ``M`` of whole tiles near each offset's length, ``jd`` the nearest
+    multiple of ``M * tk`` to each offset, at most three windows a tile
+    (``jd`` spans 3 or less), with the most windows in flight (up to 3)
+    that still fit two blocks an SM, else one block."""
+    qt, tk, qcap, nchunks = _tile(nrhs)
+    vec = 16 // itemsize
+    nq = min(max(nrhs, 1), qcap)
+    nd = len(offsets)
+    best = None
+    for m in sorted({1} | {(abs(o) + tk // 2) // tk for o in offsets
+                           if abs(o) >= tk}):
+        span = m * tk
+        jd = tuple((2 * o + span) // (2 * span) for o in offsets)
+        jspan = max(jd) - min(jd) + 1
+        if jspan > 3:
+            continue
+        dev = [o - j * span for o, j in zip(offsets, jd)]
+        a0 = min(dev) - min(dev) % vec
+        w = tk + _roundup(max(dev), vec) - a0
+        slot = _roundup(nd * tk + nq * w, 4)
+        fits = [la for b in (_TWO_BLOCK_SMEM, SPMM_SMEM_MAX)
+                for la in (3, 2, 1) if (jspan + la) * slot * itemsize <= b]
+        if fits and (best is None or w < best.width[0]):
+            best = SpmmWindowPlan(
+                qt=qt, tk=tk, qcap=qcap, nchunks=nchunks, stride=m,
+                starts=(0, nd), a0=(a0,), width=(w,), jd=jd,
+                lookahead=fits[0], slot=slot, nslot=jspan + fits[0],
+                smem_bytes=(jspan + fits[0]) * slot * itemsize)
+    return best
+
+
+@functools.lru_cache(maxsize=256)
+def psdia_spmm_plan(offsets: tuple[int, ...], nrhs: int,
+                    itemsize: int) -> SpmmWindowPlan:
+    """K3b's shared-memory plan for the diagonal ``offsets`` (in stored
+    order), ``nrhs`` right-hand sides and values of ``itemsize`` bytes:
+    the stride walk (:func:`_stride_walk`) where it stages fewer columns a
+    tile than the cluster walk's windows together (the 2-D Poisson:
+    ``tk + 8`` against ``3 tk + 8``), else the cluster walk
+    (:func:`_cluster_walk`).  Windows start and end on 16-byte boundaries
+    (the kernel's copies)."""
+    offsets = tuple(int(o) for o in offsets)
+    clusters = _cluster_walk(offsets, nrhs, itemsize)
+    stride = _stride_walk(offsets, nrhs, itemsize)
+    if stride is not None and stride.width[0] < sum(clusters.width):
+        return stride
+    return clusters
+
+
+def _spmm_psdia_launch(A: PSDIA, Xt_pad: torch.Tensor,
+                       plan: SpmmWindowPlan) -> torch.Tensor:
+    """Launch K3b with ``plan`` on checked CUDA operands; count it."""
+    Yt = torch.empty_like(Xt_pad)
+    offs = _offsets_on(A.offsets, Xt_pad.device)
+    table = _offsets_on(plan.table, Xt_pad.device)
+    _build.launcher("psdia_spmm", Xt_pad.dtype)(
+        Xt_pad, A.pattern.data_ptr(), offs.data_ptr(), A.ndiags,
+        table.data_ptr(), plan.nclusters, plan.stride, plan.qt, plan.tk,
+        plan.slot, plan.nslot, A.rb, Xt_pad.data_ptr(), Yt.data_ptr(),
+        A.npad, A.L, A.shape[0], Xt_pad.shape[0])
+    LAUNCHES["psdia_spmm"] += 1
+    return Yt
+
+
 def spmm_psdia_padded_t(A: PSDIA, Xt_pad: torch.Tensor) -> torch.Tensor:
     """``Yt_pad = (A @ Xt_pad.T).T`` for transposed ``[nrhs, npad]``
     operands — same contract as :func:`spmm_sdia_padded_t`; the rows
     outside ``[L, L + nrow)`` come out zero (the row mask).
 
-    CUDA tensor: launches K3b (``psdia_spmm`` in ``csrc/dia_stream.cu``);
-    CPU tensor: :func:`spmm_psdia_padded_t_ref`."""
+    CUDA tensor: launches K3b (``psdia_spmm`` in ``csrc/dia_stream.cu``)
+    with the tiling of :func:`psdia_spmm_plan`; CPU tensor:
+    :func:`spmm_psdia_padded_t_ref`."""
     _check("spmm_psdia_padded_t", A.pattern, A, Xt_pad, A.rb, rhs_axis=True)
     if Xt_pad.is_cpu:
         return spmm_psdia_padded_t_ref(A, Xt_pad)
-    Yt = torch.empty_like(Xt_pad)
-    offs = _offsets_on(A.offsets, Xt_pad.device)
-    _build.launcher("psdia_spmm", Xt_pad.dtype)(
-        Xt_pad, A.pattern.data_ptr(), offs.data_ptr(), A.ndiags, A.rb,
-        Xt_pad.data_ptr(), Yt.data_ptr(), A.npad, A.L, A.shape[0],
-        Xt_pad.shape[0])
-    LAUNCHES["psdia_spmm"] += 1
-    return Yt
+    return _spmm_psdia_launch(A, Xt_pad, psdia_spmm_plan(
+        A.offsets, Xt_pad.shape[0], Xt_pad.element_size()))
 
 
 def _spmm_plain_layout(A, X: torch.Tensor, kernel) -> torch.Tensor:

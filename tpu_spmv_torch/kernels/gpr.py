@@ -18,7 +18,8 @@ pack, and drops the TPU layout:
   ``CLASS_W = (8, 16, 32, 64, 128)`` that holds it, and the rows are laid
   out class-major in stable order — a class-sorted CSR (:class:`GPCSR`);
 - the kernel (``gpr_spmv`` in ``csrc/general.cu``) gives each class
-  ``min(W, 32)`` threads per row and writes each row's sum in place at its
+  ``W / 4`` lanes per row (each lane at most four entries of its row,
+  loaded before any is summed) and writes each row's sum in place at its
   internal row id, so the reference's y-restoring permutation has nothing
   to do;
 - the virtual rows fold back into their owners with a
