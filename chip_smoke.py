@@ -12,9 +12,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``general.cu``, ``dist_stream.cu``, ``permute.cu`` and ``probes.cu``
    for ``sm_90a`` (one process each, started together) into one library
    under ``build/tpu_spmv_torch/``; then ``nvcc -Xptxas -v`` of
-   ``general.cu`` and ``dia_stream.cu`` prints the registers, spills and
-   static shared memory of every instantiation of ``gpr_spmv`` and of
-   K3b's two walks (``psdia_spmm_stride``, ``psdia_spmm_clusters``);
+   ``general.cu``, ``dia_stream.cu`` and ``dist_stream.cu`` prints the
+   registers, spills and static shared memory of every instantiation of
+   ``gpr_spmv`` and ``gpr_spmm`` (``gpr_spmm_lanes`` on 2 or 4 lanes of one
+   RHS), and K3b's and K8b's two walks
+   (``psdia_spmm_stride``, ``psdia_spmm_clusters``, ``psdia_ring_stride``,
+   ``psdia_ring_clusters``);
 3. kernels against their plain PyTorch versions on small operands, f32 and
    f64, each against the plain version (rel 1e-6 f32, 1e-13 f64), against
    scipy float64 (2e-5 f32, 1e-10 f64) and for bitwise reproducibility:
@@ -66,13 +69,15 @@ Phases, in order; any failure raises and the script exits non-zero:
       power-law SPD operator; f64 ``cg_multi`` with 4 RHS on the 256x256
       Poisson and ``bus420.mtx``, every column's true residual <= 1e-10;
    d. distributed (shards on the one card): first, on the small operands
-      of phase 3, K8a (``sdia_ring``) and K8b (``psdia_ring``) per shard at
-      1, 2 and 4 shards, f32 and f64, against their plain versions, scipy
-      and (the concatenated shards) the single-chip K1/K2 on the same pack;
-      then, counters zeroed, the 4096x4096 Poisson's packs of phase 4a
-      sharded (no second planning) through ``bench_dist_spmv``'s chain at 1
-      and 4 shards, each beside the plain K2/K1 chain on the same pack (the
-      reference's ``dist1_psdia_parity`` and ``dist1_parity``);
+      of phase 3, K8a (``sdia_ring``) and K8b (``psdia_ring``, the sharded
+      pack's walk) per shard at 1, 2 and 4 shards, f32 and f64, against
+      their plain versions, scipy and (the concatenated shards) the
+      single-chip K1/K2 on the same pack, K8b's bitwise; then, counters
+      zeroed, the 4096x4096 Poisson's packs of phase 4a sharded (no second
+      planning) through ``bench_dist_spmv``'s chain at 1 and 4 shards, each
+      product bitwise the single-chip K2/K1 and beside the plain K2/K1
+      chain on the same pack (the reference's ``dist1_psdia_parity`` and
+      ``dist1_parity``);
       ``ShardedGPR`` at one shard on ``random_sparse(100000, 100000,
       7e-5)`` beside the plain ``gpr_spmv`` chain (``dist1_gpr_parity``);
       f64 ``dist_cg`` over ``csr_neighbor`` at 4 shards on the 256x256
@@ -121,7 +126,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    its SpMV kernel; K3b's two walks (the plan's pick and the cluster walk)
    timed in turns on the 32-RHS pack and, with 8 right-hand sides, on the
    plan's own pack (``cg_multi_runner``'s shape) beside 8 launches of K2,
-   each with its shared-memory plan; the GPR packs' rows per width class;
+   each with its shared-memory plan; K8b's walks (the sharded pack's
+   plan, the stride walk with the coefficients per tile, the cluster
+   walk) on the one shard in turns with K2, each bitwise K2;
+   ``gpr_spmv`` and ``gpr_spmm`` on every general operand in turns with
+   ``embedding_bag`` (and ``gpr_spmm`` with cuSPARSE), with
+   ``gpr_spmm``'s rate of X lines; the GPR packs' rows per width class;
    the probe kernels beside their plain versions, bounds
    and one library call (``torch.mul``, ``copy_`` and ``clone()``,
    ``sum``, ``take_along_dim``; timed in turns with the kernel); the block
@@ -143,6 +153,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -185,26 +196,32 @@ def bound(nbytes: int, flops: int) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def library_ms(mat, x) -> float:
-    """One cuSPARSE call of the same product in the type of ``x``:
-    ``torch.mv`` of a ``torch.sparse_csr_tensor`` for a vector,
-    ``torch.sparse.mm`` for an ``[n, nrhs]`` block (a yardstick; the port
-    never calls it)."""
-    import warnings
-
+def csr_tensor(mat, dtype, device):
+    """A scipy matrix as a ``torch.sparse_csr_tensor`` of ``dtype`` on
+    ``device``: the cuSPARSE yardsticks' operand."""
     import torch
-
-    from tpu_spmv_torch.bench.harness import time_fn
 
     csr = mat.tocsr()
     itype = torch.int32 if csr.nnz < 2**31 else torch.int64
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)    # "beta state"
-        A = torch.sparse_csr_tensor(
+        return torch.sparse_csr_tensor(
             torch.from_numpy(csr.indptr).to(itype),
             torch.from_numpy(csr.indices).to(itype),
-            torch.from_numpy(csr.data).to(x.dtype),
-            size=csr.shape).to(x.device)
+            torch.from_numpy(csr.data).to(dtype),
+            size=csr.shape).to(device)
+
+
+def library_ms(mat, x) -> float:
+    """One cuSPARSE call of the same product in the type of ``x``:
+    ``torch.mv`` of a ``torch.sparse_csr_tensor`` for a vector,
+    ``torch.sparse.mm`` for an ``[n, nrhs]`` block (a yardstick; the port
+    never calls it)."""
+    import torch
+
+    from tpu_spmv_torch.bench.harness import time_fn
+
+    A = csr_tensor(mat, x.dtype, x.device)
     fn = torch.mv if x.dim() == 1 else torch.sparse.mm
     return time_fn(fn, A, x, iters=20).median_s * 1e3
 
@@ -537,18 +554,25 @@ def main() -> int:
           f"of tpu_spmv_torch/csrc/{{{','.join(_build._SOURCES)}}}, then "
           f"-shared -> {_build.library_path().relative_to(ROOT)} "
           f"in {time.perf_counter() - t0:.2f} s")
-    # the two kernels redesigned last: what ptxas gives each instantiation
-    # (gpr_spmv<value type>; K3b's two walks psdia_spmm_stride and
-    # psdia_spmm_clusters<value type, threads along the RHS, elements per
-    # window copy>, whose dynamic shared memory the host plan sets per
-    # launch: phase 5 prints it)
+    # the kernels redesigned last: what ptxas gives each instantiation
+    # (gpr_spmv<value type>; gpr_spmm<value type, lanes a row, RHS a
+    # lane> and, on 2 or 4 lanes of one RHS, gpr_spmm_lanes<value type,
+    # lanes a row>;
+    # K3b's two walks psdia_spmm_stride and psdia_spmm_clusters<value type,
+    # threads along the RHS, elements per window copy>; K8b's two walks
+    # psdia_ring_stride and psdia_ring_clusters<value type, elements per
+    # copy>; the walks' dynamic shared memory is the host plan's, which
+    # phase 5 prints)
     t0 = time.perf_counter()
-    for line in ptxas_usage({"general.cu": ("gpr_spmv",),
+    for line in ptxas_usage({"general.cu": ("gpr_spmv", "gpr_spmm",
+                                            "gpr_spmm_lanes"),
                              "dia_stream.cu": ("psdia_spmm_stride",
-                                               "psdia_spmm_clusters")}):
+                                               "psdia_spmm_clusters"),
+                             "dist_stream.cu": ("psdia_ring_stride",
+                                                "psdia_ring_clusters")}):
         print(f"ptxas {line}")
-    print(f"(nvcc -Xptxas -v of general.cu and dia_stream.cu: "
-          f"{time.perf_counter() - t0:.2f} s)")
+    print(f"(nvcc -Xptxas -v of general.cu, dia_stream.cu and "
+          f"dist_stream.cu: {time.perf_counter() - t0:.2f} s)")
 
     # -- 3. kernels against plain versions, small operands ------------------
     print("== 3. kernels vs plain versions (small operands)")
@@ -1163,8 +1187,10 @@ def main() -> int:
                                     left, right)
                             kw = dict(base=s * A.rows_per_shard, L=A.L,
                                       nrow=A.shape[0])
-                            y1, y2 = (dst.spmv_psdia_ring(*args, **kw),
-                                      dst.spmv_psdia_ring(*args, **kw))
+                            y1, y2 = (dst.spmv_psdia_ring(
+                                *args, **kw, plan=A.ring_plan),
+                                dst.spmv_psdia_ring(*args, **kw,
+                                                    plan=A.ring_plan))
                             yr = dst.spmv_psdia_ring_ref(*args, **kw)
                         torch.cuda.synchronize()
                         e_plain = max(e_plain, float(
@@ -1177,8 +1203,14 @@ def main() -> int:
                     same = torch.equal(flat[:pack.npad], ys)
                     diff = float((flat[:pack.npad] - ys).abs().max())
                     e1 = rel_err(flat[A.L:A.L + m.shape[0]].cpu(), ref)
+                    walk = ""
+                    if kname == "psdia_ring":
+                        walk = (f", stride walk S={A.ring_plan.stride * 1024}"
+                                f"{' reuse' if A.ring_plan.reuse else ''}"
+                                if A.ring_plan.stride else ", cluster walk")
                     print(f"{kname:10s} {name:17s} {dname} ndev={nd} "
-                          f"(Cp={A.rows_per_shard}, h={A.halo}): rel vs plain "
+                          f"(Cp={A.rows_per_shard}, h={A.halo}{walk}): rel vs "
+                          f"plain "
                           f"{e_plain:.2e} | vs scipy {e1:.2e} | bitwise "
                           f"{bitwise} | vs single-chip "
                           f"{'bitwise equal' if same else f'max diff {diff:.3e}'}"
@@ -1189,6 +1221,9 @@ def main() -> int:
                             f"ndev={nd} vs scipy {e1:.2e}")
                     require(diff <= PLAIN_TOL[dname] * float(ys.abs().max()),
                             f"{kname} {name} ndev={nd} vs single chip {diff}")
+                    # K8b sums K2's values in K2's order: bitwise K2
+                    require(same or kname != "psdia_ring", f"{kname} {name} "
+                            f"{dname} ndev={nd} not bitwise K2")
                     require(bitwise, f"{kname} {name} not bitwise reproducible")
                     require(not flat[pack.npad:].any(), f"{kname} pads")
 
@@ -1209,8 +1244,20 @@ def main() -> int:
             dplan = tdist.DistPlan(A, strategy, A.pad_plan, A.pad_plan,
                                    meshes[nd])
             r = tdist.bench_dist_spmv(mat, meshes[nd], plan=dplan)
+            xpad = ds.pad_x(pack, xf)
+            flat = torch.cat(dplan.spmv(tdist.place(A.shard_xpad(xpad),
+                                                    meshes[nd])).chunks)
+            same = torch.equal(flat[:pack.npad], single(pack, xpad))
+            require(same, f"{strategy} ndev={nd} at 4096^2 not bitwise the "
+                    f"single-chip product")
+            walk = ""
+            if strategy == "pdia_stream":
+                walk = (f", stride walk S={A.ring_plan.stride * 1024}"
+                        f"{' reuse' if A.ring_plan.reuse else ''}"
+                        if A.ring_plan.stride else ", cluster walk")
             print(f"    {strategy} ndev={nd} (Cp={A.rows_per_shard}, "
-                  f"h={A.halo}): {r['seconds'] * 1e3:.4f} ms per SpMV, "
+                  f"h={A.halo}{walk}): {r['seconds'] * 1e3:.4f} ms per SpMV, "
+                  f"bitwise the single-chip product {same} | "
                   f"plain {'K2' if strategy == 'pdia_stream' else 'K1'} "
                   f"chain on the same pack {plain_ms:.4f} ms -> parity "
                   f"{r['seconds'] * 1e3 / plain_ms:.3f} | rel err vs scipy "
@@ -1729,7 +1776,8 @@ def main() -> int:
         if key == "psdia_ring":
             kw = dict(base=0, L=A.L, nrow=A.shape[0])
             kern = lambda A_, v: dst.spmv_psdia_ring(    # noqa: E731
-                A_.pattern[0], A_.offsets, v, left, right, **kw)
+                A_.pattern[0], A_.offsets, v, left, right, **kw,
+                plan=A_.ring_plan)
             plain = lambda A_, v: dst.spmv_psdia_ring_ref(   # noqa: E731
                 A_.pattern[0], A_.offsets, v, left, right, **kw)
         else:
@@ -1744,6 +1792,34 @@ def main() -> int:
                              "source": "tpu_spmv_torch/csrc/dist_stream.cu",
                              "replaces": src_line, "launches": dlaunches[key],
                              **nums})
+        if key == "psdia_ring":
+            # K8b's walks on the same shard, timed in turns with K2 (the
+            # untouched control) on the same pack: the plan's pick, the
+            # stride walk with the coefficients staged per tile, the
+            # cluster walk; every one bitwise K2
+            walks = {"plan": A.ring_plan,
+                     "per tile": dst.psdia_ring_plan(A.offsets, A.rb, 4),
+                     "clusters": dst.ring_cluster_walk(A.offsets, 4)}
+            xp_ = ds.pad_x(P, x)
+            k2 = ds.spmv_psdia_padded(P, xp_)
+            for wname, wplan in walks.items():
+                same = torch.equal(dst.spmv_psdia_ring(
+                    A.pattern[0], A.offsets, xk, left, right, **kw,
+                    plan=wplan)[:P.npad], k2)
+                require(same, f"K8b's {wname} walk at 4096^2 not bitwise K2")
+            t = interleaved_ms({
+                **{w: (lambda wp: lambda: dst.spmv_psdia_ring(
+                    A.pattern[0], A.offsets, xk, left, right, **kw,
+                    plan=wp))(wp) for w, wp in walks.items()},
+                "K2": lambda: ds.spmv_psdia_padded(P, xp_)}, 50, rounds=5)
+            bk = nums["bound_ms"]
+            print(f"    K8b's walks in turns with K2 ({card}): "
+                  + " | ".join(f"{w} {v:.4f} ms ({100 * bk / v:.1f}% of the "
+                               f"bound)" for w, v in t.items())
+                  + " | every walk bitwise K2 True")
+            for w, wp in walks.items():
+                print(f"      {w}: {wp}")
+            del xp_, k2
     del dist1
     spmm_records = []
     # each SpMM beside the SpMV kernel it is compared with (K3b beside K2,
@@ -1802,8 +1878,22 @@ def main() -> int:
     # and the other one forced, so the byte rule's choice can be judged
     recorded = {"gpr_spmv": "random_sparse(2000000,8e-6)",
                 "ell_spmv": "shuffled laplacian_2d(2048)"}
+
+    def embedding_bag(m):
+        """One ``embedding_bag`` call of ``m @ X`` (the per-row sum of
+        ``data[j] * X[indices[j]]``; a yardstick the port never calls),
+        its int64 bags made once, outside the timed calls."""
+        csr = m.tocsr()
+        idx = torch.from_numpy(csr.indices.astype(np.int64)).to(dev)
+        off = torch.from_numpy(csr.indptr[:-1].astype(np.int64)).to(dev)
+        w = torch.from_numpy(csr.data).to(dev, torch.float32)
+        return lambda X: F.embedding_bag(idx, X, off, mode="sum",
+                                         per_sample_weights=w)
+
     for name, m in general.items():
         p, xg = gplans[name], gx[name]
+        bag = embedding_bag(m)
+        lib_A = csr_tensor(m, torch.float32, dev)
         for kname, strategy, pack, kern, plain in (
                 ("gpr_spmv", "gpr", gpr.pack_gpr, gpr.spmv_gpr_rows,
                  gpr.spmv_gpr_ref),
@@ -1817,6 +1907,17 @@ def main() -> int:
                       f"{A.class_rows} (+{A.nv} virtual)")
             nums = timed(kname, A, kern, plain, xg, m, f"{name} ({tag})")
             spmv_ms[kname, name] = nums["ms"]
+            if kname == "gpr_spmv":
+                # embedding_bag (X of one column) in turns with the kernel
+                xcol = xg[:, None]
+                t = interleaved_ms({
+                    "kernel": lambda: kern(A, xg),
+                    "embedding_bag": lambda: bag(xcol)},
+                    20 if name.startswith("random_sparse(1") else 5)
+                nums["embedding_bag_ms"] = t["embedding_bag"]
+                print(f"    gpr_spmv in turns with embedding_bag: "
+                      f"{t['kernel']:.4f} ms | embedding_bag "
+                      f"{t['embedding_bag']:.4f} ms")
             if recorded[kname] == name:
                 records.append({
                     "name": kname, "route": "cuda",
@@ -1845,6 +1946,20 @@ def main() -> int:
             tag = "pick" if p.strategy == strategy else "forced"
             nums = timed(kname, A, kern, plain, Xg, m,
                          f"{name} ({tag}), {NRHS} RHS", nrhs=NRHS)
+            if kname == "gpr_spmm":
+                # embedding_bag and cuSPARSE in turns with the kernel, and
+                # the kernel's rate of X lines (one line of NRHS values per
+                # entry)
+                t = interleaved_ms({
+                    "kernel": lambda: kern(A, Xg),
+                    "embedding_bag": lambda: bag(Xg),
+                    "cuSPARSE": lambda: torch.sparse.mm(lib_A, Xg)}, 2)
+                nums["embedding_bag_ms"] = t["embedding_bag"]
+                line_gbs = m.nnz * NRHS * 4 / (nums["ms"] * 1e-3) / 1e9
+                print(f"    gpr_spmm in turns: {t['kernel']:.4f} ms | "
+                      f"embedding_bag {t['embedding_bag']:.4f} ms | cuSPARSE "
+                      f"{t['cuSPARSE']:.4f} ms | X lines {m.nnz} x "
+                      f"{NRHS * 4} B at {line_gbs:.1f} GB/s ({card})")
             spmv_name = kname.replace("spmm", "spmv")
             print(f"    {NRHS} x {spmv_name} on {name}: "
                   f"{NRHS * spmv_ms[spmv_name, name]:.4f} ms")
@@ -1857,6 +1972,7 @@ def main() -> int:
         pms = time_fn(p.spmm, Xg, iters=10).median_s * 1e3
         print(f"plan.spmm(X) {name} via {p.strategy} end to end, {NRHS} RHS: "
               f"{pms:.4f} ms")
+        del bag, lib_A
     # the gathers of 4e at their shapes: ro(x)'s RCM perm and a random
     # perm on 4,194,304 f32 values, the batched gather on 32 rows
     def timed_gather(kname, pplan, xk, label):
@@ -2018,8 +2134,6 @@ def main() -> int:
         ``torch.sparse_bsr_tensor`` (``torch.mv`` / ``torch.matmul``), or
         the CSR product where torch refuses BSR on CUDA.  Returns the kind,
         the ms and the product."""
-        import warnings
-
         fn = torch.mv if xk.dim() == 1 else torch.matmul
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", UserWarning)

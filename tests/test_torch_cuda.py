@@ -5,6 +5,7 @@ runs where JAX is not installed::
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -294,6 +295,38 @@ def test_general_spmm_kernels_match_plain_on_card(card, dtype, nrhs):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nrhs", [1, 3, 8, 32, 40])
+@pytest.mark.parametrize("name", ["every width", "two classes",
+                                  "powerlaw800.mtx"])
+def test_gpr_spmm_every_width_class_on_card(card, dtype, nrhs, name):
+    """``gpr_spmm`` (G lanes a row, V RHS a lane) against its plain version
+    on rows of every width class, with empty classes, empty rows and
+    128-entry virtual rows of hub rows: within the limit, bitwise
+    reproducible, one launch each, and bitwise equal with X and Y one
+    value off their 16-byte alignment (one RHS a lane: the same sums in the
+    same order); the folded product matches scipy."""
+    m = _gpr_operand(name)
+    A = tgpr.pack_gpr(m, dtype=dtype, device=card)
+    assert A.nv > 0 or name == "two classes"
+    X64 = np.random.default_rng(nrhs).standard_normal((m.shape[1], nrhs))
+    X = torch.tensor(X64, dtype=dtype, device=card)
+    before = tgpr.LAUNCHES["gpr_spmm"]
+    Y1, Y2 = tgpr.spmm_gpr_rows(A, X), tgpr.spmm_gpr_rows(A, X)
+    buf = torch.empty(X.numel() + 1, dtype=dtype, device=card)
+    Xs = buf[1:].view(X.shape)
+    Xs.copy_(X)
+    Ys = tgpr.spmm_gpr_rows(A, Xs)
+    assert tgpr.LAUNCHES["gpr_spmm"] == before + 3
+    assert torch.equal(Y1, Y2) and torch.equal(Y1, Ys)
+    assert _rel(Y1, tgpr.spmm_gpr_ref(A, X)) <= TOL[dtype]
+    ref = m @ X64
+    Y = tgpr.spmm_gpr(A, X).cpu().double().numpy()
+    gate = 2e-5 if dtype == torch.float32 else 1e-10
+    assert np.max(np.abs(Y - ref)) <= gate * np.max(np.abs(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("ndev", [1, 2, 4])
 def test_ring_kernels_match_plain_on_card(card, dtype, ndev):
     """K8a and K8b with ``ndev`` shards on one card: each shard's launch
@@ -337,6 +370,104 @@ def test_ring_kernels_match_plain_on_card(card, dtype, ndev):
         ref = m @ x64
         gate = 2e-5 if dtype == torch.float32 else 1e-10
         assert np.max(np.abs(y - ref)) <= gate * np.max(np.abs(ref))
+
+
+_RING_OPERANDS = ["laplacian_2d(2048, 40)", "laplacian_2d(48)",
+                  "laplacian_3d(16)", "band of 81 diagonals"]
+
+
+def _ring_walks(A, itemsize):
+    """K8b's walks on a sharded pack: the pack's own plan, the stride walk
+    (if any) with the coefficients staged per tile (period taken as rb),
+    and the cluster walk."""
+    return {"plan": A.ring_plan,
+            "per tile": tdst.psdia_ring_plan(A.offsets, A.rb, itemsize),
+            "clusters": tdst.ring_cluster_walk(A.offsets, itemsize)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", _RING_OPERANDS)
+def test_psdia_ring_walks_match_k2_bitwise_on_card(card, dtype, name):
+    """K8b's walks (stride walk with the coefficients once per segment or
+    per tile, cluster walk) at 1, 2 and 4 shards on one card, with the
+    chunks 16-byte aligned and not: the concatenated shards bitwise equal
+    to K2 on the same pack (at one shard, K8b itself), zero past it, each
+    launch within the limit of its plain version, bitwise reproducible and
+    counted."""
+    m = {"laplacian_2d(2048, 40)": utils.laplacian_2d(2048, 40),
+         "laplacian_2d(48)": utils.laplacian_2d(48),
+         "laplacian_3d(16)": utils.laplacian_3d(16),
+         "band of 81 diagonals": _toeplitz_band(3000, 40)}[name]
+    dia = convert(COO.from_scipy(m, dtype=dtype), "dia")
+    pack = tds.pack_psdia(dia, period=tds.detect_period(dia), device=card)
+    x64 = np.random.default_rng(11).standard_normal(m.shape[0])
+    xpad = tds.pad_x(pack, torch.tensor(x64, dtype=dtype, device=card))
+    k2 = tds.spmv_psdia_padded(pack, xpad)
+    isz = pack.pattern.element_size()
+    if name.startswith("laplacian_2d(2048"):
+        assert pack.period == 2048
+        assert _ring_walks(dist.ShardedPSDIA.build(pack, 1), isz)[
+            "plan"].stride * tdst.RING_TILE == 2048
+    for ndev in (1, 2, 4):
+        mesh = dist.make_mesh(ndev, device="cuda:0")
+        A = dist.place(dist.ShardedPSDIA.build(pack, ndev), mesh)
+        for shift in (0, 1):
+            buf = torch.zeros(A.npad + 1, dtype=dtype, device=card)
+            buf[shift:shift + pack.npad] = xpad
+            chunks = buf[shift:shift + A.npad].split(A.rows_per_shard)
+            for walk, plan in _ring_walks(A, isz).items():
+                before = tdst.LAUNCHES["psdia_ring"]
+                ys = []
+                for s in range(ndev):
+                    args = (A.pattern[s], A.offsets, chunks[s],
+                            chunks[(s - 1) % ndev][-A.halo:],
+                            chunks[(s + 1) % ndev][:A.halo])
+                    kw = dict(base=s * A.rows_per_shard, L=A.L,
+                              nrow=A.shape[0])
+                    y1 = tdst.spmv_psdia_ring(*args, **kw, plan=plan)
+                    y2 = tdst.spmv_psdia_ring(*args, **kw, plan=plan)
+                    ref = tdst.spmv_psdia_ring_ref(*args, **kw)
+                    assert torch.equal(y1, y2), (walk, ndev, s)
+                    top = max(float(ref.abs().max()), 1e-300)
+                    assert float((y1 - ref).abs().max()) <= TOL[dtype] * top
+                    ys.append(y1)
+                assert tdst.LAUNCHES["psdia_ring"] == before + 2 * ndev
+                flat = torch.cat(ys)
+                assert torch.equal(flat[:pack.npad], k2), (walk, ndev, shift)
+                assert not flat[pack.npad:].any()
+        # the sharded chain runs the pack's own walk
+        xs = dist.place(A.shard_xpad(xpad), mesh)
+        flat = torch.cat(dist.spmv_psdia_sharded(mesh, A, xs).chunks)
+        assert torch.equal(flat[:pack.npad], k2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_psdia_ring_refuses_a_walk_that_does_not_fit_on_card(card, dtype):
+    """On a CUDA tensor K8b launches only with a walk, and only with one
+    that fits the offsets: a missing plan and a stride walk whose ``jd``
+    reach a window two tiles back (more windows than its ring holds)
+    raise ``ValueError`` before any launch; the pack's walk then runs,
+    bitwise K2."""
+    m = utils.laplacian_2d(2048, 40)
+    dia = convert(COO.from_scipy(m, dtype=dtype), "dia")
+    pack = tds.pack_psdia(dia, period=tds.detect_period(dia), device=card)
+    xpad = tds.pad_x(pack, torch.rand(m.shape[0], dtype=dtype, device=card))
+    A = dist.place(dist.ShardedPSDIA.build(pack, 1),
+                   dist.make_mesh(1, device="cuda:0"))
+    x0 = A.shard_xpad(xpad).chunks[0]
+    args = (A.pattern[0], A.offsets, x0, x0[-A.halo:], x0[:A.halo])
+    kw = dict(base=0, L=A.L, nrow=A.shape[0])
+    bad = dataclasses.replace(A.ring_plan, jd=(-2, 0, 0, 0, 1))
+    before = tdst.LAUNCHES["psdia_ring"]
+    with pytest.raises(ValueError, match="needs the walk"):
+        tdst.spmv_psdia_ring(*args, **kw)
+    with pytest.raises(ValueError, match="outside"):
+        tdst.spmv_psdia_ring(*args, **kw, plan=bad)
+    assert tdst.LAUNCHES["psdia_ring"] == before
+    y = tdst.spmv_psdia_ring(*args, **kw, plan=A.ring_plan)
+    assert torch.equal(y[:pack.npad], tds.spmv_psdia_padded(pack, xpad))
 
 
 @pytest.mark.cuda

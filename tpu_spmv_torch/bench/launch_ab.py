@@ -9,14 +9,20 @@ It prints one JSON line: ms per call (CUDA events, median of repeats,
 after warm-up; each kernel and its yardsticks timed in turns, so that
 drift in the host's speed falls on all of them) of ``launch_probe`` (T1)
 beside ``copy_`` and ``clone()``, ``segsum8`` (T2) beside ``sum``,
-``tile_permute`` S (T3) beside ``take_along_dim``, ``gpr_spmv`` beside
-cuSPARSE on ``random_sparse(100000, 100000, 7e-5)``, ``power_law(400000,
-400000, 13)`` and ``random_sparse(2000000, 2000000, 8e-6)`` (there also
-``ell_spmv`` and ``gpr_spmm`` with 32 right-hand sides), K2 and K1 on
-the 4096x4096-grid Poisson, K3b there at 8 right-hand sides (the plan's
-own pack) and at 32 (the pack for 32) beside 8 and 32 launches of K2, CG
-on the 256x256-grid Poisson (ms per iteration), with the root, the card's
-name and power limit.
+``tile_permute`` S (T3) beside ``take_along_dim``; on
+``random_sparse(100000, 100000, 7e-5)``, ``power_law(400000, 400000,
+13)``, ``random_sparse(2000000, 2000000, 8e-6)`` and a 2048x2048-grid
+Poisson in a shuffled node order: ``gpr_spmv`` beside cuSPARSE and
+``embedding_bag`` (X of one column; at 2M rows also ``ell_spmv``), and
+``gpr_spmm`` (K6) with 1, 3, 32 and 40 right-hand sides beside
+``embedding_bag`` (at 32 also cuSPARSE ``torch.sparse.mm``); K2 and K1
+on the 4096x4096-grid Poisson; K8b (``psdia_ring``) on one shard of the
+plan's pack in turns with K2 on the same pack, and the sharded chain
+(``spmv_psdia_sharded``) at 1 and 4 shards on one card, K8b and K2 at
+one shard in float64; K3b there at 8
+right-hand sides (the plan's own pack) and at 32 (the pack for 32)
+beside 8 and 32 launches of K2; CG on the 256x256-grid Poisson (ms per
+iteration), with the root, the card's name and power limit.
 
 The script calls only functions that every checkout since the probe
 kernels were ported has, and carries its own timing helpers, so any such
@@ -27,6 +33,7 @@ checkout's kernels at first use.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -84,10 +91,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("launch_ab: needs a CUDA card")
     import tpu_spmv_torch
+    from tpu_spmv_torch import dist as tdist
     from tpu_spmv_torch import utils
     from tpu_spmv_torch.bench import probes as pr
     from tpu_spmv_torch.formats import COO, DIA
     from tpu_spmv_torch.kernels import dia_stream as ds
+    from tpu_spmv_torch.kernels import dist_stream as dstream
     from tpu_spmv_torch.kernels import ell_packed as ell
     from tpu_spmv_torch.kernels import gpr
     from tpu_spmv_torch.ops.auto import plan_spmv
@@ -118,15 +127,20 @@ def main(argv=None) -> int:
          "take_along_dim": lambda: torch.take_along_dim(src, gl, dim=1)},
         100))
 
-    # gpr_spmv beside cuSPARSE on phase 4b's operands: 100k rows (launch
-    # bound), the power law, 2M rows (past the L2)
+    # the general kernels on phase 4b's operands: 100k rows (launch
+    # bound), the power law (X about the L2's size), 2M rows (past the L2)
+    # and the shuffled Poisson; yardsticks: cuSPARSE, and embedding_bag,
+    # which computes the same per-row sum of data[j] * X[indices[j]]
+    lap = utils.laplacian_2d(2048)
+    perm = np.random.default_rng(3).permutation(lap.shape[0])
     for label, m, iters in (
             ("100k", utils.random_sparse(100_000, 100_000, 7e-5, seed=0),
              200),
             ("power law", utils.power_law(400_000, 400_000, 13, alpha=1.5,
                                           seed=6), 50),
             ("2M", utils.random_sparse(2_000_000, 2_000_000, 8e-6, seed=2),
-             50)):
+             50),
+            ("shuffled 2048^2", lap[perm][:, perm].tocsr(), 50)):
         G = gpr.pack_gpr(m, dtype=torch.float32, device=dev)
         xg = torch.tensor(rng.random(m.shape[1]), dtype=torch.float32,
                           device=dev)
@@ -137,20 +151,37 @@ def main(argv=None) -> int:
                 torch.from_numpy(csr.indptr).int(),
                 torch.from_numpy(csr.indices).int(),
                 torch.from_numpy(csr.data).float(), size=csr.shape).to(dev)
+        # int64 bags, cast outside the timed calls
+        idx64 = torch.from_numpy(csr.indices).long().to(dev)
+        off64 = torch.from_numpy(csr.indptr[:-1]).long().to(dev)
+        w = torch.from_numpy(csr.data).float().to(dev)
+
+        def bag(X):
+            return F.embedding_bag(idx64, X, off64, mode="sum",
+                                   per_sample_weights=w)
+
+        xcol = xg[:, None]
         out.update(interleaved_ms(
             {f"gpr_spmv {label}": lambda: gpr.spmv_gpr_rows(G, xg),
-             f"cuSPARSE {label}": lambda: torch.mv(A, xg)}, iters))
+             f"cuSPARSE {label}": lambda: torch.mv(A, xg),
+             f"embedding_bag {label}": lambda: bag(xcol)}, iters))
         if label == "2M":
-            # the other general kernels on the same operand: sliced ELL
-            # and the GPR SpMM at 32 RHS
             E = ell.pack_ell(m, dtype=torch.float32, device=dev)
-            X = torch.rand(m.shape[1], 32, device=dev)
-            out.update(interleaved_ms(
-                {"ell_spmv 2M": lambda: ell.spmv_ell_main(E, xg),
-                 "gpr_spmm 2M 32 RHS": lambda: gpr.spmm_gpr_rows(G, X)},
-                iters))
-            del E, X
-        del G, A, m, csr
+            out[f"ell_spmv {label}"] = interleaved_ms(
+                {"ell": lambda: ell.spmv_ell_main(E, xg)}, iters)["ell"]
+            del E
+        for nrhs in (1, 3, 32, 40):
+            X = torch.rand(m.shape[1], nrhs, device=dev)
+            fns = {f"gpr_spmm {label} {nrhs} RHS":
+                   lambda: gpr.spmm_gpr_rows(G, X),
+                   f"embedding_bag {label} {nrhs} RHS": lambda: bag(X)}
+            if nrhs == 32:
+                fns[f"cuSPARSE spmm {label} {nrhs} RHS"] = \
+                    lambda: torch.sparse.mm(A, X)
+            out.update(interleaved_ms(fns, max(2, iters // 5)))
+            del X
+        del G, A, m, csr, idx64, off64, w
+    del lap, perm
 
     mat = utils.laplacian_2d(4096)
     n = mat.shape[0]
@@ -166,7 +197,41 @@ def main(argv=None) -> int:
     S = ds.pack_sdia(hdia, device=dev)
     xs = ds.pad_x(S, x)
     out["K1 4096^2"] = event_ms(lambda: ds.spmv_sdia_padded(S, xs), 50, 5)
-    del S, xs, x, xp
+    del S, xs
+    # K8b on the plan's pack: one shard's launch in turns with K2 on the
+    # same pack, and the sharded chain at 1 and 4 shards on one card
+    for nd in (1, 4):
+        mesh = tdist.make_mesh(nd, device="cuda:0")
+        A = tdist.place(tdist.ShardedPSDIA.build(P, nd), mesh)
+        xsh = tdist.place(A.shard_xpad(xp), mesh)
+        fns = {f"psdia_ring sharded {nd}":
+               lambda: tdist.spmv_psdia_sharded(mesh, A, xsh)}
+        if nd == 1:
+            x0 = xsh.chunks[0]
+            left, right = x0[-A.halo:], x0[:A.halo]
+            # the pack's own walk where the checkout has one
+            plan_kw = ({"plan": A.ring_plan} if hasattr(A, "ring_plan")
+                       else {})
+            fns["psdia_ring 1 shard"] = lambda: dstream.spmv_psdia_ring(
+                A.pattern[0], A.offsets, x0, left, right, base=0, L=A.L,
+                nrow=A.shape[0], **plan_kw)
+            fns["K2 (psdia_ring's pack)"] = lambda: ds.spmv_psdia_padded(P,
+                                                                         xp)
+        out.update(interleaved_ms(fns, 50, rounds=5))
+        del A, xsh, fns
+    # the same at one shard in float64 (the pack's values widened)
+    P64 = dataclasses.replace(P, pattern=P.pattern.double())
+    xp64 = xp.double()
+    mesh = tdist.make_mesh(1, device="cuda:0")
+    A = tdist.place(tdist.ShardedPSDIA.build(P64, 1), mesh)
+    x0 = A.shard_xpad(xp64).chunks[0]
+    plan_kw = {"plan": A.ring_plan} if hasattr(A, "ring_plan") else {}
+    out.update(interleaved_ms({
+        "psdia_ring 1 shard f64": lambda: dstream.spmv_psdia_ring(
+            A.pattern[0], A.offsets, x0, x0[-A.halo:], x0[:A.halo], base=0,
+            L=A.L, nrow=A.shape[0], **plan_kw),
+        "K2 f64": lambda: ds.spmv_psdia_padded(P64, xp64)}, 50, rounds=5))
+    del P64, xp64, A, x0, x, xp
     # K3b at 8 RHS on the plan's own pack (cg_multi_runner's shape) and at
     # 32 on the pack for 32 RHS (phase 4c), beside as many K2 launches on
     # the same pack, timed in turns

@@ -63,19 +63,37 @@
 // reference's convention), so the nrhs values of one x row are one
 // contiguous line (128 B for 32 f32 values).  The bytes they must move are
 // the matrix once plus nrhs x and y values per row; the matrix read that
-// bounds the SpMVs is shared by the RHS.  The design: a group of G lanes
-// per row (G the smallest power of two that holds nrhs, at most 32), one
-// lane per RHS, looping over chunks of G RHS when nrhs > 32.  Every lane of
-// a group walks the row's entries in order, so the value and column loads
-// are the same address for the group (one broadcast) and the x loads of a
-// group are one contiguous line; each lane sums its RHS in entry order with
-// no shuffle, and one lane writes each output value.  The row order is
-// gpr_spmv's (class-sorted, written in place at the internal row id) and
-// ell_spmv's (slots j = 0 .. width-1), so results are bitwise reproducible
-// from run to run.
+// bounds the SpMVs is shared by the RHS.  What bounds gpr_spmm in
+// practice is the X lines: one per entry (the matrix is read once), from
+// L2, and from device memory where X outgrows the 50 MB L2 (the 2M-row
+// operand's X at 32 RHS is 256 MB).  A warp a row with one lane per RHS
+// makes 32 four-byte loads for each line and keeps one row's lines in
+// flight a warp.
+//
+// gpr_spmm's design: G lanes a row, each lane V consecutive RHS (V = 4
+// f32 or 2 values, 16 bytes, where nrhs allows it and keeps 4 lanes a row;
+// else 2, else 1), G the smallest power of two of lanes that holds nrhs /
+// V, at most 32, chunks of G * V RHS beyond that.  At 32 f32 RHS that is
+// 8 lanes of 4 RHS a row and 4 rows a warp: each lane loads 16 bytes of an
+// X row, the 8 lanes one 128-byte line, and a warp has four rows' lines in
+// flight.  Each lane loads the columns and values of a batch of entries
+// (spmm_batch; the group's lanes read the same address, one broadcast),
+// then their X values (V at a time), then runs the FMAs in entry order;
+// one RHS a lane on 2 or 4 lanes a row runs gpr_spmm_lanes, a plain loop
+// over the row unrolled by 4.  A warp of one lane per RHS that shares each
+// entry by __shfl_sync, a warp per group of short rows, the streaming
+// hints on the matrix and Y, and deeper batches were all slower on the
+// card.  Every output has one writer and sums its entries in order from
+// zero with fma (nvcc contracts gpr_spmm_lanes' acc += v * x to the same
+// fma), so results are bitwise reproducible and equal on every path.
+// ell_spmm: a group of G lanes per row, one lane per RHS, looping over
+// chunks of G RHS when nrhs > 32; every lane of a group walks the row's
+// slots in order (j = 0 .. width-1), so results are bitwise reproducible.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -206,12 +224,29 @@ __global__ void ell_spmv(const T* __restrict__ vals,
   }
 }
 
+// V consecutive values of one type, loaded and stored as one
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+// gpr_spmm: entries whose X values a lane loads before their FMAs, 16
+// values a lane where it has V > 1 RHS (4 entries of 4, 8 of 2); with one
+// RHS a lane, 16 entries where the lane has its row to itself (G = 1) and
+// 8 where 8 or more lanes share a row
+__host__ __device__ constexpr int spmm_batch(int G, int V) {
+  return V > 1 ? 16 / V : (G == 1 ? 16 : 8);
+}
+
+// one RHS a lane on 2 or 4 lanes a row: a plain loop unrolled by 4 (the
+// batches, and the launch bounds, were slower here)
 template <typename T, int G>
-__global__ void gpr_spmm(const int* __restrict__ rows,
-                         const int64_t* __restrict__ indptr,
-                         const int* __restrict__ indices,
-                         const T* __restrict__ data, const T* __restrict__ x,
-                         T* __restrict__ y, int64_t nrows, int nrhs) {
+__global__ void gpr_spmm_lanes(const int* __restrict__ rows,
+                               const int64_t* __restrict__ indptr,
+                               const int* __restrict__ indices,
+                               const T* __restrict__ data,
+                               const T* __restrict__ x, T* __restrict__ y,
+                               int64_t nrows, int nrhs) {
   constexpr int kRowsPerBlock = kThreads / G;
   const int64_t r =
       static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / G;
@@ -224,6 +259,55 @@ __global__ void gpr_spmm(const int* __restrict__ rows,
     for (int64_t j = begin; j < end; ++j)
       acc += data[j] * x[static_cast<int64_t>(indices[j]) * nrhs + q];
     yrow[q] = acc;
+  }
+}
+
+template <typename T, int G, int V>
+__global__ void __launch_bounds__(kThreads)
+    gpr_spmm(const int* __restrict__ rows, const int64_t* __restrict__ indptr,
+             const int* __restrict__ indices, const T* __restrict__ data,
+             const T* __restrict__ x, T* __restrict__ y, int64_t nrows,
+             int nrhs) {
+  using P = Pack<T, V>;
+  constexpr int kBatch = spmm_batch(G, V);
+  constexpr int kRowsPerBlock = kThreads / G;
+  const int64_t r =
+      static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / G;
+  if (r >= nrows) return;
+  const int64_t begin = indptr[r], end = indptr[r + 1];
+  P* const yrow =
+      reinterpret_cast<P*>(y + static_cast<int64_t>(rows[r]) * nrhs);
+  const P* const xp = reinterpret_cast<const P*>(x);
+  const int64_t xstride = nrhs / V;
+  for (int q = threadIdx.x % G; q < xstride; q += G) {
+    T acc[V];
+#pragma unroll
+    for (int t = 0; t < V; ++t) acc[t] = T(0);
+    for (int64_t j0 = begin; j0 < end; j0 += kBatch) {
+      int col[kBatch];
+      T v[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int64_t j = j0 + i;
+        col[i] = j < end ? indices[j] : 0;
+        v[i] = j < end ? data[j] : T(0);
+      }
+      P xv[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+        if (j0 + i < end)
+          xv[i] = xp[static_cast<int64_t>(col[i]) * xstride + q];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+        if (j0 + i < end) {
+#pragma unroll
+          for (int t = 0; t < V; ++t) acc[t] = fma(v[i], xv[i].v[t], acc[t]);
+        }
+    }
+    P out;
+#pragma unroll
+    for (int t = 0; t < V; ++t) out.v[t] = acc[t];
+    yrow[q] = out;
   }
 }
 
@@ -308,20 +392,73 @@ int row_blocks(int64_t nrows, unsigned* blocks) {
   return 0;
 }
 
-template <typename T, int G>
-struct GprSpmm {
-  static int run(int64_t nrows, int nrhs, const void* rows,
-                 const void* indptr, const void* indices, const void* data,
-                 const void* x, void* y, void* stream) {
-    unsigned blocks;
-    if (int err = row_blocks<G>(nrows, &blocks)) return err;
-    gpr_spmm<T, G><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+template <typename T, int G, int V>
+int launch_gpr_spmm_g(int64_t nrows, int nrhs, const void* rows,
+                      const void* indptr, const void* indices,
+                      const void* data, const void* x, void* y,
+                      cudaStream_t stream) {
+  unsigned blocks;
+  if (int err = row_blocks<G>(nrows, &blocks)) return err;
+  const auto launch = [&](auto kernel) {
+    kernel<<<blocks, kThreads, 0, stream>>>(
         static_cast<const int*>(rows), static_cast<const int64_t*>(indptr),
         static_cast<const int*>(indices), static_cast<const T*>(data),
         static_cast<const T*>(x), static_cast<T*>(y), nrows, nrhs);
     return static_cast<int>(cudaGetLastError());
+  };
+  if constexpr (V == 1 && (G == 2 || G == 4))
+    return launch(gpr_spmm_lanes<T, G>);
+  else
+    return launch(gpr_spmm<T, G, V>);
+}
+
+// gpr_spmm with V RHS a lane: G the smallest power of two of lanes that
+// holds nrhs / V, at most 32
+template <typename T, int V>
+int launch_gpr_spmm_v(int64_t nrows, int nrhs, const void* rows,
+                      const void* indptr, const void* indices,
+                      const void* data, const void* x, void* y,
+                      cudaStream_t stream) {
+  const int lanes = nrhs / V;
+  const auto run = [&](auto g) {
+    return launch_gpr_spmm_g<T, decltype(g)::value, V>(
+        nrows, nrhs, rows, indptr, indices, data, x, y, stream);
+  };
+  if (lanes <= 1) return run(std::integral_constant<int, 1>());
+  if (lanes <= 2) return run(std::integral_constant<int, 2>());
+  if (lanes <= 4) return run(std::integral_constant<int, 4>());
+  if (lanes <= 8) return run(std::integral_constant<int, 8>());
+  if (lanes <= 16) return run(std::integral_constant<int, 16>());
+  return run(std::integral_constant<int, 32>());
+}
+
+// the widest V (16 bytes, else 8, else one value) that divides nrhs,
+// leaves at least 4 lanes a row (nrhs / V >= 4: fewer lanes would put
+// more rows, of unequal lengths, on one warp) and whose alignment X and Y
+// have
+template <typename T>
+int launch_gpr_spmm(int64_t nrows, int nrhs, const void* rows,
+                    const void* indptr, const void* indices, const void* data,
+                    const void* x, void* y, void* stream) {
+  if (nrows <= 0 || nrhs <= 0) return 0;
+  const auto st = static_cast<cudaStream_t>(stream);
+  auto fits = [&](int v) {
+    const uintptr_t bytes = v * sizeof(T);
+    return nrhs % v == 0 && nrhs / v >= 4 &&
+           reinterpret_cast<uintptr_t>(x) % bytes == 0 &&
+           reinterpret_cast<uintptr_t>(y) % bytes == 0;
+  };
+  if constexpr (sizeof(T) == 4) {
+    if (fits(4))
+      return launch_gpr_spmm_v<T, 4>(nrows, nrhs, rows, indptr, indices, data,
+                                     x, y, st);
   }
-};
+  if (fits(2))
+    return launch_gpr_spmm_v<T, 2>(nrows, nrhs, rows, indptr, indices, data,
+                                   x, y, st);
+  return launch_gpr_spmm_v<T, 1>(nrows, nrhs, rows, indptr, indices, data, x,
+                                 y, st);
+}
 
 template <typename T, int G>
 struct EllSpmm {
@@ -373,15 +510,15 @@ int tsp_ell_spmv_f64(const void* vals, const void* cols, const void* slice_ptr,
 int tsp_gpr_spmm_f32(const void* rows, const void* indptr,
                      const void* indices, const void* data, const void* x,
                      void* y, int64_t nrows, int nrhs, void* stream) {
-  return by_group<float, GprSpmm>(nrows, nrhs, rows, indptr, indices, data, x,
-                                  y, stream);
+  return launch_gpr_spmm<float>(nrows, nrhs, rows, indptr, indices, data, x, y,
+                                stream);
 }
 
 int tsp_gpr_spmm_f64(const void* rows, const void* indptr,
                      const void* indices, const void* data, const void* x,
                      void* y, int64_t nrows, int nrhs, void* stream) {
-  return by_group<double, GprSpmm>(nrows, nrhs, rows, indptr, indices, data,
-                                   x, y, stream);
+  return launch_gpr_spmm<double>(nrows, nrhs, rows, indptr, indices, data, x,
+                                 y, stream);
 }
 
 int tsp_ell_spmm_f32(const void* vals, const void* cols, const void* slice_ptr,

@@ -34,6 +34,7 @@ matrix is empty.  The reference's VMEM size rule, its GPR envelope and
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -42,7 +43,8 @@ import torch.nn.functional as F
 from ..formats import BDIA, DIA, to_coo
 from ..formats.base import torch_dtype
 from ..kernels import dia_stream, gpr
-from ..kernels.dist_stream import halo_size, spmv_psdia_ring, spmv_sdia_ring
+from ..kernels.dist_stream import (RingWalkPlan, halo_size, psdia_ring_plan,
+                                   spmv_psdia_ring, spmv_sdia_ring)
 from ..ops.auto import _host_coo, _stats
 from ..ops.spmv import bdia_blocks
 from . import blas
@@ -358,6 +360,14 @@ class ShardedPSDIA:
     def pad_plan(self) -> RowPlan:
         return _pad_plan(self.ndev, self.rows_per_shard)
 
+    @functools.cached_property
+    def ring_plan(self) -> RingWalkPlan:
+        """K8b's walk over a shard (:func:`psdia_ring_plan` for the pack's
+        offsets, period and value type), planned once and kept with the
+        pack."""
+        return psdia_ring_plan(self.offsets, self.period,
+                               self.pattern[0].element_size())
+
     @staticmethod
     def build(psdia, ndev: int) -> "ShardedPSDIA":
         rb = psdia.rb
@@ -387,8 +397,8 @@ def spmv_psdia_sharded(mesh: Mesh, A: ShardedPSDIA,
     ys = []
     for s, (left, right) in enumerate(_ring(mesh, x, A.halo)):
         ys.append(spmv_psdia_ring(A.pattern[s], A.offsets, x.chunks[s], left,
-                                  right, base=s * Cp, L=A.L,
-                                  nrow=A.shape[0]))
+                                  right, base=s * Cp, L=A.L, nrow=A.shape[0],
+                                  plan=A.ring_plan))
     return ShardedVector(chunks=tuple(ys), starts=A.pad_plan.starts,
                          length=A.npad)
 

@@ -4,8 +4,8 @@ The sources have a plain C interface and are compiled with ``nvcc`` into
 one shared library, loaded with :mod:`ctypes` — no PyTorch headers, so a
 build takes seconds.  The build runs at first use, into
 ``build/tpu_spmv_torch/`` beside the package, keyed by a hash of the
-sources and flags: a changed source rebuilds, an unchanged one loads the
-library already built.  A failed build raises; nothing falls back.
+sources, their headers and the flags: a changed source rebuilds, an
+unchanged one loads the library already built.  A failed build raises; nothing falls back.
 
 Every kernel wrapper launches through :func:`launcher`: one callable per C
 function, bound to its ctypes function when the library loads, that reads
@@ -67,8 +67,10 @@ _SIGNATURES = {
     "tsp_ell_spmm_f64": [_P] * 5 + [_I64, _I, _P],
     "tsp_sdia_ring_f32": [_P, _P, _I, _P, _P, _P, _P, _I64, _I64, _P],
     "tsp_sdia_ring_f64": [_P, _P, _I, _P, _P, _P, _P, _I64, _I64, _P],
-    "tsp_psdia_ring_f32": [_P, _P, _I, _I64] + [_P] * 4 + [_I64] * 5 + [_P],
-    "tsp_psdia_ring_f64": [_P, _P, _I, _I64] + [_P] * 4 + [_I64] * 5 + [_P],
+    "tsp_psdia_ring_f32": [_P, _P, _I, _P] + [_I] * 5 + [_I64] + [_P] * 4
+                          + [_I64] * 5 + [_P],
+    "tsp_psdia_ring_f64": [_P, _P, _I, _P] + [_I] * 5 + [_I64] + [_P] * 4
+                          + [_I64] * 5 + [_P],
     "tsp_permute_gather": [_P, _P, _I, _P, _I64, _I, _P],
     "tsp_permute_gather_batched": [_P, _P, _I, _P, _I64, _I, _I, _P],
     "tsp_copy_scale": [_P, _P, _I64, _P],
@@ -89,9 +91,10 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources (and the headers they
+    include) and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in [*_sources(), *sorted((_PKG / "csrc").glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return build_dir() / f"libtpu_spmv_torch_{h.hexdigest()[:16]}.so"

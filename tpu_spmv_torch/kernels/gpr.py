@@ -27,9 +27,10 @@ pack, and drops the TPU layout:
   segment per owning row, so each owner has one writer), outside the
   kernel, as the reference folds with ``jax.ops.segment_sum``;
 - the SpMM (``gpr_spmm``, the reference's K6 and RHS-batched K5b) runs over
-  the same class-sorted CSR with one lane per right-hand side of
-  ``X [ncol, nrhs]`` and writes ``[nrow + nv, nrhs]`` rows in place; the
-  same fold then runs along axis 0.
+  the same class-sorted CSR with a few lanes a row, each lane up to four
+  consecutive right-hand sides of ``X [ncol, nrhs]`` (one 16-byte load a
+  lane per entry, a 128-byte line at 32 float32 RHS), and writes ``[nrow +
+  nv, nrhs]`` rows in place; the same fold then runs along axis 0.
 
 The Clos planes, the ``[8, 128]`` tile layouts, the ``side_gpr`` recursion,
 the side COO, row chunking and the ``ncol`` envelope are TPU answers and
