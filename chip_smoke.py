@@ -12,12 +12,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``general.cu``, ``dist_stream.cu``, ``permute.cu`` and ``probes.cu``
    for ``sm_90a`` (one process each, started together) into one library
    under ``build/tpu_spmv_torch/``; then ``nvcc -Xptxas -v`` of
-   ``general.cu``, ``dia_stream.cu`` and ``dist_stream.cu`` prints the
+   ``general.cu``, ``dia_stream.cu`` and ``probes.cu`` prints the
    registers, spills and static shared memory of every instantiation of
    ``gpr_spmv`` and ``gpr_spmm`` (``gpr_spmm_lanes`` on 2 or 4 lanes of one
-   RHS), and K3b's and K8b's two walks
-   (``psdia_spmm_stride``, ``psdia_spmm_clusters``, ``psdia_ring_stride``,
-   ``psdia_ring_clusters``);
+   RHS), K3b's two walks (``psdia_spmm_stride``, ``psdia_spmm_clusters``),
+   the walks of K2 and K8b (``csrc/psdia_walk.cuh``: ``psdia_walk_bulk``,
+   ``psdia_walk_stride``, ``psdia_walk_clusters``) and ``tile_permute``;
 3. kernels against their plain PyTorch versions on small operands, f32 and
    f64, each against the plain version (rel 1e-6 f32, 1e-13 f64), against
    scipy float64 (2e-5 f32, 1e-10 f64) and for bitwise reproducibility:
@@ -126,15 +126,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    its SpMV kernel; K3b's two walks (the plan's pick and the cluster walk)
    timed in turns on the 32-RHS pack and, with 8 right-hand sides, on the
    plan's own pack (``cg_multi_runner``'s shape) beside 8 launches of K2,
-   each with its shared-memory plan; K8b's walks (the sharded pack's
-   plan, the stride walk with the coefficients per tile, the cluster
-   walk) on the one shard in turns with K2, each bitwise K2;
+   each with its shared-memory plan; K2 on its walk (the plan's stride
+   walk by bulk copy), and the walks of K8b on the one shard and of K2 on
+   the pack in turns (the plan's, the stride walk with the coefficients
+   per tile, the cluster walk), each bitwise K2;
    ``gpr_spmv`` and ``gpr_spmm`` on every general operand in turns with
    ``embedding_bag`` (and ``gpr_spmm`` with cuSPARSE), with
    ``gpr_spmm``'s rate of X lines; the GPR packs' rows per width class;
    the probe kernels beside their plain versions, bounds
    and one library call (``torch.mul``, ``copy_`` and ``clone()``,
-   ``sum``, ``take_along_dim``; timed in turns with the kernel); the block
+   ``sum``, ``take_along_dim``; timed in turns with the kernel), every
+   ``tile_permute`` variant with its own bound
+   (``bench/roofline.py:tile_permute_bytes``), its replayed time and its
+   launches on the probe path; the block
    products ``spmv_bdia``, ``spmv_bsr`` and ``spmm_bdia`` (32 RHS) at 512
    beside their bounds and cuSPARSE BSR (``torch.sparse_bsr_tensor``, or
    the CSR product where torch refuses BSR on CUDA); last, one line of
@@ -259,10 +263,11 @@ def ptxas_usage(sources: dict) -> list[str]:
                     # the template arguments follow the name in the mangling
                     # (I ... E; a type letter, or Li<n>E for an int)
                     seg = entry.split(f"{name}I", 1)[1]
-                    toks = re.findall(r"Li(-?\d+)E|([fd])",
+                    toks = re.findall(r"Li(-?\d+)E|Lb([01])E|([fd])",
                                       seg[:seg.index("EEv")])
-                    args = ", ".join({"f": "float", "d": "double"}.get(t, n)
-                                     for n, t in toks)
+                    args = ", ".join(
+                        {"f": "float", "d": "double"}.get(t, n) if not b
+                        else ("false", "true")[int(b)] for n, b, t in toks)
                     lines.append(f"{name}<{args}>: "
                                  f"{' '.join(line.split(':', 1)[-1].split())}")
     return lines
@@ -513,7 +518,8 @@ def main() -> int:
                                               verify_against_oracle)
     from tpu_spmv_torch.bench.launch_ab import interleaved_ms
     from tpu_spmv_torch.bench.roofline import (measured_copy_gbps,
-                                               spmm_bytes, spmv_bytes)
+                                               spmm_bytes, spmv_bytes,
+                                               tile_permute_bytes)
     from tpu_spmv_torch.formats import COO, DIA, convert
     from tpu_spmv_torch.kernels import _build
     from tpu_spmv_torch.kernels import dia_stream as ds
@@ -559,20 +565,23 @@ def main() -> int:
     # lane> and, on 2 or 4 lanes of one RHS, gpr_spmm_lanes<value type,
     # lanes a row>;
     # K3b's two walks psdia_spmm_stride and psdia_spmm_clusters<value type,
-    # threads along the RHS, elements per window copy>; K8b's two walks
-    # psdia_ring_stride and psdia_ring_clusters<value type, elements per
-    # copy>; the walks' dynamic shared memory is the host plan's, which
+    # threads along the RHS, elements per window copy>; the walks of K2
+    # and K8b, psdia_walk_bulk<value type> and psdia_walk_stride and
+    # psdia_walk_clusters<value type, elements per copy>; tile_permute<sums
+    # of eight>; the walks' dynamic shared memory is the host plan's, which
     # phase 5 prints)
     t0 = time.perf_counter()
     for line in ptxas_usage({"general.cu": ("gpr_spmv", "gpr_spmm",
                                             "gpr_spmm_lanes"),
                              "dia_stream.cu": ("psdia_spmm_stride",
-                                               "psdia_spmm_clusters"),
-                             "dist_stream.cu": ("psdia_ring_stride",
-                                                "psdia_ring_clusters")}):
+                                               "psdia_spmm_clusters",
+                                               "psdia_walk_bulk",
+                                               "psdia_walk_stride",
+                                               "psdia_walk_clusters"),
+                             "probes.cu": ("tile_permute",)}):
         print(f"ptxas {line}")
     print(f"(nvcc -Xptxas -v of general.cu, dia_stream.cu and "
-          f"dist_stream.cu: {time.perf_counter() - t0:.2f} s)")
+          f"probes.cu: {time.perf_counter() - t0:.2f} s)")
 
     # -- 3. kernels against plain versions, small operands ------------------
     print("== 3. kernels vs plain versions (small operands)")
@@ -1748,16 +1757,24 @@ def main() -> int:
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "copy_bound_ms": copy_ms, "library_ms": lib_ms}
 
-    for kname, A, kern, plain, src_line, key in (
+    # K2 runs the walk of csrc/psdia_walk.cuh that its host plan picks
+    k2_plan = ds.psdia_walk_plan(P.offsets, P.period, 4)
+    k2_label = (f"{mat.shape[0]} rows, psdia_walk_stride S="
+                f"{k2_plan.stride * ds.WALK_TILE}"
+                f"{', coefficients once a segment' if k2_plan.reuse else ''}"
+                f", bulk copies, {k2_plan.ahead} windows in flight"
+                if k2_plan.stride else
+                f"{mat.shape[0]} rows, psdia_walk_clusters")
+    for kname, A, kern, plain, src_line, key, src, label in (
             ("psdia_spmv", P, ds.spmv_psdia_padded, ds.spmv_psdia_padded_ref,
-             "tpu_spmv/kernels/dia_stream.py:733", "psdia"),
+             "tpu_spmv/kernels/dia_stream.py:733", "psdia",
+             "tpu_spmv_torch/csrc/psdia_walk.cuh", k2_label),
             ("sdia_spmv", S, ds.spmv_sdia_padded, ds.spmv_sdia_padded_ref,
-             "tpu_spmv/kernels/dia_stream.py:221", "sdia")):
-        nums = timed(kname, A, kern, plain, ds.pad_x(A, x), mat,
-                     f"{mat.shape[0]} rows")
+             "tpu_spmv/kernels/dia_stream.py:221", "sdia",
+             "tpu_spmv_torch/csrc/dia_stream.cu", f"{mat.shape[0]} rows")):
+        nums = timed(kname, A, kern, plain, ds.pad_x(A, x), mat, label)
         spmv_ms[kname, "4096^2"] = nums["ms"]
-        records.append({"name": kname, "route": "cuda",
-                        "source": "tpu_spmv_torch/csrc/dia_stream.cu",
+        records.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": src_line, "launches": launches[key],
                         **nums})
     plan_ms = time_fn(plan, x, iters=50).median_s * 1e3
@@ -1789,31 +1806,37 @@ def main() -> int:
                      f"{mat.shape[0]} rows, one shard (Cp={A.rows_per_shard},"
                      f" h={A.halo})")
         dist_records.append({"name": kname, "route": "cuda",
-                             "source": "tpu_spmv_torch/csrc/dist_stream.cu",
+                             "source": ("tpu_spmv_torch/csrc/psdia_walk.cuh"
+                                        if key == "psdia_ring" else
+                                        "tpu_spmv_torch/csrc/dist_stream.cu"),
                              "replaces": src_line, "launches": dlaunches[key],
                              **nums})
         if key == "psdia_ring":
-            # K8b's walks on the same shard, timed in turns with K2 (the
-            # untouched control) on the same pack: the plan's pick, the
-            # stride walk with the coefficients staged per tile, the
-            # cluster walk; every one bitwise K2
+            # the walks of K8b on the one shard and of K2 on the pack, in
+            # turns: the plan's pick (bulk copies), the stride walk with
+            # the coefficients staged per tile, the cluster walk; every one
+            # bitwise K2's plan
             walks = {"plan": A.ring_plan,
-                     "per tile": dst.psdia_ring_plan(A.offsets, A.rb, 4),
-                     "clusters": dst.ring_cluster_walk(A.offsets, 4)}
+                     "per tile": ds.psdia_walk_plan(A.offsets, A.rb, 4),
+                     "clusters": ds.psdia_cluster_walk(A.offsets, 4)}
             xp_ = ds.pad_x(P, x)
             k2 = ds.spmv_psdia_padded(P, xp_)
             for wname, wplan in walks.items():
-                same = torch.equal(dst.spmv_psdia_ring(
+                same = (torch.equal(dst.spmv_psdia_ring(
                     A.pattern[0], A.offsets, xk, left, right, **kw,
                     plan=wplan)[:P.npad], k2)
-                require(same, f"K8b's {wname} walk at 4096^2 not bitwise K2")
+                    and torch.equal(ds._spmv_psdia_launch(P, xp_, wplan), k2))
+                require(same, f"K8b's or K2's {wname} walk at 4096^2 not "
+                        f"bitwise K2")
             t = interleaved_ms({
-                **{w: (lambda wp: lambda: dst.spmv_psdia_ring(
+                **{f"K8b {w}": (lambda wp: lambda: dst.spmv_psdia_ring(
                     A.pattern[0], A.offsets, xk, left, right, **kw,
                     plan=wp))(wp) for w, wp in walks.items()},
-                "K2": lambda: ds.spmv_psdia_padded(P, xp_)}, 50, rounds=5)
+                **{f"K2 {w}": (lambda wp: lambda: ds._spmv_psdia_launch(
+                    P, xp_, wp))(wp) for w, wp in walks.items()}},
+                50, rounds=5)
             bk = nums["bound_ms"]
-            print(f"    K8b's walks in turns with K2 ({card}): "
+            print(f"    K8b's and K2's walks in turns ({card}): "
                   + " | ".join(f"{w} {v:.4f} ms ({100 * bk / v:.1f}% of the "
                                f"bound)" for w, v in t.items())
                   + " | every walk bitwise K2 True")
@@ -2100,6 +2123,10 @@ def main() -> int:
         v2.numel() * 4 + v2.numel() // 8 * 4, v2.numel() // 8 * 7,
         "[16, 512, 128] f32", "tools/profile_reduce.py:35", iters=300))
     del v2
+    # every tile_permute variant beside its own bound (the loaded rows,
+    # the output, the index tiles, rowsrc, lidx and mul once each:
+    # bench/roofline.py:tile_permute_bytes) and its launches on the probe
+    # path; the record's row is S's
     t3, t4 = pr.t3_operands(), pr.t4_operands()
     for vname, (prog, src, mul, psum8) in pr.tile_variants(t3, t4,
                                                            dev).items():
@@ -2107,23 +2134,24 @@ def main() -> int:
                      else prog.ntiles * pr.Q * pr.Q)
         if psum8:
             out_elems //= 8
-        nbytes = (src.numel() * 4 + prog.idx.numel() * prog.idx.element_size()
-                  + out_elems * 4)
-        for extra in (prog.rowsrc, prog.lidx, mul):
-            if extra is not None:
-                nbytes += extra.numel() * extra.element_size()
         libs = None
         if vname == "S":
             gl = prog.idx[0].long()
             libs = {"take_along_dim":
                     lambda: torch.take_along_dim(src, gl, dim=1)}
+        key = f"tile_permute:{vname}"
         rec = probe_record(
-            "tile_permute", f"tile_permute:{vname}",
+            "tile_permute", key,
             pr.tile_permute, pr.tile_permute_ref, (prog, src, mul, psum8),
-            libs, nbytes, out_elems * 8 if psum8 else 0,
+            libs, tile_permute_bytes(prog, src, mul, psum8),
+            out_elems * 8 if psum8 else 0,
             f"{vname} {tuple(src.shape)}",
             "tools/prof_tgtg_mxu.py:63" if vname == "TGTG"
             else "tools/profile_sublane.py:47", iters=100)
+        mode = ("whole tile", "row slabs", "column slabs")[prog.mode]
+        print(f"    {vname}: {probe_ms[key + ':launches']} launches on the "
+              f"probe path | mode {mode}, staged index slots "
+              f"{prog.staged:#b}")
         if vname == "S":
             probe_records.append(rec)
 

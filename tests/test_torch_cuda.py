@@ -470,6 +470,200 @@ def test_psdia_ring_refuses_a_walk_that_does_not_fit_on_card(card, dtype):
     assert torch.equal(y[:pack.npad], tds.spmv_psdia_padded(pack, xpad))
 
 
+def _k2_packs(name, dtype, card):
+    """K2's operands on the card: the pack of ``name``, its transpose,
+    the screened pack ``A + I`` and the pack with its period taken as rb
+    (the stride walk with the coefficient rows per tile)."""
+    import scipy.sparse as sp
+
+    from tpu_spmv_torch.ops.shift import shift_diagonal
+
+    m = {"laplacian_2d(2048, 40)": utils.laplacian_2d(2048, 40),
+         "laplacian_2d(48)": utils.laplacian_2d(48),
+         "laplacian_3d(16)": utils.laplacian_3d(16),
+         "band of 81 diagonals": _toeplitz_band(3000, 40)}[name]
+    dia = convert(COO.from_scipy(m, dtype=dtype), "dia")
+    pack = tds.pack_psdia(dia, period=tds.detect_period(dia), device=card)
+    return m, {"pack": (pack, m), "transposed": (tds.transpose_psdia(pack),
+                                                 m.T.tocsr()),
+               "screened": (shift_diagonal(pack, 1.0),
+                            m + sp.identity(m.shape[0])),
+               "period rb": (dataclasses.replace(pack, period=pack.rb), m)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", _RING_OPERANDS)
+def test_psdia_walks_match_k8b_k3b_and_plain_on_card(card, dtype, name):
+    """K2 on its walk (the plan's: by bulk copy where xpad is 16-byte
+    aligned, else by cp.async, the kernel's V = 1 branch), the stride walk
+    with the coefficients per tile and the cluster walk, on each pack, its
+    transpose, the screened pack and the pack whose period is taken as rb,
+    with xpad 16-byte aligned and not (a view one value into its buffer):
+    all bitwise equal, bitwise K8b at one shard and every column of K3b at
+    3 RHS on the same pack, within the limit of the plain version and
+    scipy's gate, pads zero, each launch counted."""
+    _, packs = _k2_packs(name, dtype, card)
+    isz = torch.tensor([], dtype=dtype).element_size()
+    gate = 2e-5 if dtype == torch.float32 else 1e-10
+    for label, (P, mat) in packs.items():
+        n = mat.shape[0]
+        x64 = np.random.default_rng(n).standard_normal(n)
+        walks = {"per tile": tds.psdia_walk_plan(P.offsets, P.rb, isz),
+                 "clusters": tds.psdia_cluster_walk(P.offsets, isz)}
+        for shift in (0, 1):
+            buf = torch.zeros(P.npad + 1, dtype=dtype, device=card)
+            xp = buf[shift:shift + P.npad]
+            xp[P.L:P.L + n] = torch.tensor(x64, dtype=dtype, device=card)
+            before = tds.LAUNCHES["psdia"]
+            y, y2 = tds.spmv_psdia_padded(P, xp), tds.spmv_psdia_padded(P, xp)
+            assert tds.LAUNCHES["psdia"] == before + 2
+            assert torch.equal(y, y2), (label, shift)
+            for wname, wplan in walks.items():
+                assert torch.equal(tds._spmv_psdia_launch(P, xp, wplan), y), \
+                    (label, wname, shift)
+            ref = tds.spmv_psdia_padded_ref(P, xp)
+            assert _rel(y, ref) <= TOL[dtype], (label, shift)
+            assert not y[:P.L].any() and not y[P.L + n:].any()
+            yv = y[P.L:P.L + n].cpu().double().numpy()
+            want = mat @ x64
+            assert np.max(np.abs(yv - want)) <= gate * np.max(np.abs(want))
+        # K8b at one shard of the same pack, and K3b's columns
+        A = dist.place(dist.ShardedPSDIA.build(P, 1),
+                       dist.make_mesh(1, device="cuda:0"))
+        xp = tds.pad_x(P, torch.tensor(x64, dtype=dtype, device=card))
+        y = tds.spmv_psdia_padded(P, xp)
+        x0 = A.shard_xpad(xp).chunks[0]
+        y8 = tdst.spmv_psdia_ring(A.pattern[0], A.offsets, x0, x0[-A.halo:],
+                                  x0[:A.halo], base=0, L=A.L, nrow=A.shape[0],
+                                  plan=A.ring_plan)
+        assert torch.equal(y8[:P.npad], y), label
+        Xt = torch.stack([xp, xp.flip(0), 2 * xp]).contiguous()
+        Y = tds.spmm_psdia_padded_t(P, Xt)
+        for q in range(3):
+            assert torch.equal(Y[q], tds.spmv_psdia_padded(P, Xt[q])), \
+                (label, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_one_thread_a_row_on_few_tiles_on_card(card, dtype):
+    """K2's walks take only the tiles that hold rows of [L, L + nrow), and
+    its wrapper runs one thread a row where there are no more such tiles
+    than four per SM of the card: on the 2-D Poisson below and above that
+    count,
+    and on each with its rows moved to the start of the row space (L = 0:
+    the first tile's windows clipped at column 0), aligned and one value
+    off, the wrapper's product is bitwise the plan's walk and the cluster
+    walk asked for by name, within the tolerance of the plain version,
+    and its valid rows within the gate of scipy."""
+    import math
+
+    limit = 4 * torch.cuda.get_device_properties(card).multi_processor_count
+    assert tds._direct_tiles(card) == limit
+    isz = torch.tensor([], dtype=dtype).element_size()
+    gate = 2e-5 if dtype == torch.float32 else 1e-10
+    for f, rnd in ((0.92, math.floor), (1.08, math.ceil)):
+        nx = 16 * rnd(math.sqrt(limit * tds.WALK_TILE * f) / 16)
+        m = utils.laplacian_2d(nx)
+        n = m.shape[0]
+        P0 = tds.pack_psdia(convert(COO.from_scipy(m, dtype=dtype), "dia"),
+                            device=card)
+        tiles = -(-(P0.L + n) // tds.WALK_TILE) - P0.L // tds.WALK_TILE
+        assert (tiles <= limit) == (f < 1), (nx, tiles, limit)
+        x64 = np.random.default_rng(nx).standard_normal(n)
+        for P in (P0, dataclasses.replace(P0, L=0)):
+            for shift in (0, 1):
+                buf = torch.zeros(P.npad + 1, dtype=dtype, device=card)
+                xp = buf[shift:shift + P.npad]
+                xp[P.L:P.L + n] = torch.tensor(x64, dtype=dtype, device=card)
+                y = tds.spmv_psdia_padded(P, xp)
+                for plan in (tds.psdia_walk_plan(P.offsets, P.period, isz),
+                             tds.psdia_cluster_walk(P.offsets, isz)):
+                    assert torch.equal(tds._spmv_psdia_launch(P, xp, plan),
+                                       y), (nx, P.L, shift, plan.stride)
+                assert _rel(y, tds.spmv_psdia_padded_ref(P, xp)) \
+                    <= TOL[dtype], (nx, P.L, shift)
+                assert not y[:P.L].any() and not y[P.L + n:].any()
+                if P is P0:
+                    got = y[P.L:P.L + n].cpu().double().numpy()
+                    want = m @ x64
+                    assert np.max(np.abs(got - want)) <= \
+                        gate * np.max(np.abs(want))
+
+
+@pytest.mark.cuda
+def test_psdia_walk_refuses_a_walk_that_does_not_fit_on_card(card):
+    """K2 launches only with a walk that fits the offsets: a stride walk
+    whose jd reach a window two tiles back raises before any launch."""
+    import dataclasses as dc
+
+    _, packs = _k2_packs("laplacian_2d(2048, 40)", torch.float32, card)
+    P = packs["pack"][0]
+    xp = tds.pad_x(P, torch.rand(P.shape[0], device=card))
+    bad = dc.replace(tds.psdia_walk_plan(P.offsets, P.period, 4),
+                     jd=(-2, 0, 0, 0, 1))
+    before = tds.LAUNCHES["psdia"]
+    with pytest.raises(ValueError, match="outside"):
+        tds._spmv_psdia_launch(P, xp, bad)
+    assert tds.LAUNCHES["psdia"] == before
+
+
+def _random_tile_program(rng, itype, device, T: int = 3):
+    """A random tile_permute program of 1 to 8 steps on ``T`` tiles: index
+    slots shared or per tile, tiles loaded directly or through a row index
+    (with or without lane gathers), with or without ``mul`` and
+    ``psum8``."""
+    from tpu_spmv_torch.bench import probes as pr
+
+    Q = pr.Q
+    nsteps = int(rng.integers(1, 9))
+    K = int(rng.integers(1, 5))
+    steps = "".join(rng.choice(["S", "G", "T"]) + str(rng.integers(0, K))
+                    for _ in range(nsteps)).replace("T0", "T").replace(
+        "T1", "T").replace("T2", "T").replace("T3", "T")
+    Ti = 1 if rng.random() < 0.5 else T
+    idx = rng.integers(0, Q, (K, Ti, Q, Q)).astype(itype)
+    kind = rng.choice(["direct", "rows", "rows+lanes"])
+    if kind == "direct":
+        prog = pr.plan_tile_program(steps, idx, device=device)
+        src = torch.rand(T, Q, Q, device=device)
+    else:
+        nload = int(rng.integers(1, Q + 1))
+        rows = rng.integers(0, 300, T * nload)
+        lidx = (rng.integers(0, Q, (T * nload, Q)).astype(itype)
+                if kind == "rows+lanes" else None)
+        prog = pr.plan_tile_program(steps, idx, rowsrc=rows, lidx=lidx,
+                                    nload=nload, device=device)
+        src = torch.rand(300, Q, device=device)
+    mul = torch.rand(T, Q, Q, device=device) if rng.random() < 0.5 else None
+    return prog, src, mul, bool(rng.random() < 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("itype", [np.int8, np.int32])
+def test_tile_permute_random_programs_on_card(card, itype):
+    """Random programs of up to 8 steps (every mode: S-only, G-only and
+    mixed, with transposes), both index types, shared and per-tile index
+    tiles, direct and row-loaded tiles, with and without mul and psum8,
+    src 16-byte aligned and not: bitwise the plain version, each launch
+    counted."""
+    from tpu_spmv_torch.bench import probes as pr
+
+    rng = np.random.default_rng(int(np.dtype(itype).itemsize))
+    for trial in range(24):
+        prog, src, mul, psum8 = _random_tile_program(rng, itype, card)
+        if trial % 3 == 2:                 # one value into a buffer
+            buf = torch.empty(src.numel() + 1, device=card)
+            buf[1:] = src.reshape(-1)
+            src = buf[1:].view(src.shape)
+        before = pr.LAUNCHES["tile_permute"]
+        got = pr.tile_permute(prog, src, mul, psum8)
+        assert pr.LAUNCHES["tile_permute"] == before + 1
+        assert torch.equal(got, pr.tile_permute_ref(prog, src, mul, psum8)), \
+            (trial, prog.steps, prog.mode)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ndev", [1, 4])
 def test_sharded_dia_runs_ring_kernel_on_card(card, ndev):

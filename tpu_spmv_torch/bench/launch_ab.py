@@ -5,18 +5,24 @@ checkouts on one card in one call (parent, change, change, parent)::
     python3 tpu_spmv_torch/bench/launch_ab.py --root PARENT_CHECKOUT
     python3 tpu_spmv_torch/bench/launch_ab.py --root .
 
+(``--probes``: the probe kernels T1–T4 alone.)
+
 It prints one JSON line: ms per call (CUDA events, median of repeats,
 after warm-up; each kernel and its yardsticks timed in turns, so that
 drift in the host's speed falls on all of them) of ``launch_probe`` (T1)
 beside ``copy_`` and ``clone()``, ``segsum8`` (T2) beside ``sum``,
-``tile_permute`` S (T3) beside ``take_along_dim``; on
+``tile_permute`` S (T3) beside ``take_along_dim``; every ``tile_permute``
+variant of T3/T4 at the probes' shapes in turns with ``launch_probe``,
+per call and replayed from a CUDA graph (``<name>:graph``); on
 ``random_sparse(100000, 100000, 7e-5)``, ``power_law(400000, 400000,
 13)``, ``random_sparse(2000000, 2000000, 8e-6)`` and a 2048x2048-grid
 Poisson in a shuffled node order: ``gpr_spmv`` beside cuSPARSE and
 ``embedding_bag`` (X of one column; at 2M rows also ``ell_spmv``), and
 ``gpr_spmm`` (K6) with 1, 3, 32 and 40 right-hand sides beside
 ``embedding_bag`` (at 32 also cuSPARSE ``torch.sparse.mm``); K2 and K1
-on the 4096x4096-grid Poisson; K8b (``psdia_ring``) on one shard of the
+on the 4096x4096-grid Poisson, K2's walk in turns with its cluster walk
+where the checkout has the walks, and K2 on the 128^3 7-point Poisson;
+K8b (``psdia_ring``) on one shard of the
 plan's pack in turns with K2 on the same pack, and the sharded chain
 (``spmv_psdia_sharded``) at 1 and 4 shards on one card, K8b and K2 at
 one shard in float64; K3b there at 8
@@ -75,11 +81,31 @@ def interleaved_ms(fns: dict, iters: int, rounds: int = 10) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """ms per call of ``fn()`` replayed from one CUDA graph of ``calls``
+    calls (the device's time with no host work between launches)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return event_ms(graph.replay, 1, replays) / calls
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True,
                     help="checkout whose tpu_spmv_torch is timed")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--probes", action="store_true",
+                    help="time only the probe kernels (T1-T4)")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -126,6 +152,28 @@ def main(argv=None) -> int:
         {"tile_permute S": lambda: pr.tile_permute(prog, src),
          "take_along_dim": lambda: torch.take_along_dim(src, gl, dim=1)},
         100))
+    # every variant at the probes' shapes, in turns with launch_probe (the
+    # launcher's floor), and replayed
+    for name, (prog, src, mul, psum8) in pr.tile_variants(
+            pr.t3_operands(args.seed), pr.t4_operands(args.seed),
+            dev).items():
+        def call(prog=prog, src=src, mul=mul, psum8=psum8):
+            return pr.tile_permute(prog, src, mul, psum8)
+
+        t = interleaved_ms({"v": call, "lp": lambda: pr.launch_probe(tile)},
+                           100)
+        out[f"tile_permute {name}"] = t["v"]
+        out[f"launch_probe beside tile_permute {name}"] = t["lp"]
+        out[f"tile_permute {name}:graph"] = graph_ms(call)
+        del prog, src, mul
+
+    if args.probes:
+        out["card"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        print(json.dumps(out))
+        return 0
 
     # the general kernels on phase 4b's operands: 100k rows (launch
     # bound), the power law (X about the L2's size), 2M rows (past the L2)
@@ -190,6 +238,14 @@ def main(argv=None) -> int:
     x = torch.tensor(rng.random(n), dtype=torch.float32, device=dev)
     xp = ds.pad_x(P, x)
     out["K2 4096^2"] = event_ms(lambda: ds.spmv_psdia_padded(P, xp), 50, 5)
+    if hasattr(ds, "psdia_walk_plan"):
+        # K2's walk (the plan's, by bulk copy) and the cluster walk, in
+        # turns
+        walks = {"K2 walk": ds.psdia_walk_plan(P.offsets, P.period, 4),
+                 "K2 walk clusters": ds.psdia_cluster_walk(P.offsets, 4)}
+        out.update(interleaved_ms(
+            {k: (lambda wp: lambda: ds._spmv_psdia_launch(P, xp, wp))(wp)
+             for k, wp in walks.items()}, 50, rounds=5))
     mc = mat.tocoo()
     hdia = DIA.from_coo(COO.from_arrays(
         mc.row, mc.col, mc.data, mat.shape, dtype=torch.float32, sort=False))
@@ -247,6 +303,14 @@ def main(argv=None) -> int:
                                      for v in cols]}, iters, rounds=5))
         del Xt, cols
     del plan, P, P32
+
+    m3 = utils.laplacian_3d(128)
+    plan3 = plan_spmv(m3, dtype=torch.float32, device=dev)
+    xp3 = ds.pad_x(plan3.matrix, torch.tensor(rng.random(m3.shape[0]),
+                                              dtype=torch.float32, device=dev))
+    out["K2 128^3"] = event_ms(
+        lambda: ds.spmv_psdia_padded(plan3.matrix, xp3), 50, 5)
+    del m3, plan3, xp3
 
     m256 = utils.laplacian_2d(256)
     plan256 = plan_spmv(m256, dtype=torch.float32, device=dev)

@@ -29,6 +29,7 @@ operations, so kernel and plain version agree bitwise.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import re
@@ -55,9 +56,11 @@ LAUNCHES = {"copy_scale": 0, "launch_probe": 0, "segsum8": 0,
             "tile_permute": 0}
 _OPS = {"S": 1, "G": 2, "T": 3}
 _TILE = (Q, Q)
-#: T1's and T2's launches, resolved once (the library loads at first call)
+#: T1's, T2's and T3/T4's launches, resolved once (the library loads at
+#: first call)
 _LAUNCH_PROBE = _build.launcher("launch_probe")
 _SEGSUM8 = _build.launcher("segsum8")
+_TILE_PERMUTE = _build.launcher("tile_permute")
 
 
 def _on_cpu(name: str, x: torch.Tensor) -> bool:
@@ -156,6 +159,23 @@ def segsum8(x: torch.Tensor) -> torch.Tensor:
 
 # -- T3 / T4: tile_permute --------------------------------------------------
 
+class _TileArgs(ctypes.Structure):
+    """A program's launch arguments as the kernel's launcher reads them
+    (``TileArgs`` in ``csrc/probes.cu``)."""
+
+    _fields_ = [("rowsrc", ctypes.c_void_p), ("lidx", ctypes.c_void_p),
+                ("nload", ctypes.c_int), ("idx", ctypes.c_void_p),
+                ("idx_tiles", ctypes.c_int), ("steps", ctypes.c_uint32),
+                ("nsteps", ctypes.c_int), ("staged", ctypes.c_uint32),
+                ("mode", ctypes.c_int)]
+
+
+#: what a block of the kernel can reach of its tile (``TileMode`` in
+#: ``csrc/probes.cu``): all of it, a slab of 32 rows (a G-only program),
+#: a slab of 32 columns (an S-only program)
+FULL_TILE, ROW_SLABS, COL_SLABS = 0, 1, 2
+
+
 @dataclasses.dataclass(frozen=True)
 class TileProgram:
     """Steps on ``[128, 128]`` tiles and their index tiles.
@@ -163,31 +183,69 @@ class TileProgram:
     ``steps`` is a tuple of ``(op, slot)``: ``op`` ``"S"`` (gather along
     axis 0), ``"G"`` (along axis 1) or ``"T"`` (transpose), ``slot`` the
     index tile ``idx[slot]`` the gather reads.  ``idx`` is ``[K, Ti, 128,
-    128]`` (int8 or int32; ``Ti`` is 1 when every tile shares its index
-    tiles).  With ``rowsrc`` the tiles are loaded row by row: row ``r <
-    nload`` of tile ``t`` is ``src[rowsrc[t * nload + r]]``, lane-gathered
-    by ``lidx[t * nload + r]`` when given; the other rows are zero."""
+    128]`` int8 (every index lies in ``[0, 128)``, so one byte holds it
+    whatever the input's type; ``Ti`` is 1 when every tile shares its
+    index tiles).  With ``rowsrc`` the tiles are loaded row by row: row
+    ``r < nload`` of tile ``t`` is ``src[rowsrc[t * nload + r]]``,
+    lane-gathered by ``lidx[t * nload + r]`` (int8) when given; the other
+    rows are zero.
+
+    The kernel's launch arguments are made once, with the program:
+    ``code`` (the steps, 4 bits each), ``mode`` (what a block can reach:
+    :data:`COL_SLABS` for an S-only program without lane gathers, whose
+    output column ``j`` comes from column ``j``; :data:`ROW_SLABS` for a
+    G-only one; :data:`FULL_TILE` else), ``staged`` (a bit per index slot
+    that a gather reads: the kernel stages those in shared memory), ``args``
+    (those and the program's tensors as the launch takes them) and
+    ``device_index`` (the tensors' card, -1 on the CPU)."""
 
     steps: tuple[tuple[str, int], ...]
     idx: torch.Tensor
     rowsrc: torch.Tensor | None = None     # [T * nload] int32
-    lidx: torch.Tensor | None = None       # [T * nload, 128], idx's dtype
+    lidx: torch.Tensor | None = None       # [T * nload, 128] int8
     nload: int = Q
     src_rows: int = 0                      # rows of src that rowsrc reads
+    code: int = dataclasses.field(init=False)
+    mode: int = dataclasses.field(init=False)
+    staged: int = dataclasses.field(init=False)
+    idx_tiles: int = dataclasses.field(init=False)
+    ntiles: int | None = dataclasses.field(init=False)
+    device_index: int = dataclasses.field(init=False)
+    args: tuple = dataclasses.field(init=False, repr=False)
+    _launch: _TileArgs = dataclasses.field(init=False, repr=False,
+                                           compare=False)
+    _launch_at: int = dataclasses.field(init=False, repr=False,
+                                        compare=False)
 
-    @property
-    def ntiles(self) -> int | None:
-        """Tiles of a row-loaded program (None: one per tile of src)."""
-        if self.rowsrc is None:
-            return None
-        return int(self.rowsrc.shape[0]) // self.nload
+    def __post_init__(self):
+        ops = {op for op, _ in self.steps}
+        derived = {
+            "code": sum((_OPS[op] | slot << 2) << (4 * s)
+                        for s, (op, slot) in enumerate(self.steps)),
+            # a lane gather can reach any column of a loaded row
+            "mode": (COL_SLABS if ops == {"S"} and self.lidx is None else
+                     ROW_SLABS if ops == {"G"} else FULL_TILE),
+            "staged": sum({1 << k for op, k in self.steps if op != "T"}),
+            "idx_tiles": int(self.idx.shape[1]),
+            # tiles of a row-loaded program (None: one per tile of src)
+            "ntiles": (None if self.rowsrc is None
+                       else int(self.rowsrc.shape[0]) // self.nload),
+            "device_index": self.idx.get_device()}
+        for name, value in derived.items():
+            object.__setattr__(self, name, value)
 
-    @property
-    def code(self) -> int:
-        """The steps as the kernel reads them: 4 bits each, op in the low
-        two, slot in the high two."""
-        return sum((_OPS[op] | slot << 2) << (4 * s)
-                   for s, (op, slot) in enumerate(self.steps))
+        def ptr(t):
+            return t.data_ptr() if t is not None else None
+
+        args = (ptr(self.rowsrc), ptr(self.lidx), self.nload,
+                self.idx.data_ptr(), self.idx_tiles, self.code,
+                len(self.steps), self.staged, self.mode)
+        object.__setattr__(self, "args", args)
+        # the launch reads them through one pointer (the structure lives
+        # as long as the program, which holds the tensors)
+        object.__setattr__(self, "_launch", _TileArgs(*args))
+        object.__setattr__(self, "_launch_at",
+                           ctypes.addressof(self._launch))
 
 
 def _parse_steps(steps: str) -> tuple[tuple[str, int], ...]:
@@ -215,7 +273,8 @@ def plan_tile_program(steps: str, idx, *, rowsrc=None, lidx=None,
 
     ``steps`` is a string such as ``"S"``, ``"GSG"`` or ``"TG0TG1"`` (a
     digit after ``S``/``G`` names the index slot, default 0); ``idx`` is
-    ``[128, 128]``, ``[Ti, 128, 128]`` or ``[K, Ti, 128, 128]``."""
+    ``[128, 128]``, ``[Ti, 128, 128]`` or ``[K, Ti, 128, 128]``, int8 or
+    int32 (``lidx`` of the same type); both are stored as int8."""
     parsed = _parse_steps(steps)
     ix = _index_array(idx, "idx")
     if ix.shape[-2:] != (Q, Q) or not 2 <= ix.ndim <= 4:
@@ -240,29 +299,28 @@ def plan_tile_program(steps: str, idx, *, rowsrc=None, lidx=None,
             if la.dtype != ix.dtype or la.shape != (rows.size, Q):
                 raise ValueError(f"lidx must be [{rows.size}, {Q}] of "
                                  f"idx's dtype {ix.dtype}")
-            ls = torch.from_numpy(np.ascontiguousarray(la)).to(device)
+            ls = torch.from_numpy(la.astype(np.int8)).to(device)
     elif lidx is not None:
         raise ValueError("lidx needs rowsrc")
     return TileProgram(steps=parsed,
-                       idx=torch.from_numpy(np.ascontiguousarray(ix)).to(
-                           device),
+                       idx=torch.from_numpy(ix.astype(np.int8)).to(device),
                        rowsrc=rs, lidx=ls, nload=nload, src_rows=src_rows)
 
 
 def _tiles(prog: TileProgram, src: torch.Tensor) -> int:
     """The tile count, after checking ``src`` against the program."""
     if prog.rowsrc is None:
-        if src.dim() < 2 or tuple(src.shape[-2:]) != (Q, Q):
+        if src.dim() < 2 or src.size(-1) != Q or src.size(-2) != Q:
             raise ValueError(f"tile_permute: src must be [..., {Q}, {Q}], "
                              f"got {tuple(src.shape)}")
-        T = src.numel() // (Q * Q)
+        T = src.numel() >> 14
     else:
-        if src.dim() != 2 or src.shape[1] != Q or src.shape[0] < prog.src_rows:
+        if src.dim() != 2 or src.size(1) != Q or src.size(0) < prog.src_rows:
             raise ValueError(f"tile_permute: src must be [>= "
                              f"{prog.src_rows}, {Q}], got {tuple(src.shape)}")
         T = prog.ntiles
-    if prog.idx.shape[1] not in (1, T):
-        raise ValueError(f"tile_permute: idx has {prog.idx.shape[1]} tiles "
+    if prog.idx_tiles != 1 and prog.idx_tiles != T:
+        raise ValueError(f"tile_permute: idx has {prog.idx_tiles} tiles "
                          f"per slot, the program {T}")
     return T
 
@@ -305,31 +363,39 @@ def tile_permute(prog: TileProgram, src: torch.Tensor,
     output's tiles) multiplies the result and ``psum8`` sums it 8 lanes at
     a time (``[..., 128, 16]``).
 
-    CUDA tensor: launches ``tile_permute``; CPU tensor:
-    :func:`tile_permute_ref`."""
-    on_cpu = _on_cpu("tile_permute", src)
+    CUDA tensor: launches ``tile_permute`` with the program's launch
+    arguments (:class:`TileProgram`); CPU tensor: :func:`tile_permute_ref`."""
+    if src.dtype is not torch.float32:
+        raise TypeError(f"tile_permute: needs float32, got {src.dtype}")
     T = _tiles(prog, src)
-    if mul is not None and (mul.dtype != src.dtype or mul.numel() != T * Q * Q
+    if mul is not None and (mul.dtype is not torch.float32
+                            or mul.numel() != T * Q * Q
                             or mul.device != src.device):
         raise ValueError(f"tile_permute: mul must be {T} float32 tiles on "
                          f"{src.device}")
-    if prog.idx.device != src.device:
+    if src.get_device() != prog.device_index:
         raise ValueError(f"tile_permute: program on {prog.idx.device}, src "
                          f"on {src.device}")
-    if on_cpu:
+    if src.is_cpu:
         return tile_permute_ref(prog, src, mul, psum8)
-    src = src.contiguous()
-    mul = mul.contiguous() if mul is not None else None
-    out = torch.empty(_out_shape(prog, src, T, psum8), dtype=src.dtype,
-                      device=src.device)
-
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
-
-    _call("tile_permute", src, src.data_ptr(), ptr(prog.rowsrc),
-          ptr(prog.lidx), prog.nload, prog.idx.data_ptr(),
-          prog.idx.element_size(), int(prog.idx.shape[1]), prog.code,
-          ptr(mul), int(psum8), out.data_ptr(), T)
+    # the kernel loads 16 bytes at a time
+    p = src.data_ptr()
+    if p & 15 or not src.is_contiguous():
+        src = _aligned(src)
+        p = src.data_ptr()
+    m = None
+    if mul is not None:
+        m = mul.data_ptr()
+        if m & 15 or not mul.is_contiguous():
+            mul = _aligned(mul)
+            m = mul.data_ptr()
+    if prog.rowsrc is None and not psum8:
+        out = torch.empty_like(src)
+    else:
+        out = torch.empty(_out_shape(prog, src, T, psum8),
+                          dtype=torch.float32, device=src.device)
+    _TILE_PERMUTE(src, p, prog._launch_at, m, psum8, out.data_ptr(), T)
+    LAUNCHES["tile_permute"] += 1
     return out
 
 
@@ -465,7 +531,9 @@ def run_probes(device="cuda", *, seed: int = 0) -> dict:
     ``launch_probe_x4`` (four in a row), ``segsum8``, and
     ``tile_permute:<variant>`` for each of :func:`tile_variants`; each
     also as ``<key>:graph``, replayed from a CUDA graph, so the wrapper's
-    host work drops out and the device's own time is left."""
+    host work drops out and the device's own time is left, and as
+    ``<key>:launches``, the kernel launches its timing made (the graph's
+    capture counts; its replays launch no wrapper)."""
     device = _require_card(device)
     out = {}
     bw = copy_bandwidths(device)
@@ -483,6 +551,9 @@ def run_probes(device="cuda", *, seed: int = 0) -> dict:
         timed[f"tile_permute:{name}"] = (
             functools.partial(tile_permute, prog, src, mul, psum8), 100)
     for key, (fn, iters) in timed.items():
+        before = dict(LAUNCHES)
         out[key] = _event_ms(fn, iters)
         out[f"{key}:graph"] = _graph_ms(fn)
+        out[f"{key}:launches"] = sum(LAUNCHES[k] - before[k]
+                                     for k in LAUNCHES)
     return out

@@ -13,7 +13,8 @@ from __future__ import annotations
 import dataclasses
 
 __all__ = ["spmv_bytes", "spmm_bytes", "gpr_matrix_bytes",
-           "ell_matrix_bytes", "measured_copy_gbps", "Roofline", "roofline"]
+           "ell_matrix_bytes", "tile_permute_bytes", "measured_copy_gbps",
+           "Roofline", "roofline"]
 
 
 def gpr_matrix_bytes(nnz: int, rows: int, itemsize: int) -> int:
@@ -98,6 +99,27 @@ def spmm_bytes(A, nrhs: int, x_dtype=None) -> int:
     vec = (2 * A.npad if isinstance(A, (SDIA, PSDIA))
            else A.shape[0] + A.shape[1])
     return _matrix_bytes(A) + nrhs * vec * xval
+
+
+def tile_permute_bytes(prog, src, mul=None, psum8: bool = False) -> int:
+    """Minimum device-memory traffic of one ``tile_permute`` (T3/T4,
+    :func:`.probes.tile_permute`): every row of 128 values it loads, once
+    (every tile of ``src``, or each distinct row of ``src`` that
+    ``rowsrc`` names, however many tiles load it), its output once (a
+    128 x 128 tile, or 128 x 16 sums with ``psum8``), the index tiles,
+    ``rowsrc``, ``lidx`` and ``mul`` once."""
+    q = 128
+    if prog.rowsrc is None:
+        tiles = src.numel() // (q * q)
+        loaded = src.numel() * src.element_size()
+    else:
+        tiles = prog.ntiles
+        loaded = (int(prog.rowsrc.unique().numel()) * q
+                  * src.element_size())
+    out = tiles * q * (q // 8 if psum8 else q) * src.element_size()
+    return loaded + out + sum(t.numel() * t.element_size()
+                              for t in (prog.idx, prog.rowsrc, prog.lidx,
+                                        mul) if t is not None)
 
 
 def measured_copy_gbps(device) -> float:

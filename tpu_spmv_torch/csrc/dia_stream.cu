@@ -20,15 +20,28 @@
 // (ndiags * rb values, a few MB at most) stays in L2/L1.  Arithmetic is one
 // FMA per diagonal per row, far below the card's FLOP rate.
 //
-// What the design does about it: one thread owns one padded row (grid-stride
-// loop), so neighbouring threads read neighbouring addresses of data, pattern
-// and xpad and every load is coalesced; the diagonal offsets sit in shared
-// memory.  The TPU kernel needs halo blocks and clamped edge fetches because
-// its grid walks row tiles through VMEM; here the caches serve the
-// neighbouring rows' x, and a read of k + off outside [0, npad) is skipped
-// instead of clamped, so nothing is read out of bounds.  Each row's sum runs
-// over the diagonals in their stored (ascending offset) order in one thread:
-// no atomics, and the result is bitwise reproducible from run to run.  nvcc
+// K1: one thread owns one padded row (grid-stride loop), so neighbouring
+// threads read neighbouring addresses of data and xpad and every load is
+// coalesced; the diagonal offsets sit in shared memory.  The TPU kernel
+// needs halo blocks and clamped edge fetches because its grid walks row
+// tiles through VMEM; here the caches serve the neighbouring rows' x (every
+// row streams its own data rows, so x is not what bounds K1), and a read of
+// k + off outside [0, npad) is skipped instead of clamped.  Each row's sum
+// runs over the diagonals in their stored (ascending offset) order in one
+// thread: no atomics, bitwise reproducible.
+//
+// K2 streams only x and y, so where x is read from decides it: it runs the
+// walks of psdia_walk.cuh on the padded row space, K8b's design without the
+// ring (the window source is xpad, zero outside [0, npad); the row mask
+// starts at row 0).  The host plan (kernels/dia_stream.py:psdia_walk_plan)
+// picks the stride walk (windows of xpad kept in a shared-memory ring for
+// the tiles S apart that read them, the coefficient rows once per segment
+// where S is a multiple of the period) or the cluster walk; the stride
+// walk's windows arrive by bulk copy, asked for by a producer warp beside
+// the consumers, where xpad, the pattern and rb are 16-byte aligned, else
+// by cp.async (the V = 1 branch).  Each row sums its
+// diagonals in stored order with fma from zero, so K2 is bitwise the former
+// one-thread-a-row kernel, K8b at one shard and every column of K3b.  nvcc
 // contracts a * b + c to FMA, so results may differ from an unfused plain
 // version in the last bits.
 //
@@ -84,6 +97,7 @@
 #include <stdint.h>
 
 #include "cp_async.cuh"
+#include "psdia_walk.cuh"
 
 namespace {
 
@@ -112,30 +126,6 @@ __global__ void sdia_spmv(const T* __restrict__ data,
     for (int d = 0; d < ndiags; ++d) {
       const int64_t j = k + s_off[d];
       if (j >= 0 && j < npad) acc += data[d * npad + k] * xpad[j];
-    }
-    ypad[k] = acc;
-  }
-}
-
-template <typename T>
-__global__ void psdia_spmv(const T* __restrict__ pattern,
-                           const int* __restrict__ offsets, int ndiags,
-                           int64_t rb, const T* __restrict__ xpad,
-                           T* __restrict__ ypad, int64_t npad, int64_t L,
-                           int64_t nrow) {
-  extern __shared__ int s_off[];
-  for (int d = threadIdx.x; d < ndiags; d += blockDim.x) s_off[d] = offsets[d];
-  __syncthreads();
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       k < npad; k += stride) {
-    T acc = T(0);
-    if (k >= L && k < L + nrow) {
-      const int64_t slot = k % rb;
-      for (int d = 0; d < ndiags; ++d) {
-        const int64_t j = k + s_off[d];
-        if (j >= 0 && j < npad) acc += pattern[d * rb + slot] * xpad[j];
-      }
     }
     ypad[k] = acc;
   }
@@ -551,16 +541,16 @@ int launch_sdia(const void* data, const void* offsets, int ndiags,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2: the walk of psdia_walk.cuh with xpad as the window source (no
+// slivers), all npad rows local (base 0)
 template <typename T>
-int launch_psdia(const void* pattern, const void* offsets, int ndiags,
-                 int64_t rb, const void* xpad, void* ypad, int64_t npad,
-                 int64_t L, int64_t nrow, void* stream) {
-  psdia_spmv<T><<<grid_for(npad), kThreads, ndiags * sizeof(int),
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(pattern), static_cast<const int*>(offsets),
-      ndiags, rb, static_cast<const T*>(xpad), static_cast<T*>(ypad), npad, L,
-      nrow);
-  return static_cast<int>(cudaGetLastError());
+int launch_psdia(const void* pattern, const void* args, const void* xpad,
+                 void* ypad, int64_t npad, int64_t L, int64_t nrow,
+                 void* stream) {
+  const WindowSource<T> src{static_cast<const T*>(xpad), nullptr, nullptr,
+                            npad, 0};
+  return launch_walk<T>(*static_cast<const WalkArgs*>(args), pattern, src,
+                        ypad, 0, L, nrow, stream);
 }
 
 // the RHS chunk: the smallest power of two that holds nrhs, at most 32
@@ -701,18 +691,17 @@ int tsp_sdia_spmv_f64(const void* data, const void* offsets, int ndiags,
   return launch_sdia<double>(data, offsets, ndiags, xpad, ypad, npad, stream);
 }
 
-int tsp_psdia_spmv_f32(const void* pattern, const void* offsets, int ndiags,
-                       int64_t rb, const void* xpad, void* ypad, int64_t npad,
-                       int64_t L, int64_t nrow, void* stream) {
-  return launch_psdia<float>(pattern, offsets, ndiags, rb, xpad, ypad, npad, L,
-                             nrow, stream);
+int tsp_psdia_spmv_f32(const void* pattern, const void* args,
+                       const void* xpad, void* ypad, int64_t npad, int64_t L,
+                       int64_t nrow, void* stream) {
+  return launch_psdia<float>(pattern, args, xpad, ypad, npad, L, nrow, stream);
 }
 
-int tsp_psdia_spmv_f64(const void* pattern, const void* offsets, int ndiags,
-                       int64_t rb, const void* xpad, void* ypad, int64_t npad,
-                       int64_t L, int64_t nrow, void* stream) {
-  return launch_psdia<double>(pattern, offsets, ndiags, rb, xpad, ypad, npad,
-                              L, nrow, stream);
+int tsp_psdia_spmv_f64(const void* pattern, const void* args,
+                       const void* xpad, void* ypad, int64_t npad, int64_t L,
+                       int64_t nrow, void* stream) {
+  return launch_psdia<double>(pattern, args, xpad, ypad, npad, L, nrow,
+                              stream);
 }
 
 int tsp_sdia_spmm_f32(const void* data, const void* offsets, int ndiags,

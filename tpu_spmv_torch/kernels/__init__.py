@@ -4,7 +4,9 @@ Each kernel has a plain PyTorch version beside it that CPU tensors run;
 CUDA tensors launch the kernel, built at first use (:mod:`._build`).
 
 - :mod:`.dia_stream`: streaming DIA, K1 ``sdia_spmv`` and K2
-  ``psdia_spmv``, their SpMMs K3a ``sdia_spmm`` and K3b ``psdia_spmm``;
+  ``psdia_spmv`` (the walks of ``csrc/psdia_walk.cuh``, planned by
+  ``psdia_walk_plan``, which K8b shares), their SpMMs K3a ``sdia_spmm``
+  and K3b ``psdia_spmm``;
 - :mod:`.gpr`: class-sorted CSR with hub rows split, ``gpr_spmv`` and
   ``gpr_spmm``;
 - :mod:`.ell_packed`: sliced ELL, ``ell_spmv`` and ``ell_spmm``;

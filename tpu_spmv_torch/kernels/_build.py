@@ -47,8 +47,8 @@ _U32 = ctypes.c_uint32
 _SIGNATURES = {
     "tsp_sdia_spmv_f32": [_P, _P, _I, _P, _P, _I64, _P],
     "tsp_sdia_spmv_f64": [_P, _P, _I, _P, _P, _I64, _P],
-    "tsp_psdia_spmv_f32": [_P, _P, _I, _I64, _P, _P, _I64, _I64, _I64, _P],
-    "tsp_psdia_spmv_f64": [_P, _P, _I, _I64, _P, _P, _I64, _I64, _I64, _P],
+    "tsp_psdia_spmv_f32": [_P] * 4 + [_I64] * 3 + [_P],
+    "tsp_psdia_spmv_f64": [_P] * 4 + [_I64] * 3 + [_P],
     "tsp_gpr_spmv_f32": [_P] * 6 + [_I64] * 5 + [_P],
     "tsp_gpr_spmv_f64": [_P] * 6 + [_I64] * 5 + [_P],
     "tsp_ell_spmv_f32": [_P] * 5 + [_I64, _P],
@@ -67,17 +67,14 @@ _SIGNATURES = {
     "tsp_ell_spmm_f64": [_P] * 5 + [_I64, _I, _P],
     "tsp_sdia_ring_f32": [_P, _P, _I, _P, _P, _P, _P, _I64, _I64, _P],
     "tsp_sdia_ring_f64": [_P, _P, _I, _P, _P, _P, _P, _I64, _I64, _P],
-    "tsp_psdia_ring_f32": [_P, _P, _I, _P] + [_I] * 5 + [_I64] + [_P] * 4
-                          + [_I64] * 5 + [_P],
-    "tsp_psdia_ring_f64": [_P, _P, _I, _P] + [_I] * 5 + [_I64] + [_P] * 4
-                          + [_I64] * 5 + [_P],
+    "tsp_psdia_ring_f32": [_P] * 6 + [_I64] * 5 + [_P],
+    "tsp_psdia_ring_f64": [_P] * 6 + [_I64] * 5 + [_P],
     "tsp_permute_gather": [_P, _P, _I, _P, _I64, _I, _P],
     "tsp_permute_gather_batched": [_P, _P, _I, _P, _I64, _I, _I, _P],
     "tsp_copy_scale": [_P, _P, _I64, _P],
     "tsp_launch_probe": [_P, _P, _P],
     "tsp_segsum8": [_P, _P, _I64, _P],
-    "tsp_tile_permute": [_P, _P, _P, _I, _P, _I, _I, _U32, _P, _I, _P, _I64,
-                         _P],
+    "tsp_tile_permute": [_P, _P, _P, _I, _P, _I64, _P],
 }
 
 

@@ -28,6 +28,15 @@ launch in :data:`LAUNCHES`; on a CPU tensor they run the plain PyTorch
 versions beside them (``*_ref``), which compute the same function with
 per-diagonal zero-filled shifts.  Nothing falls back from one to the other.
 
+K2 and K8b (:mod:`.dist_stream`) run one kernel body
+(``csrc/psdia_walk.cuh``) along a walk that :func:`psdia_walk_plan` picks
+on the host from the offsets, the period and the value type: windows of x
+and the pattern's rows staged in shared memory, by bulk copy where the
+operands are 16-byte aligned.  K2's wrapper looks the walk and its launch
+arguments up once per pack key (:func:`_walk_launch`) and passes them as
+one pointer; on an operand of few tiles (:func:`_direct_tiles`), K2 runs
+one thread a row instead (``psdia_walk_direct``).
+
 The row-tile size ``rb`` keeps the reference's rule (``_auto_rb`` and the
 ``pack_psdia`` rb block, derived from TPU VMEM budgets, with their ``nrhs``
 argument for the SpMM layout) so the packs are identical; on Hopper it only
@@ -36,6 +45,7 @@ decides the padding.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -55,7 +65,9 @@ __all__ = ["SDIA", "PSDIA", "LAUNCHES", "pack_sdia", "supports_sdia",
            "spmv_psdia_padded", "spmv_psdia_padded_ref", "spmv_psdia",
            "spmm_sdia_padded_t", "spmm_sdia_padded_t_ref", "spmm_sdia",
            "spmm_psdia_padded_t", "spmm_psdia_padded_t_ref", "spmm_psdia",
-           "SpmmWindowPlan", "psdia_spmm_plan"]
+           "SpmmWindowPlan", "psdia_spmm_plan", "WALK_TILE", "WALK_STAGES",
+           "BULK_AHEAD", "WalkPlan", "psdia_cluster_walk", "psdia_walk_plan",
+           "check_walk"]
 
 #: floor rows per row tile (the reference's rule, see module docstring)
 RB = 16384
@@ -376,7 +388,6 @@ def spmm_psdia_padded_t_ref(A: PSDIA, Xt_pad: torch.Tensor) -> torch.Tensor:
     return spmv_psdia_padded_ref(A, Xt_pad)
 
 
-@functools.lru_cache(maxsize=64)
 @functools.cache
 def _offsets_on(offsets: tuple[int, ...], device: torch.device):
     """The offsets (or K3b's plan table) as a device ``int32`` tensor, made
@@ -436,18 +447,39 @@ def spmv_psdia_padded(A: PSDIA, xpad: torch.Tensor) -> torch.Tensor:
     """``ypad = A @ xpad`` in padded row space — same contract as
     :func:`spmv_sdia_padded`; the pads stay zero through the row mask.
 
-    CUDA tensor: launches K2 (``psdia_spmv`` in ``csrc/dia_stream.cu``);
-    CPU tensor: :func:`spmv_psdia_padded_ref`."""
+    CUDA tensor: launches K2 (``psdia_walk_bulk``, ``psdia_walk_stride``
+    or ``psdia_walk_clusters`` of ``csrc/psdia_walk.cuh``, from
+    ``csrc/dia_stream.cu``) along the walk :func:`psdia_walk_plan` picks for
+    the pack's offsets, period and value type, or, on few tiles
+    (:func:`_direct_tiles`), one thread a row (``psdia_walk_direct``); CPU
+    tensor: :func:`spmv_psdia_padded_ref`."""
     _check("spmv_psdia_padded", A.pattern, A, xpad, A.rb)
     if xpad.is_cpu:
         return spmv_psdia_padded_ref(A, xpad)
+    _, args = _walk_launch(A.offsets, A.period, A.rb, xpad.element_size(),
+                           xpad.device)
+    return _psdia_launch(A, xpad, args)
+
+
+def _psdia_launch(A: PSDIA, xpad: torch.Tensor, args: int) -> torch.Tensor:
+    """Launch K2 with the walk's launch arguments at ``args``
+    (:func:`_walk_args`) on checked CUDA operands and count it."""
     y = torch.empty_like(xpad)
-    offs = _offsets_on(A.offsets, xpad.device)
     _build.launcher("psdia_spmv", xpad.dtype)(
-        xpad, A.pattern.data_ptr(), offs.data_ptr(), A.ndiags, A.rb,
-        xpad.data_ptr(), y.data_ptr(), A.npad, A.L, A.shape[0])
+        xpad, A.pattern.data_ptr(), args, xpad.data_ptr(), y.data_ptr(),
+        A.npad, A.L, A.shape[0])
     LAUNCHES["psdia"] += 1
     return y
+
+
+def _spmv_psdia_launch(A: PSDIA, xpad: torch.Tensor,
+                       plan: "WalkPlan") -> torch.Tensor:
+    """Launch K2 along ``plan`` (checked by :func:`check_walk`), whatever
+    the operand's size, on checked CUDA operands and count it: the walks
+    side by side on the card."""
+    check_walk(plan, A.offsets, xpad.element_size())
+    return _psdia_launch(A, xpad,
+                         _walk_args(plan, A.offsets, A.rb, xpad.device)[1])
 
 
 # ---------------------------------------------------------------------------
@@ -810,3 +842,239 @@ def spmm_sdia(A: SDIA, X: torch.Tensor) -> torch.Tensor:
 def spmm_psdia(A: PSDIA, X: torch.Tensor) -> torch.Tensor:
     """``A @ X`` with plain ``[n, nrhs]`` operands (K3b inside)."""
     return _spmm_plain_layout(A, X, spmm_psdia_padded_t)
+
+
+# ---------------------------------------------------------------------------
+# the walks of K2 and K8b (csrc/psdia_walk.cuh)
+# ---------------------------------------------------------------------------
+
+#: the walks' tile (``kWalkTile`` in ``csrc/psdia_walk.cuh``): 256 threads
+#: of 4 rows, K3b's tile at one right-hand side
+WALK_TILE = 1024
+#: slots of the cluster walk's ring (``kWalkStages``)
+WALK_STAGES = SPMM_STAGES
+#: windows the bulk stride walk keeps in flight, at most (``kBulkAhead``)
+BULK_AHEAD = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkPlan:
+    """The walk of K2 over a pack's padded row space, or of K8b over a
+    shard (:func:`psdia_walk_plan`), in tiles of :data:`WALK_TILE` rows;
+    column ``j`` of a window is ``xpad[j]`` (K2; zero outside ``[0,
+    npad)``) or of the ring ``[left | x | right]`` (K8b; ``x[0]`` is
+    column 0).
+
+    - ``stride == 0``, the cluster walk: cluster ``c`` is diagonals
+      ``starts[c]:starts[c + 1]``; for the tile at row ``k0`` its window
+      is columns ``k0 + a0[c] .. k0 + a0[c] + width[c]``, staged with the
+      cluster's coefficient rows in a ring of :data:`WALK_STAGES` slots.
+    - ``stride == M > 0``, the stride walk: one window a tile, columns
+      ``k0 + a0[0] .. k0 + a0[0] + width[0]``; diagonal ``d`` reads the
+      window of the tile ``jd[d] * M`` tiles away, so a tile reads
+      ``jspan`` windows and the ring holds those and the copies in flight.
+      With ``reuse`` (``M * WALK_TILE`` a multiple of the pattern's period)
+      every tile of a segment has the same coefficient rows and a block
+      stages them once per segment, ahead of the ring; otherwise each slot
+      holds a tile's rows before its window.  The windows and rows
+      arrive by bulk copy where the operands are 16-byte aligned
+      (``ahead`` windows in flight), else by ``cp.async`` (one in flight).
+
+    ``slot`` elements a slot, ``smem_bytes`` the ring of the ``cp.async``
+    walk; ``ahead`` is 0 on the cluster walk."""
+
+    stride: int
+    starts: tuple[int, ...]
+    a0: tuple[int, ...]
+    width: tuple[int, ...]
+    jd: tuple[int, ...]
+    slot: int
+    reuse: bool
+    smem_bytes: int
+    ahead: int = 0
+
+    @property
+    def nclusters(self) -> int:
+        return len(self.a0)
+
+    @property
+    def jspan(self) -> int:
+        """Consecutive column positions whose windows a tile reads (0 on
+        the cluster walk)."""
+        return max(self.jd) - min(self.jd) + 1 if self.stride else 0
+
+    @property
+    def nslot(self) -> int:
+        """Slots in the ``cp.async`` walk's ring, a constant of the walk
+        (the kernel's launcher derives it the same way)."""
+        return self.jspan + 1 if self.stride else WALK_STAGES
+
+    @property
+    def table(self) -> tuple[int, ...]:
+        """What the kernel reads: the cluster walk's starts, window starts
+        and widths (K3b's ``SpmmWindowPlan.table``), or the stride walk's
+        lowest ``jd``, window start, width and every ``jd``."""
+        if not self.stride:
+            return self.starts + self.a0 + self.width
+        return (min(self.jd), self.a0[0], self.width[0]) + self.jd
+
+
+
+def psdia_cluster_walk(offsets: tuple[int, ...],
+                       itemsize: int) -> WalkPlan:
+    """The cluster walk: K3b's at one right-hand side
+    (:func:`_cluster_walk`), which every operand has."""
+    k3b = _cluster_walk(tuple(int(o) for o in offsets), 1, itemsize)
+    assert k3b.tk == WALK_TILE and k3b.nslot == WALK_STAGES
+    return WalkPlan(stride=0, starts=k3b.starts, a0=k3b.a0, width=k3b.width,
+                    jd=(), slot=k3b.slot, reuse=False,
+                    smem_bytes=k3b.smem_bytes)
+
+
+@functools.lru_cache(maxsize=256)
+def psdia_walk_plan(offsets: tuple[int, ...], period: int,
+                    itemsize: int) -> WalkPlan:
+    """The walk of K2 and K8b for the diagonal ``offsets`` (stored order),
+    a pattern of ``period`` (any multiple of the true period is safe:
+    ``rb`` always is) and values of ``itemsize`` bytes, chosen as K3b
+    chooses at one right-hand side (:func:`psdia_spmm_plan`): the stride
+    walk (:func:`_stride_walk`) where its window is narrower than the
+    cluster walk's windows together (:func:`psdia_cluster_walk`), else the
+    cluster walk; windows on 16-byte boundaries.  The stride walk reuses
+    the coefficient rows where its stride is a multiple of ``period`` and
+    copies by bulk copy where the operands allow, with ``ahead`` windows
+    in flight: the most up to :data:`BULK_AHEAD` whose ring leaves room
+    for two blocks an SM, else one.  Its ``cp.async`` ring (operands not
+    16-byte aligned) keeps one window in flight beside the ``jspan`` it
+    reads (three blocks an SM, the kernel's register cap: more
+    ``cp.async`` windows in flight were slower on the card)."""
+    offsets = tuple(int(o) for o in offsets)
+    clusters = psdia_cluster_walk(offsets, itemsize)
+    k3b = _stride_walk(offsets, 1, itemsize)
+    if k3b is None or k3b.width[0] >= sum(clusters.width):
+        return clusters
+    nd, w = len(offsets), k3b.width[0]
+    jspan = max(k3b.jd) - min(k3b.jd) + 1
+    reuse = k3b.stride * WALK_TILE % int(period) == 0
+    coef = nd * WALK_TILE if reuse else 0
+    slot = _roundup(w if reuse else nd * WALK_TILE + w, 4)
+    ahead = next((a for a in range(BULK_AHEAD, 1, -1)
+                  if ((jspan + a) * slot + coef) * itemsize
+                  <= _TWO_BLOCK_SMEM), 1)
+    return WalkPlan(
+        stride=k3b.stride, starts=(0, nd), a0=k3b.a0, width=(w,),
+        jd=k3b.jd, slot=slot, reuse=reuse,
+        smem_bytes=((jspan + 1) * slot + coef) * itemsize, ahead=ahead)
+
+
+@functools.lru_cache(maxsize=256)
+def check_walk(plan: WalkPlan, offsets: tuple[int, ...],
+               itemsize: int) -> None:
+    """Raise ``ValueError`` where K2 or K8b could not run ``plan`` on the
+    diagonal ``offsets`` (stored order) with values of ``itemsize`` bytes:
+    every row of a tile must read inside a staged window, windows and
+    slots on 16-byte boundaries, each slot large enough for what is
+    staged in it, the ring inside the shared-memory budget.  ``reuse`` is
+    the pack's claim that the stride is a multiple of the pattern's period
+    (``pack_psdia`` verifies the period) and is taken as given.  Cached:
+    a plan is checked once per offsets and value type."""
+    nd, vec = len(offsets), 16 // itemsize
+    if plan.stride < 0 or not plan.nclusters:
+        raise ValueError(f"psdia walk: no walk in {plan}")
+    fault = None
+    if (len(plan.width) != plan.nclusters
+            or len(plan.starts) != plan.nclusters + 1
+            or plan.starts[0] != 0 or plan.starts[-1] != nd
+            or any(a >= b for a, b in zip(plan.starts, plan.starts[1:]))):
+        fault = f"clusters {plan.starts} do not split {nd} diagonals"
+    elif any(v % vec for v in plan.a0 + plan.width + (plan.slot,)):
+        fault = "windows or slots off 16-byte boundaries"
+    elif plan.stride:
+        span = plan.stride * WALK_TILE
+        reads = [(o - j * span, 0) for o, j in zip(offsets, plan.jd)]
+        need = plan.width[0] + (0 if plan.reuse else nd * WALK_TILE)
+        if plan.nclusters != 1 or len(plan.jd) != nd:
+            fault = f"a stride walk needs one window and {nd} jd"
+    else:
+        reads = [(o, c) for c in range(plan.nclusters)
+                 for o in offsets[plan.starts[c]:plan.starts[c + 1]]]
+        need = max((plan.starts[c + 1] - plan.starts[c]) * WALK_TILE
+                   + plan.width[c] for c in range(plan.nclusters))
+        if plan.jd or plan.reuse:
+            fault = "a cluster walk has no jd and no coefficient reuse"
+    if fault is None:
+        if any(off < plan.a0[c] or off + WALK_TILE > plan.a0[c] + plan.width[c]
+               for off, c in reads):
+            fault = "a row reads outside its window"
+        elif plan.slot < need:
+            fault = f"slots of {plan.slot} hold less than {need}"
+        elif ((plan.nslot + plan.ahead - 1 if plan.stride else plan.nslot)
+              * plan.slot + (nd * WALK_TILE if plan.reuse else 0)) * itemsize \
+                + (0 if plan.stride else 4 * (nd + len(plan.table))) \
+                > SPMM_SMEM_MAX:
+            fault = "the ring exceeds the shared-memory budget"
+        elif not (1 <= plan.ahead <= BULK_AHEAD if plan.stride
+                  else plan.ahead == 0):
+            fault = f"{plan.ahead} bulk windows in flight"
+        elif plan.jspan > 3:
+            fault = f"a tile reads {plan.jspan} windows, the kernel 3 at most"
+    if fault:
+        raise ValueError(f"psdia walk: the walk does not fit the offsets "
+                         f"{offsets}: {fault}")
+
+
+class _WalkArgs(ctypes.Structure):
+    """A walk's launch arguments as the kernels' launcher reads them
+    (``WalkArgs`` in ``csrc/psdia_walk.cuh``)."""
+
+    _fields_ = [("offsets", ctypes.c_void_p), ("table", ctypes.c_void_p),
+                ("rb", ctypes.c_int64), ("ndiags", ctypes.c_int),
+                ("nclusters", ctypes.c_int), ("stride", ctypes.c_int),
+                ("slot", ctypes.c_int), ("jspan", ctypes.c_int),
+                ("reuse", ctypes.c_int), ("ahead", ctypes.c_int),
+                ("direct_tiles", ctypes.c_int)]
+
+
+@functools.cache
+def _direct_tiles(device: torch.device) -> int:
+    """The most tiles of :data:`WALK_TILE` rows holding rows of the
+    operand for which K2 runs one thread a row (``psdia_walk_direct``)
+    and not its walk: four per SM of the card (an operand that small sits
+    in L2, and staging its tiles cost more than it saved: on the H100 the
+    walk lost to one thread a row at 144 and 256 tiles and held its own
+    at 1024); 0 off a card."""
+    if device.type != "cuda":
+        return 0
+    return 4 * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
+def _walk_args(plan: WalkPlan, offsets: tuple[int, ...], rb: int,
+               device: torch.device,
+               direct: bool = False) -> tuple[_WalkArgs, int]:
+    """The launch arguments of ``plan`` for the diagonal ``offsets`` and
+    row tile ``rb`` on ``device`` (the offsets and the plan's table as
+    device tensors, :func:`_offsets_on`, and the plan's scalars), made
+    once, and their address: a launch passes one pointer.  With
+    ``direct`` (K2's wrapper) an operand of at most :func:`_direct_tiles`
+    tiles runs one thread a row; otherwise (K8b, a walk asked for by
+    name) always the walk.  Entries are never dropped, like the tensors
+    they point to."""
+    args = _WalkArgs(_offsets_on(offsets, device).data_ptr(),
+                     _offsets_on(plan.table, device).data_ptr(), rb,
+                     len(offsets), plan.nclusters, plan.stride, plan.slot,
+                     plan.jspan, int(plan.reuse), plan.ahead,
+                     _direct_tiles(device) if direct else 0)
+    return args, ctypes.addressof(args)
+
+
+@functools.cache
+def _walk_launch(offsets: tuple[int, ...], period: int, rb: int,
+                 itemsize: int, device: torch.device):
+    """K2's walk for one pack key, made once: the plan
+    (:func:`psdia_walk_plan`, checked by :func:`check_walk`) and the
+    address of its launch arguments (:func:`_walk_args`, one thread a row
+    on few tiles)."""
+    plan = psdia_walk_plan(offsets, period, itemsize)
+    check_walk(plan, offsets, itemsize)
+    return plan, _walk_args(plan, offsets, rb, device, True)[1]
