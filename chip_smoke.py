@@ -12,10 +12,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``general.cu``, ``dist_stream.cu``, ``permute.cu`` and ``probes.cu``
    for ``sm_90a`` (one process each, started together) into one library
    under ``build/tpu_spmv_torch/``; then ``nvcc -Xptxas -v`` of
-   ``general.cu``, ``dia_stream.cu`` and ``probes.cu`` prints the
-   registers, spills and static shared memory of every instantiation of
-   ``gpr_spmv`` and ``gpr_spmm`` (``gpr_spmm_lanes`` on 2 or 4 lanes of one
-   RHS), K3b's two walks (``psdia_spmm_stride``, ``psdia_spmm_clusters``),
+   ``general.cu``, ``permute.cu``, ``dia_stream.cu`` and ``probes.cu``
+   prints the registers, spills and static shared memory of every
+   instantiation of ``gpr_spmv``, ``ell_spmv`` and ``gpr_spmm``
+   (``gpr_spmm_lanes`` on 2 or 4 lanes of one RHS), the gathers
+   ``permute_gather``, ``permute_pass1`` and ``permute_pass2``, K3b's two
+   walks (``psdia_spmm_stride``, ``psdia_spmm_clusters``),
    the walks of K2 and K8b (``csrc/psdia_walk.cuh``: ``psdia_walk_bulk``,
    ``psdia_walk_stride``, ``psdia_walk_clusters``) and ``tile_permute``;
 3. kernels against their plain PyTorch versions on small operands, f32 and
@@ -34,9 +36,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``x.grad`` against scipy ``A^T g``, the coefficient gradient against
    the same rule on the CPU); the permutation gathers ``permute_gather``
    (``apply_permutation`` at n = 1000, 16384, 60000, 99991 and
-   ``apply_tile_permutation``) and ``permute_gather_batched`` (1, 3, 32, 40
-   RHS), bitwise against their plain versions and ``x[perm]``, with and
-   without don't-care slots, and reproducible; the probe kernels
+   ``apply_tile_permutation``), the two-pass gather on the same perms
+   (chunks of 1024 words; each pass alone also against its plain
+   version, in f32: 8-byte words take the direct gather) and
+   ``permute_gather_batched`` (1, 3, 32, 40 RHS), bitwise against their
+   plain versions and ``x[perm]``, with and without don't-care slots, and
+   reproducible; the probe kernels
    ``copy_scale`` (K9), ``launch_probe`` (T1), ``segsum8`` (T2) and every
    ``tile_permute`` variant of T3/T4 at the probes' shapes, bitwise against
    their plain versions (and the tile variants against the numpy
@@ -85,11 +90,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    e. reorder and operator transforms: ``banded(4194304, 5)`` in a random
       node order (seed 3; 46,137,314 nonzeros) through ``plan_spmv`` (a
       general kernel) and ``reorder_plan`` (RCM, then ``dia_stream`` at
-      bandwidth 5: ``ro(x)`` launches the gather twice and K1 once),
-      against scipy; the shuffled 2048x2048 Poisson of 4b through
-      ``reorder_plan``, 50 fixed CG iterations in permuted space, and
-      ``apply_permutation_batched`` with its RCM perm on 32 rows of
-      4,194,304; ``plan.transpose()`` of 4a's 1M-row band (K1 on the
+      bandwidth 5: both perms planned on the card to the two-pass gather,
+      ``ro(x)`` launches it twice and K1 once), against scipy; the
+      shuffled 2048x2048 Poisson of 4b through ``reorder_plan``, 50 fixed
+      CG iterations in permuted space, and ``apply_permutation_batched``
+      with its RCM perm on 32 rows of 4,194,304; 4a's 1M-row band in its
+      natural order through ``reorder_plan`` (a local perm: two direct
+      gathers); ``plan.transpose()`` of 4a's 1M-row band (K1 on the
       transposed SDIA); one backward through ``spmv_psdia`` on 4a's PSDIA
       pack and ``matvec_differentiable`` on the power-law GPR plan with
       ``plan_spmv(P.T)``, against scipy; the screened Poisson
@@ -122,8 +129,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    its bound and one library call of the same function, a yardstick the
    port never calls (cuSPARSE: ``torch.sparse_csr_tensor @ x``,
    ``torch.sparse.mm`` for the SpMMs; ``torch.index_select`` for the
-   gathers); each SpMM also beside ``plan.spmm`` end to end and 32 times
-   its SpMV kernel; K3b's two walks (the plan's pick and the cluster walk)
+   gathers); ``ell_spmv`` also on the 2048x2048 Poisson in its natural
+   order beside the shuffled one; the gathers on the inputs of 4e (the
+   direct gather on the RCM perm of the 1M band in its natural order, the
+   two-pass gather on the RCM perm of the shuffled band, each pass also
+   alone beside its plain version and ``index_select`` /
+   ``index_copy_``) and on 4,194,304 f32 values with the identity and a
+   random perm, each beside the direct gather and ``index_select``,
+   bitwise, on rotated copies of its inputs that hold four times the L2,
+   replayed from a CUDA graph (and repeated on one input, in L2), every
+   record no faster than its bound, and ``ro(x)``
+   against its parent's recorded time; each SpMM also beside
+   ``plan.spmm`` end to end and 32 times its SpMV kernel; K3b's two walks (the plan's pick and the cluster walk)
    timed in turns on the 32-RHS pack and, with 8 right-hand sides, on the
    plan's own pack (``cg_multi_runner``'s shape) beside 8 launches of K2,
    each with its shared-memory plan; K2 on its walk (the plan's stride
@@ -153,6 +170,7 @@ non-zero before printing any result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -230,6 +248,11 @@ def library_ms(mat, x) -> float:
     return time_fn(fn, A, x, iters=20).median_s * 1e3
 
 
+#: the mangled names' letters of the kernels' template type arguments
+_MANGLED = {"f": "float", "d": "double", "h": "uint8", "t": "uint16",
+            "j": "uint32", "m": "uint64", "i": "int32", "l": "int64"}
+
+
 def ptxas_usage(sources: dict) -> list[str]:
     """Registers, spills and static shared memory of kernels, as
     ``nvcc -Xptxas -v`` reports them: ``sources`` maps a ``csrc`` file to
@@ -263,10 +286,10 @@ def ptxas_usage(sources: dict) -> list[str]:
                     # the template arguments follow the name in the mangling
                     # (I ... E; a type letter, or Li<n>E for an int)
                     seg = entry.split(f"{name}I", 1)[1]
-                    toks = re.findall(r"Li(-?\d+)E|Lb([01])E|([fd])",
+                    toks = re.findall(r"Li(-?\d+)E|Lb([01])E|([fdhtjmil])",
                                       seg[:seg.index("EEv")])
                     args = ", ".join(
-                        {"f": "float", "d": "double"}.get(t, n) if not b
+                        _MANGLED.get(t, n) if not b
                         else ("false", "true")[int(b)] for n, b, t in toks)
                     lines.append(f"{name}<{args}>: "
                                  f"{' '.join(line.split(':', 1)[-1].split())}")
@@ -516,7 +539,7 @@ def main() -> int:
     from tpu_spmv_torch.bench import probes as pr
     from tpu_spmv_torch.bench.harness import (time_chained, time_fn,
                                               verify_against_oracle)
-    from tpu_spmv_torch.bench.launch_ab import interleaved_ms
+    from tpu_spmv_torch.bench.launch_ab import graph_ms, interleaved_ms
     from tpu_spmv_torch.bench.roofline import (measured_copy_gbps,
                                                spmm_bytes, spmv_bytes,
                                                tile_permute_bytes)
@@ -572,7 +595,9 @@ def main() -> int:
     # phase 5 prints)
     t0 = time.perf_counter()
     for line in ptxas_usage({"general.cu": ("gpr_spmv", "gpr_spmm",
-                                            "gpr_spmm_lanes"),
+                                            "gpr_spmm_lanes", "ell_spmv"),
+                             "permute.cu": ("permute_gather", "permute_pass1",
+                                            "permute_pass2"),
                              "dia_stream.cu": ("psdia_spmm_stride",
                                                "psdia_spmm_clusters",
                                                "psdia_walk_bulk",
@@ -580,7 +605,7 @@ def main() -> int:
                                                "psdia_walk_clusters"),
                              "probes.cu": ("tile_permute",)}):
         print(f"ptxas {line}")
-    print(f"(nvcc -Xptxas -v of general.cu, dia_stream.cu and "
+    print(f"(nvcc -Xptxas -v of general.cu, permute.cu, dia_stream.cu and "
           f"probes.cu: {time.perf_counter() - t0:.2f} s)")
 
     # -- 3. kernels against plain versions, small operands ------------------
@@ -739,7 +764,10 @@ def main() -> int:
             "powerlaw800 has no virtual rows")
 
     # K7: the gathers, bitwise against their plain versions and x[perm],
-    # with and without don't-care slots (written as zero), reproducible
+    # with and without don't-care slots (written as zero), reproducible;
+    # the direct gather (the plan's pick at these sizes) and the two-pass
+    # gather (chunks of 1024 words; 8-byte words take the direct gather),
+    # and each pass alone against its plain version
     for n_p in (1000, 16384, 60000, 99991):
         p_full = rng.permutation(n_p)
         p_dc = p_full.copy()
@@ -747,30 +775,42 @@ def main() -> int:
         X64 = rng.random((40, n_p))
         for label, p_host in (("perm", p_full), ("perm with -1 slots", p_dc)):
             pplan = pk.plan_permutation(p_host, device=dev)
+            tplan = pk._plan(p_host, dev, "two_pass", 1024)
+            require(pplan.method == "direct", f"n={n_p}: {pplan.method}")
             real = p_host >= 0
             src = np.where(real, p_host, 0)
             for dt in (torch.float32, torch.float64):
-                cases = [(pk.apply_permutation, pk.apply_permutation_ref,
-                          torch.tensor(X64[0], dtype=dt, device=dev))]
+                x1 = torch.tensor(X64[0], dtype=dt, device=dev)
+                cases = [(pk.apply_permutation, pk.apply_permutation_ref, x1,
+                          pplan), (pk.apply_permutation,
+                                   pk.apply_permutation_ref, x1, tplan)]
                 cases += [(pk.apply_permutation_batched,
                            pk.apply_permutation_batched_ref,
-                           torch.tensor(X64[:k], dtype=dt, device=dev))
+                           torch.tensor(X64[:k], dtype=dt, device=dev), pplan)
                           for k in (1, 3, 32, 40)]
-                for kern, plain, xk in cases:
-                    y1, y2, yr = kern(pplan, xk), kern(pplan, xk), plain(
-                        pplan, xk)
+                for kern, plain, xk, plan_k in cases:
+                    y1, y2, yr = kern(plan_k, xk), kern(plan_k, xk), plain(
+                        plan_k, xk)
                     torch.cuda.synchronize()
                     yh, xh = y1.cpu().numpy(), xk.cpu().numpy()
                     require(torch.equal(y1, y2) and torch.equal(y1, yr)
                             and np.array_equal(yh[..., real],
                                                xh[..., src][..., real])
                             and not yh[..., ~real].any(),
-                            f"{kern.__name__} n={n_p} {label} {dt} "
-                            f"{tuple(xk.shape)}")
+                            f"{kern.__name__} {plan_k.method} n={n_p} {label} "
+                            f"{dt} {tuple(xk.shape)}")
+                if dt == torch.float32:
+                    stage = pk._one_pass(tplan, x1, 1)
+                    out = pk._one_pass(tplan, stage, 2)
+                    stage_r, out_r = pk.two_pass_ref(tplan, x1)
+                    require(torch.equal(stage, stage_r)
+                            and torch.equal(out, out_r),
+                            f"two-pass passes n={n_p} {label} {dt}")
             print(f"permute_gather(_batched) n={n_p} {label}: f32 and f64, "
-                  f"1 vector and 1, 3, 32, 40 rows, bitwise equal to the "
-                  f"plain versions and x[perm], reproducible, don't-care "
-                  f"slots zero")
+                  f"1 vector (direct, and two-pass in f32 with each pass "
+                  f"alone against its plain version) and 1, 3, 32, 40 rows, "
+                  f"bitwise equal to the plain versions and x[perm], "
+                  f"reproducible, don't-care slots zero")
     p_tile = rng.permutation(pk.TILE)
     tplan = pk.plan_tile_permutation(p_tile, device=dev)
     for dt in (torch.float32, torch.float64):
@@ -1364,18 +1404,29 @@ def main() -> int:
             f"reordered band: {ro.strategy}, bandwidth {ro.bandwidth_after}")
     xs64 = rng.random(NB)
     xs = torch.tensor(xs64, dtype=torch.float32, device=dev)
-    before = (pk.LAUNCHES["permute"], ds.LAUNCHES["sdia"])
+    t0 = time.perf_counter()
+    perm_plans = (ro.perm_plan, ro.inv_plan)    # planned once, on the card
+    torch.cuda.synchronize()
+    pplan_s = time.perf_counter() - t0
+    require(all(pp.method == "two_pass" for pp in perm_plans),
+            f"the shuffled band's perms planned to "
+            f"{[pp.method for pp in perm_plans]}")
+    before = (pk.LAUNCHES["permute_two_pass"], ds.LAUNCHES["sdia"])
     ys = ro(xs)
     torch.cuda.synchronize()
-    spent = (pk.LAUNCHES["permute"] - before[0],
+    spent = (pk.LAUNCHES["permute_two_pass"] - before[0],
              ds.LAUNCHES["sdia"] - before[1])
     rel_ro = rel_err(ys.cpu(), shuffled @ xs64)
     rel_direct = rel_err(direct(xs).cpu(), shuffled @ xs64)
     ro_ms = time_fn(ro, xs, iters=50).median_s * 1e3
     direct_ms = time_fn(direct, xs, iters=50).median_s * 1e3
-    print(f"ro(x): launches (permute_gather, K1) {spent} | rel err vs scipy "
-          f"f64 {rel_ro:.2e} (direct {rel_direct:.2e}) | {ro_ms:.4f} ms per "
-          f"product against the direct {direct.strategy} plan's "
+    print(f"ro(x): its two perms planned to the two-pass gather (chunks of "
+          f"{ro.perm_plan.chunk} words, far_share "
+          f"{pk.far_share(ro.perm_plan.perm):.3f}) in {pplan_s:.3f} s on "
+          f"the card | launches (two-pass gathers, K1) {spent} | rel err vs "
+          f"scipy f64 {rel_ro:.2e} (direct {rel_direct:.2e}) | {ro_ms:.4f} "
+          f"ms per product (its parent with the direct gather: 0.1931-0.1932 "
+          f"ms, PERF.md) against the direct {direct.strategy} plan's "
           f"{direct_ms:.4f} ms")
     require(spent == (2, 1), f"ro(x) launched {spent}")
     require(rel_ro <= ORACLE_TOL["float32"], f"ro(x) rel err {rel_ro:.2e}")
@@ -1425,6 +1476,26 @@ def main() -> int:
           f"f32: bitwise equal to the plain version {same}")
     require(same, "batched gather at full width")
     del YB
+    # the 1M-row band of 4a in its natural order: its RCM perm is local
+    # (neighbouring slots read neighbouring sources), so both of ro's
+    # perms take the direct gather
+    ro_b = reorder_plan(band, dtype=torch.float32, device=dev)
+    xr64 = rng.random(band.shape[0])
+    before = pk.LAUNCHES["permute"]
+    yr = ro_b(torch.tensor(xr64, dtype=torch.float32, device=dev))
+    torch.cuda.synchronize()
+    rel_b = rel_err(yr.cpu(), band @ xr64)
+    spent_b = pk.LAUNCHES["permute"] - before
+    print(f"reorder_plan(banded(1000000,5)) in its natural order: "
+          f"{ro_b.strategy}, perms {ro_b.perm_plan.method} (far_share "
+          f"{pk.far_share(ro_b.perm_plan.perm):.3f}) | direct gathers "
+          f"{spent_b} | rel err vs scipy {rel_b:.2e}")
+    require(ro_b.perm_plan.method == ro_b.inv_plan.method == "direct"
+            and spent_b == 2 and rel_b <= ORACLE_TOL["float32"],
+            f"natural band reordered: {ro_b.perm_plan.method}, {spent_b}, "
+            f"{rel_b:.2e}")
+    nat_plan = ro_b.perm_plan    # the direct gather's input, timed in 5
+    del ro_b, yr
 
     xb64 = rng.random(band.shape[0])
     xb = torch.tensor(xb64, dtype=torch.float32, device=dev)
@@ -1503,7 +1574,8 @@ def main() -> int:
     elaunches = {**pk.LAUNCHES, "sdia": ds.LAUNCHES["sdia"],
                  "psdia": ds.LAUNCHES["psdia"], "gpr": gpr.LAUNCHES["gpr"]}
     print(f"launch counts on the reorder / transform path: {elaunches}")
-    for k in ("permute", "permute_batched", "sdia", "psdia", "gpr"):
+    for k in ("permute", "permute_two_pass", "permute_batched", "sdia",
+              "psdia", "gpr"):
         require(elaunches[k] > 0, f"{k} never launched in 4e")
 
     # -- 4f. block formats at full width ----------------------------------
@@ -1996,48 +2068,202 @@ def main() -> int:
         print(f"plan.spmm(X) {name} via {p.strategy} end to end, {NRHS} RHS: "
               f"{pms:.4f} ms")
         del bag, lib_A
-    # the gathers of 4e at their shapes: ro(x)'s RCM perm and a random
-    # perm on 4,194,304 f32 values, the batched gather on 32 rows
+    # K4 on the 2048x2048-grid Poisson in its natural order beside the
+    # shuffled one above: the same slots and bytes, local x gathers
+    lap_n = utils.laplacian_2d(2048)
+    An = ell.pack_ell(lap_n, dtype=torch.float32, device=dev)
+    xn = torch.tensor(rng.random(lap_n.shape[1]), dtype=torch.float32,
+                      device=dev)
+    nums_n = timed("ell_spmv", An, ell.spmv_ell_main, ell.spmv_ell_packed_ref,
+                   xn, lap_n, "natural laplacian_2d(2048) (forced)")
+    print(f"    ell_spmv on the 2048^2 Poisson, natural / shuffled order: "
+          f"{nums_n['ms']:.4f} / "
+          f"{spmv_ms['ell_spmv', 'shuffled laplacian_2d(2048)']:.4f} ms")
+    del An, xn, lap_n
+    # the gathers of 4e at their shapes.  A record is timed on the input
+    # the main path gives its kernel -- the direct gather on the RCM perm
+    # of the 1M band in its natural order, the two passes on ro(x)'s RCM
+    # perm of the shuffled band -- rotating copies of its inputs that hold
+    # four times the card's L2 and keeping every output, so that each call
+    # reads from and writes to device memory, replayed from one CUDA graph;
+    # the same calls repeated on one input (which then stays in L2) are
+    # printed beside.  The identity and a random perm are side lines.
+    l2_bytes = getattr(torch.cuda.get_device_properties(dev),
+                       "L2_cache_size", 50 << 20)
+
+    def copies(pplan, xk, nbytes):
+        """``(plan, x)`` pairs with their own tensors, enough that their
+        bytes (``nbytes`` a call) hold four times the L2."""
+        count = max(2, -(-4 * l2_bytes // nbytes))
+        return [(dataclasses.replace(pplan, **{
+                    f: getattr(pplan, f).clone() for f in
+                    ("perm", "src_off", "dst_off", "bucket_ptr")
+                    if getattr(pplan, f) is not None}), xk.clone())
+                for _ in range(count)]
+
+    def rotated_ms(fn, sets, graph=True):
+        """ms per call of ``fn(*s)``, ``s`` cycling through ``sets``:
+        replayed from one CUDA graph of two rounds that keeps every
+        output, or (``graph=False``, or a call that cannot be captured)
+        two rounds a timing on the host's loop."""
+        keep, turn = [], itertools.cycle(sets)
+        if graph:
+            try:
+                return graph_ms(lambda: keep.append(fn(*next(turn))),
+                                calls=2 * len(sets), replays=5)
+            except RuntimeError as e:
+                print(f"    (not captured: {str(e)[:80]})")
+            finally:
+                keep.clear()
+        return time_fn(lambda: fn(*next(turn)),
+                       iters=2 * len(sets)).median_s * 1e3
+
     def timed_gather(kname, pplan, xk, label):
         batched = xk.dim() == 2
         kern, plain = ((pk.apply_permutation_batched,
                         pk.apply_permutation_batched_ref) if batched else
                        (pk.apply_permutation, pk.apply_permutation_ref))
         idx = pplan.perm.long()       # no don't-care slots on these paths
+        staged = not batched and pk._staged(pplan, xk)
+        direct_plan = (pk._plan(idx, dev, "direct", pk.CHUNK) if staged
+                       else pplan)
         yk, yp = kern(pplan, xk), plain(pplan, xk)
+        yd = kern(direct_plan, xk)
         yl = torch.index_select(xk, xk.dim() - 1, idx)
         torch.cuda.synchronize()
         err = float((yk - yp).abs().max())
-        require(torch.equal(yk, yp) and torch.equal(yk, yl),
-                f"{kname} {label} vs plain / index_select")
-        del yk, yp, yl
-        iters = 20 if batched else 100
-        ms = time_fn(kern, pplan, xk, iters=iters).median_s * 1e3
-        plain_ms = time_fn(plain, pplan, xk, iters=iters).median_s * 1e3
-        lib_ms = time_fn(torch.index_select, xk, xk.dim() - 1, idx,
-                         iters=iters).median_s * 1e3
+        require(torch.equal(yk, yp) and torch.equal(yk, yl)
+                and torch.equal(yk, yd),
+                f"{kname} {label} vs plain / direct / index_select")
+        del yk, yp, yl, yd
         nrhs = xk.shape[0] if batched else 1
         # x read once and out written once per row, the index read once
         nbytes = (2 * nrhs * pplan.n * xk.element_size()
                   + pplan.n * pplan.perm.element_size())
         bound_ms, bound_by = bound(nbytes, 0)
-        print(f"{kname} {label}: {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s) "
-              f"| bound {bound_ms:.4f} ms ({bound_by}, "
-              f"{100 * bound_ms / ms:.1f}%) | plain {plain_ms:.4f} ms | "
-              f"index_select {lib_ms:.4f} ms (kernel/index_select "
-              f"{ms / lib_ms:.2f}) | max abs err {err:.3e}")
+        form = ("" if batched else
+                f"{'two-pass' if staged else 'direct'} gather ")
+        if batched:       # 32 rows: its bytes outgrow the L2 in one call
+            iters = 20
+            ms = time_fn(kern, pplan, xk, iters=iters).median_s * 1e3
+            plain_ms = time_fn(plain, pplan, xk, iters=iters).median_s * 1e3
+            lib_ms = time_fn(torch.index_select, xk, 1, idx,
+                             iters=iters).median_s * 1e3
+            print(f"{kname} {label}: {ms:.4f} ms ({nbytes / ms / 1e6:.1f} "
+                  f"GB/s) | bound {bound_ms:.4f} ms ({bound_by}, "
+                  f"{100 * bound_ms / ms:.1f}%) | plain {plain_ms:.4f} ms | "
+                  f"index_select {lib_ms:.4f} ms (kernel/index_select "
+                  f"{ms / lib_ms:.2f}) | bitwise equal True")
+        else:
+            sets = copies(pplan, xk, nbytes)
+            ms = rotated_ms(kern, sets)
+            plain_ms = rotated_ms(plain, sets)
+            lib_ms = rotated_ms(lambda v, at: torch.index_select(v, 0, at),
+                                [(v, q.perm.long()) for q, v in sets])
+            warm = {"kernel": graph_ms(lambda: kern(pplan, xk)),
+                    "index_select": graph_ms(
+                        lambda: torch.index_select(xk, 0, idx))}
+            if staged:
+                dsets = [(pk._plan(q.perm, dev, "direct", pk.CHUNK), v)
+                         for q, v in sets]
+                warm["direct"] = graph_ms(lambda: kern(direct_plan, xk))
+                dms = rotated_ms(kern, dsets)
+                del dsets
+            del sets
+            beside = (f" | direct gather {dms:.4f} ms" if staged else "")
+            print(f"{kname} {label}: {form}{ms:.4f} ms ({nbytes / ms / 1e6:.1f}"
+                  f" GB/s){beside} | bound {bound_ms:.4f} ms ({bound_by}, "
+                  f"{100 * bound_ms / ms:.1f}%) | plain {plain_ms:.4f} ms | "
+                  f"index_select {lib_ms:.4f} ms (kernel/index_select "
+                  f"{ms / lib_ms:.2f}) | bitwise equal True | max abs err "
+                  f"{err:.3e} (rotated inputs, replayed)")
+            print("    repeated on one input (in L2), replayed: " + " | ".join(
+                f"{k} {v:.4f} ms" for k, v in warm.items()))
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms}
+
+    def timed_pass(which, pplan, xk):
+        """One pass of the two-pass gather alone on rotated inputs, beside
+        its plain version (the plan's pairs, then one index_select or
+        index_copy_) and one library call on the pairs precomputed;
+        bitwise equal to both."""
+        m, w = pplan.src_off.numel(), xk.element_size()
+        # x or out once, the stage once, the pairs' 2-byte offsets once,
+        # the bucket table once
+        nbytes = (pplan.n + m) * w + 2 * m + 4 * (pplan.nchunks ** 2 + 1)
+        sets = copies(pplan, xk, nbytes)
+        if which == 2:        # each copy's stage, filled by pass 1
+            sets = [(q, pk._one_pass(q, v, 1)) for q, v in sets]
+        pairs = [pk.two_pass_pairs(q)[which - 1] for q, _ in sets]
+        if which == 1:
+            def plain(q, v):
+                return torch.index_select(v, 0, pk.two_pass_pairs(q)[0])
+
+            def lib(q, v, at):
+                return torch.index_select(v, 0, at)
+        else:
+            def plain(q, v):
+                return torch.zeros(q.n, dtype=v.dtype, device=v.device
+                                   ).index_copy_(0, pk.two_pass_pairs(q)[1],
+                                                 v)
+
+            def lib(q, v, at):
+                return torch.zeros(q.n, dtype=v.dtype,
+                                   device=v.device).index_copy_(0, at, v)
+
+        def kern(q, v):
+            return pk._one_pass(q, v, which)
+
+        q0, v0 = sets[0]
+        yk, yp, yl = kern(q0, v0), plain(q0, v0), lib(q0, v0, pairs[0])
+        torch.cuda.synchronize()
+        require(torch.equal(yk, yp) and torch.equal(yk, yl),
+                f"permute pass {which} vs its plain version")
+        err = float((yk - yp).abs().max())
+        del yk, yp, yl
+        ms = rotated_ms(kern, sets)
+        # the plain version sizes its pairs on the host: not capturable
+        plain_ms = rotated_ms(plain, sets, graph=False)
+        lib_ms = rotated_ms(lib, [(q, v, at) for (q, v), at in
+                                  zip(sets, pairs)])
+        warm_ms = graph_ms(lambda: kern(q0, v0))
+        del sets, pairs
+        bound_ms, bound_by = bound(nbytes, 0)
+        print(f"    permute_pass{which} alone: {ms:.4f} ms | bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}%) | "
+              f"plain {plain_ms:.4f} ms | "
+              f"{'index_select' if which == 1 else 'index_copy_'} "
+              f"{lib_ms:.4f} ms | bitwise equal True (rotated inputs, "
+              f"replayed; repeated on one input {warm_ms:.4f} ms)")
         return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": lib_ms}
 
     xs = torch.tensor(xs64, dtype=torch.float32, device=dev)
+    xnat = torch.tensor(rng.random(nat_plan.n), dtype=torch.float32,
+                        device=dev)
+    require(nat_plan.method == "direct", f"natural band: {nat_plan.method}")
     perm_records = [{
         "name": "permute_gather", "route": "cuda",
         "source": "tpu_spmv_torch/csrc/permute.cu",
         "replaces": "tpu_spmv/kernels/permute.py:888",
         "launches": elaunches["permute"],
-        **timed_gather("permute_gather", ro.perm_plan, xs,
-                       f"n={NB} f32, RCM perm of the shuffled band")}]
+        **timed_gather("permute_gather", nat_plan, xnat,
+                       f"n={nat_plan.n} f32, RCM perm of the natural band")}]
+    id_plan = pk.plan_permutation(torch.arange(NB, device=dev), device=dev)
+    require(id_plan.method == "direct", f"identity: {id_plan.method}")
+    timed_gather("permute_gather", id_plan, xs, f"n={NB} f32, identity perm")
+    timed_gather("permute_gather", ro.perm_plan, xs,
+                 f"n={NB} f32, RCM perm of the shuffled band")
+    for which in (1, 2):
+        perm_records.append({
+            "name": f"permute_pass{which}", "route": "cuda",
+            "source": "tpu_spmv_torch/csrc/permute.cu",
+            "replaces": ("tpu_spmv/kernels/permute.py:888" if which == 1
+                         else "tpu_spmv/kernels/permute.py:892"),
+            "launches": elaunches["permute_two_pass"],
+            **timed_pass(which, ro.perm_plan, xs)})
     rand_plan = pk.plan_permutation(np.random.default_rng(5).permutation(NB),
                                     device=dev)
     timed_gather("permute_gather", rand_plan, xs, f"n={NB} f32, random perm")
@@ -2049,9 +2275,15 @@ def main() -> int:
         **timed_gather("permute_gather_batched", ro_p.perm_plan, XB,
                        f"[{NRHS}, {msh.shape[0]}] f32, RCM perm of the "
                        f"shuffled Poisson")})
+    for r in perm_records:
+        require(r["ms"] >= r["bound_ms"], f"{r['name']}: {r['ms']:.4f} ms "
+                f"under its bound {r['bound_ms']:.4f} ms")
     one_ms = time_fn(pk.apply_permutation, rand_plan, xs).median_s * 1e3
     print(f"    {NRHS} x permute_gather (random perm): {NRHS * one_ms:.4f} ms")
-    del ro, ro_p, XB, rand_plan, xs
+    ro_ms = time_fn(ro, xs, iters=50).median_s * 1e3
+    print(f"ro(x) on the shuffled band: {ro_ms:.4f} ms (its parent with the "
+          f"direct gather: 0.1931-0.1932 ms, PERF.md; {card})")
+    del ro, ro_p, XB, rand_plan, xs, id_plan, nat_plan, xnat
     print(f"cg_multi_runner f32, 8 RHS, ms/iteration: {cgm}")
 
     # the probe kernels at the probes' shapes: the probe path's times,

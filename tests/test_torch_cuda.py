@@ -715,6 +715,154 @@ def test_permute_kernels_match_plain_on_card(card, dtype, nrhs):
     assert not y1[..., ~real].any()
 
 
+def _perm_cases(n: int, rng):
+    """Index vectors of ``n`` slots: name -> perm (negative = don't care)."""
+    local = np.argsort(np.arange(n) + rng.integers(-16, 17, n), kind="stable")
+    dc = rng.permutation(n)
+    dc[rng.random(n) < 0.1] = -1
+    return {"identity": np.arange(n), "random": rng.permutation(n),
+            "banded RCM-like": local, "repeated": rng.integers(0, n, n),
+            "don't care": dc}
+
+
+#: word types of 1, 2, 4 and 8 bytes
+_WORDS = [torch.uint8, torch.int16, torch.float32, torch.float64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("word", _WORDS)
+@pytest.mark.parametrize("chunk,n", [(1024, 1), (1024, 31), (1024, 1023),
+                                     (1024, 1024), (1024, 1025),
+                                     (1024, 5 * 1024 + 77),
+                                     (16384, 3 * 16384 + 5)])
+def test_permute_forms_match_x_perm_on_card(card, word, chunk, n):
+    """The direct gather (int32 and int64 indices) and the two-pass gather
+    (both passes, chunks of ``chunk`` words: one, several with a ragged
+    last one; 16384 words of 4 bytes need 64 KiB of shared memory; each
+    pass alone too) against ``x[perm]`` and the plain version, bitwise, on
+    identity, random, banded, repeated and don't-care perms (int32 and
+    int64 input), each call counted under its form (a two-pass plan
+    gathers 8-byte words directly)."""
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.integers(1, 100, n)).to(word).to(card)
+    for name, perm in _perm_cases(n, rng).items():
+        real = perm >= 0
+        want = x[torch.from_numpy(np.where(real, perm, 0)).to(card)]
+        want[torch.from_numpy(~real).to(card)] = 0
+        for itype in (np.int32, np.int64):
+            p = perm.astype(itype)
+            two = tperm._plan(p, card, "two_pass", chunk)
+            direct = tperm._plan(p, card, "direct", chunk)
+            assert (two.method, direct.method) == ("two_pass", "direct")
+            wide = dataclasses.replace(direct, perm=direct.perm.long())
+            staged = x.element_size() <= 4
+            for plan, key in ((two, "permute_two_pass" if staged
+                               else "permute"),
+                              (direct, "permute"), (wide, "permute")):
+                before = tperm.LAUNCHES[key]
+                y = tperm.apply_permutation(plan, x)
+                torch.cuda.synchronize()
+                assert tperm.LAUNCHES[key] == before + 1
+                assert torch.equal(y, want), (name, itype, plan.method)
+                assert torch.equal(y, tperm.apply_permutation_ref(plan, x))
+            if staged:
+                before = tperm.LAUNCHES["permute_pass"]
+                stage = tperm._one_pass(two, x, 1)
+                y = tperm._one_pass(two, stage, 2)
+                torch.cuda.synchronize()
+                assert tperm.LAUNCHES["permute_pass"] == before + 2
+                assert torch.equal(stage, tperm.two_pass_ref(two, x)[0])
+                assert torch.equal(y, want), (name, itype, "one pass")
+
+
+@pytest.mark.cuda
+def test_permute_plan_on_card_equals_the_cpu_plan(card):
+    """The plan built on the card with torch ops is the plan built on the
+    CPU, array for array, and picks the same form."""
+    rng = np.random.default_rng(11)
+    n = (1 << 21) + 333
+    for perm in (rng.permutation(n), np.arange(n)):
+        a = tperm.plan_permutation(perm, device=card)
+        b = tperm.plan_permutation(perm, device="cpu")
+        assert (a.method, a.chunk) == (b.method, b.chunk)
+        for f in ("perm", "src_off", "dst_off", "bucket_ptr"):
+            va, vb = getattr(a, f), getattr(b, f)
+            assert (va is None) == (vb is None)
+            if va is not None:
+                assert torch.equal(va.cpu(), vb), f
+
+
+def _ell_widths(rng):
+    """A matrix whose 32-row slices are 0, 1, ..., 128 slots wide, then an
+    empty slice, a slice with a 200-entry row (128 slots and a side COO)
+    and 7 rows of a last slice; values ``m * 2**e`` with 12-bit (f32) or
+    26-bit (f64) integers ``m``, so that every product is exact and the
+    kernel's sums can be emulated in the value type, and x the same."""
+    import scipy.sparse as sp
+
+    ncol = 5000
+    lens = []
+    for w in range(129):
+        row = rng.integers(0, w + 1, 32)
+        row[rng.integers(0, 32)] = w
+        lens += list(row)
+    lens += [0] * 32
+    lens += [200] + list(rng.integers(0, 40, 31))
+    lens += list(rng.integers(0, 14, 7))
+    rows = np.repeat(np.arange(len(lens)), lens)
+    cols = np.concatenate([rng.choice(ncol, k, replace=False) for k in lens])
+    m = sp.csr_matrix((np.ones(len(cols)), (rows, cols)),
+                      shape=(len(lens), ncol))
+    m.sort_indices()
+    return m
+
+
+def _dyadic(rng, k, bits):
+    return (rng.integers(1, 2**bits, k) * rng.choice([-1.0, 1.0], k)
+            * np.exp2(rng.integers(-20, 21, k)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_spmv_sums_its_slots_in_order_on_card(card, dtype):
+    """ell_spmv bitwise against its slots summed in order, slot 0 to the
+    slice's width - 1, emulated on the host from the pack's own arrays
+    (exact products: the FMA rounds only the sum, as the emulation's add
+    does): widths 0 to MAX_WIDTH (every remainder of the slot batch), an
+    empty slice, nrow not a multiple of 32, and the side COO's row; the
+    full product against scipy."""
+    rng = np.random.default_rng(12)
+    bits, npt = ((12, np.float32) if dtype == torch.float32
+                 else (26, np.float64))
+    m = _ell_widths(rng)
+    assert m.shape[0] % 32 and m.getnnz(axis=1).max() > tell.MAX_WIDTH
+    m.data = _dyadic(rng, m.nnz, bits)
+    x64 = _dyadic(rng, m.shape[1], bits)
+    A = tell.pack_ell(m, dtype=dtype, device=card)
+    widths = np.diff(A.slice_ptr.cpu().numpy()) // 32
+    assert set(range(tell.MAX_WIDTH + 1)) <= set(widths.tolist())
+    assert A.side.nnz > 0
+    x = torch.tensor(x64, dtype=dtype, device=card)
+    y = tell.spmv_ell_main(A, x)
+    # the emulation: row r of slice s adds slot j at slice_ptr[s] + 32 j + r
+    vals, cols = A.vals.cpu().numpy(), A.cols.cpu().numpy()
+    ptr, xh = A.slice_ptr.cpu().numpy(), x.cpu().numpy()
+    nrow = m.shape[0]
+    r = np.arange(nrow)
+    base, w = ptr[r // 32] + r % 32, widths[r // 32]
+    acc = np.zeros(nrow, dtype=npt)
+    for j in range(int(widths.max())):
+        at = np.where(j < w, base + 32 * j, 0)
+        term = np.where(j < w, vals[at] * xh[cols[at]], 0).astype(npt)
+        acc = (acc + term).astype(npt)
+    assert np.array_equal(y.cpu().numpy(), acc)
+    assert torch.equal(y, tell.spmv_ell_main(A, x))
+    full = tell.spmv_ell_packed(A, x).cpu().double().numpy()
+    ref = m @ x64
+    gate = 2e-5 if dtype == torch.float32 else 1e-10
+    assert np.max(np.abs(full - ref)) <= gate * np.max(np.abs(ref))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_transposed_packs_and_grads_on_card(card, dtype):
@@ -757,21 +905,23 @@ def test_transposed_packs_and_grads_on_card(card, dtype):
 
 @pytest.mark.cuda
 def test_reordered_operator_on_card(card):
-    """ro(x) launches the gather twice and K1 once, and matches scipy."""
-    n = 5000
-    band = utils.banded(n, 4, seed=9)
-    p = np.random.default_rng(9).permutation(n)
-    shuffled = band[p][:, p].tocsr()
-    ro = reorder_plan(shuffled, dtype=torch.float32, device=card)
-    assert ro.strategy == "rcm+dia_stream" and ro.bandwidth_after == 4
-    x64 = np.random.default_rng(10).random(n)
-    before = (tperm.LAUNCHES["permute"], tds.LAUNCHES["sdia"])
-    y = ro(torch.tensor(x64, dtype=torch.float32, device=card))
-    assert (tperm.LAUNCHES["permute"], tds.LAUNCHES["sdia"]) == \
-        (before[0] + 2, before[1] + 1)
-    ref = shuffled @ x64
-    assert np.max(np.abs(y.cpu().double().numpy() - ref)) <= \
-        2e-5 * np.max(np.abs(ref))
+    """ro(x) launches the gather twice and K1 once, and matches scipy: on
+    a small shuffled band (the direct gather) and on one of 2**21 + 4097
+    rows (the planned two-pass gather)."""
+    for n, key in ((5000, "permute"), ((1 << 21) + 4097, "permute_two_pass")):
+        band = utils.banded(n, 4, seed=9)
+        p = np.random.default_rng(9).permutation(n)
+        shuffled = band[p][:, p].tocsr()
+        ro = reorder_plan(shuffled, dtype=torch.float32, device=card)
+        assert ro.strategy == "rcm+dia_stream" and ro.bandwidth_after == 4
+        x64 = np.random.default_rng(10).random(n)
+        before = (tperm.LAUNCHES[key], tds.LAUNCHES["sdia"])
+        y = ro(torch.tensor(x64, dtype=torch.float32, device=card))
+        assert (tperm.LAUNCHES[key], tds.LAUNCHES["sdia"]) == \
+            (before[0] + 2, before[1] + 1)
+        ref = shuffled @ x64
+        assert np.max(np.abs(y.cpu().double().numpy() - ref)) <= \
+            2e-5 * np.max(np.abs(ref))
 
 
 @pytest.mark.cuda
@@ -851,9 +1001,9 @@ def test_block_products_ignore_tf32(card):
 
 
 def _launch_cases(card):
-    """T1, T2, K2, ``gpr_spmv``, ``permute_gather`` and K3b on small
-    operands: name -> (input, kernel, plain version, launch counter, key,
-    bitwise)."""
+    """T1, T2, K2, ``gpr_spmv``, ``permute_gather`` (both forms) and K3b
+    on small operands: name -> (input, kernel, plain version, launch
+    counter, key, bitwise)."""
     from tpu_spmv_torch.bench import probes as pr
 
     rng = np.random.default_rng(13)
@@ -864,6 +1014,7 @@ def _launch_cases(card):
     G = tgpr.pack_gpr(utils.power_law(3000, 3000, 12, seed=2),
                       dtype=torch.float32, device=card)
     plan = tperm.plan_permutation(rng.permutation(60_013), device=card)
+    two = tperm._plan(rng.permutation(60_013), card, "two_pass", 1024)
 
     def dev(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(card)
@@ -891,11 +1042,15 @@ def _launch_cases(card):
                            lambda v: tperm.apply_permutation(plan, v),
                            lambda v: tperm.apply_permutation_ref(plan, v),
                            tperm.LAUNCHES, "permute", True),
+        "permute_two_pass": (dev(rng.random(60_013)),
+                             lambda v: tperm.apply_permutation(two, v),
+                             lambda v: tperm.apply_permutation_ref(two, v),
+                             tperm.LAUNCHES, "permute_two_pass", True),
     }
 
 
 _LAUNCH_NAMES = ["launch_probe", "segsum8", "psdia_spmv", "gpr_spmv",
-                 "permute_gather", "psdia_spmm"]
+                 "permute_gather", "permute_two_pass", "psdia_spmm"]
 
 
 @pytest.mark.cuda
@@ -926,7 +1081,7 @@ def test_launch_goes_to_the_current_side_stream(card, name):
 
 @pytest.mark.cuda
 def test_launches_replay_from_one_cuda_graph(card):
-    """The six kernels captured in one CUDA graph: each wrapper call is
+    """The seven kernels captured in one CUDA graph: each wrapper call is
     counted once at capture (a replay is no launch of the wrapper), and
     every replay equals the eager results bitwise, also after the inputs
     change in place."""

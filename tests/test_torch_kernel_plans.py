@@ -25,6 +25,8 @@ from tpu_spmv_torch import COO, convert, utils
 from tpu_spmv_torch.kernels import dia_stream as tds
 from tpu_spmv_torch.kernels import gpr as tgpr
 
+torch.set_num_threads(1)
+
 FIXTURES = Path(__file__).resolve().parent / "fixtures"
 
 
@@ -185,38 +187,42 @@ def _emulate(A, Xt: np.ndarray, plan) -> np.ndarray:
     cluster ``c``'s window of the tile, the stride walk diagonal ``d``'s
     window of the tile ``jd[d] * stride`` tiles away (which exists for
     every tile, pads and all, the kernel reads it at a window position
-    outside the column, zero outside ``[0, npad)``)."""
+    outside the column, zero outside ``[0, npad)``).  Every tile of a
+    chunk at once: the same sums, element for element, as one tile at a
+    time."""
     nrhs, npad = Xt.shape
     pat = A.pattern.numpy()
     Y = np.zeros_like(Xt)
     ntiles = -(-A.shape[0] // plan.tk)
+    k0 = A.L + plan.tk * np.arange(ntiles)             # [ntiles]
+    slots = (k0[:, None] + np.arange(plan.tk)) % A.rb  # [ntiles, tk]
 
-    def window(q0, nq, start, w):
-        cols = start + np.arange(w)
+    def windows(q0, nq, start, w):
+        """The windows of every tile: [nq, ntiles, w]."""
+        cols = start[:, None] + np.arange(w)
         inside = (cols >= 0) & (cols < npad)
-        win = np.zeros((nq, w))
-        win[:, inside] = Xt[q0:q0 + nq, cols[inside]]
-        return win
+        return np.where(inside, Xt[q0:q0 + nq][:, np.where(inside, cols, 0)],
+                        0.0)
 
+    rows = k0[:, None] + np.arange(plan.tk)
+    keep = rows < A.L + A.shape[0]
     for chunk in range(plan.nchunks):
         q0 = chunk * plan.qcap
         nq = min(plan.qcap, nrhs - q0)
-        for t in range(ntiles):
-            k0 = A.L + t * plan.tk
-            slots = (k0 + np.arange(plan.tk)) % A.rb
-            acc = np.zeros((nq, plan.tk))
-            for c in range(plan.nclusters):
-                a0, w = plan.a0[c], plan.width[c]
-                for d in range(plan.starts[c], plan.starts[c + 1]):
-                    shift = (plan.jd[d] * plan.stride * plan.tk
-                             if plan.stride else 0)
-                    win = window(q0, nq, k0 + shift + a0, w)
-                    idx = np.arange(plan.tk) + A.offsets[d] - shift - a0
-                    assert idx.min() >= 0 and idx.max() < w
-                    acc = acc + pat[d, slots] * win[:, idx]
-            rows = k0 + np.arange(plan.tk)
-            keep = rows < A.L + A.shape[0]
-            Y[q0:q0 + nq, rows[keep]] = acc[:, keep]
+        acc = np.zeros((nq, ntiles, plan.tk))
+        for c in range(plan.nclusters):
+            a0, w = plan.a0[c], plan.width[c]
+            staged = {}                 # the cluster's windows, by shift
+            for d in range(plan.starts[c], plan.starts[c + 1]):
+                shift = (plan.jd[d] * plan.stride * plan.tk
+                         if plan.stride else 0)
+                if shift not in staged:
+                    staged[shift] = windows(q0, nq, k0 + shift + a0, w)
+                win = staged[shift]
+                idx = np.arange(plan.tk) + A.offsets[d] - shift - a0
+                assert idx.min() >= 0 and idx.max() < w
+                acc = acc + pat[d, slots] * win[:, :, idx]
+        Y[q0:q0 + nq, rows[keep]] = acc[:, keep]
     return Y
 
 

@@ -19,6 +19,8 @@ from tpu_spmv_torch.bench import probes as pr
 from tpu_spmv_torch.kernels import _build
 from tpu_spmv_torch.kernels import gpr as tgpr
 
+torch.set_num_threads(1)
+
 PKG = Path(_build.__file__).resolve().parent.parent
 
 #: C parameter type -> the ctypes type its argtypes entry must be

@@ -129,11 +129,33 @@ def test_plan_poisson_2d_walks_the_grid_stride(width, itemsize):
     assert 3 * (plan.smem_bytes + 1024) <= 233472
 
 
+def _poisson_2d_coo(n: int) -> COO:
+    """``utils.laplacian_2d(n)``'s entries as a COO, diagonal by diagonal
+    (offsets -n, -1, 0, 1 and n; a neighbour exists inside the grid
+    only), without scipy's Kronecker sum and the sort of
+    ``COO.from_scipy``: the same matrix in a fraction of the time at n =
+    4096."""
+    N = n * n
+    i = np.arange(N, dtype=np.int32)
+    j = i % n                                   # column inside a grid row
+    rows = [i[n:], i[j > 0], i, i[j < n - 1], i[:N - n]]
+    cols = [r + off for r, off in zip(rows, (-n, -1, 0, 1, n))]
+    vals = np.full(sum(len(r) for r in rows), -1.0)
+    vals[len(rows[0]) + len(rows[1]):][:N] = 4.0
+    return COO.from_arrays(np.concatenate(rows), np.concatenate(cols), vals,
+                           (N, N), sort=False)
+
+
 def test_plan_poisson_2d_of_a_full_operand():
     """The 4096^2 Poisson of chip_smoke's phase 4d: its offsets and period
-    from the pack's own analysis give the stride walk at S = 4096."""
-    m = utils.laplacian_2d(4096)
-    offsets = _offsets(m)
+    from the pack's own analysis give the stride walk at S = 4096.  (The
+    operand is built from its diagonals, which give ``utils.laplacian_2d``
+    entry for entry, as the 64^2 grid shows.)"""
+    small = _poisson_2d_coo(64).to_scipy().tocsr()
+    assert (small != utils.laplacian_2d(64)).nnz == 0
+    m = _poisson_2d_coo(4096)
+    assert m.nnz == 83_869_696
+    offsets = tuple(int(o) for o in tds.DIA.from_coo(m).offsets)
     assert offsets == (-4096, -1, 0, 1, 4096)
     plan = _check_plan(offsets, 4096, 4)
     assert plan.stride * TILE == 4096 and plan.reuse
@@ -268,73 +290,47 @@ def test_psdia_ring_checks_its_plan_on_the_cpu():
         tdst.spmv_psdia_ring(*args, **kw, plan=bad)
 
 
-def _window(ring, h, cp, j0, w):
-    """Columns j0 .. j0 + w of the ring [left | x | right] (ring[h + j] is
-    column j), zero outside [-h, cp + h): the kernel's copy helper."""
-    j = torch.arange(j0, j0 + w)
-    inside = (j >= -h) & (j < cp + h)
-    return torch.where(inside, ring[(h + j).clamp(0, len(ring) - 1)],
-                       torch.zeros((), dtype=ring.dtype))
-
-
-def _coef(pattern, d0, d1, k0):
-    """The coefficient rows of diagonals d0 .. d1 for the tile at k0."""
-    rb = pattern.shape[1]
-    return pattern[d0:d1, (k0 + torch.arange(TILE)) % rb]
-
-
 def emulate_ring_walk(plan, pattern, offsets, x, left, right, *, base, L,
                       nrow, seg):
-    """K8b's walk in torch, tile by tile as the kernel stages it: the
-    windows of each segment of ``seg`` tiles of a stride column (or each
-    tile's cluster windows), the coefficient rows once per segment (the
-    plan's ``reuse``) or per tile, each row's diagonals summed in stored
-    order from zero; rows whose ``base + k`` leaves ``[L, L + nrow)`` are
-    zero."""
+    """K8b's walk in torch: each tile's diagonals read inside the windows
+    the plan stages (the windows of a segment of ``seg`` tiles of a stride
+    column, ``jd[d]`` tiles of ``stride`` away, or each tile's cluster
+    windows), the ring ``[left | x | right]`` zero outside ``[-h, cp +
+    h)`` as the kernel's copy helper fills it, the coefficient rows of the
+    segment's first tile (the plan's ``reuse``) or of the tile itself,
+    each row's diagonals summed in stored order from zero; rows whose
+    ``base + k`` leaves ``[L, L + nrow)`` are zero.  Every tile at once:
+    the same sums, element for element, as one tile at a time."""
     cp, h = x.shape[0], left.shape[0]
     ring = torch.cat([left, x, right])
     ntiles = -(-cp // TILE)
-    y = torch.zeros(ntiles * TILE, dtype=x.dtype)
+    t = torch.arange(ntiles)
+    k0 = t * TILE                                      # [ntiles]
     r = torch.arange(TILE)
-    nd = len(offsets)
-
-    def tile_sum(k0, parts):
-        acc = torch.zeros(TILE, dtype=x.dtype)
-        for coef, xs in parts:           # diagonals in stored order
-            acc = acc + coef * xs
-        row = base + k0 + r
-        y[k0:k0 + TILE] = torch.where((row >= L) & (row < L + nrow), acc,
-                                      torch.zeros((), dtype=x.dtype))
-
     if plan.stride:
-        M, jd = plan.stride, plan.jd
-        span, a0, w = M * TILE, plan.a0[0], plan.width[0]
-        for col in range(M):
-            length = -(-(ntiles - col) // M)
-            for i0 in range(0, length, seg):
-                i1 = min(i0 + seg, length)
-                wins = {p: _window(ring, h, cp, (col + p * M) * TILE + a0, w)
-                        for p in range(i0 + min(jd), i1 + max(jd))}
-                seg_coef = _coef(pattern, 0, nd, (col + i0 * M) * TILE)
-                for i in range(i0, i1):
-                    k0 = (col + i * M) * TILE
-                    coef = (seg_coef if plan.reuse
-                            else _coef(pattern, 0, nd, k0))
-                    tile_sum(k0, [(coef[d], wins[i + jd[d]][
-                        r + offsets[d] - jd[d] * span - a0])
-                        for d in range(nd)])
+        M, span = plan.stride, plan.stride * TILE
+        # diagonal d of tile k0 reads window k0 + jd[d] * span + a0
+        windows = [(plan.a0[0] + j * span, plan.width[0]) for j in plan.jd]
+        first = (t % M + (t // M) // seg * seg * M) * TILE
+        kc = first if plan.reuse else k0
     else:
-        for t in range(ntiles):
-            k0 = t * TILE
-            parts = []
-            for c in range(plan.nclusters):
-                d0, d1 = plan.starts[c], plan.starts[c + 1]
-                win = _window(ring, h, cp, k0 + plan.a0[c], plan.width[c])
-                coef = _coef(pattern, d0, d1, k0)
-                parts += [(coef[d - d0], win[r + offsets[d] - plan.a0[c]])
-                          for d in range(d0, d1)]
-            tile_sum(k0, parts)
-    return y[:cp]
+        windows = [(plan.a0[c], plan.width[c])
+                   for c in range(plan.nclusters)
+                   for _ in range(plan.starts[c], plan.starts[c + 1])]
+        kc = k0
+    coef = pattern[:, (kc[:, None] + r) % pattern.shape[1]]
+    acc = torch.zeros(ntiles, TILE, dtype=x.dtype)
+    for d, (a0, w) in enumerate(windows):              # stored order
+        assert a0 <= offsets[d] and offsets[d] + TILE <= a0 + w
+        j = k0[:, None] + r + offsets[d]
+        inside = (j >= -h) & (j < cp + h)
+        xs = torch.where(inside, ring[(h + j).clamp(0, len(ring) - 1)],
+                         torch.zeros((), dtype=x.dtype))
+        acc = acc + coef[d] * xs
+    row = base + k0[:, None] + r
+    y = torch.where((row >= L) & (row < L + nrow), acc,
+                    torch.zeros((), dtype=x.dtype))
+    return y.reshape(-1)[:cp]
 
 
 @functools.cache

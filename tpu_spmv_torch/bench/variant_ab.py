@@ -4,6 +4,9 @@
         python3 tpu_spmv_torch/bench/variant_ab.py --suite walk --variant $v
     done
     python3 tpu_spmv_torch/bench/variant_ab.py --suite walk --root PARENT
+    for r in PARENT . . PARENT; do
+        python3 tpu_spmv_torch/bench/variant_ab.py --suite gather --root $r
+    done
     for v in none last last-half last-half last none; do
         python3 tpu_spmv_torch/bench/variant_ab.py --suite gpr_spmm \\
             --variant $v
@@ -34,7 +37,14 @@ changes:
 - ``last``, ``last-half``: ``gpr_spmm`` (K6) loads X with
   ``ld.global.nc.L2::cache_hint`` under a policy from
   ``createpolicy.fractional``: ``L2::evict_last`` for every load, or for
-  half of them (``L2::evict_unchanged`` for the rest).
+  half of them (``L2::evict_unchanged`` for the rest);
+- ``ellb2``, ``ellb8``: ``ell_spmv`` loads 2 or 8 slots before its x
+  gathers (not 4); ``ellplain``: its slots with plain loads, not
+  streaming ones; ``ellcap``: its grid capped at 132 x 8 blocks (each
+  warp walks several slices); ``ellocc``: a register cap of 8 blocks an
+  SM;
+- ``pu4``, ``pu16``: the two-pass gather's passes keep 4 or 16 words in
+  flight a thread (not 8); ``pt1024``: blocks of 1024 threads (not 512).
 
 Each run builds its copy's kernels and prints one JSON line with a hash
 of each output (a variant changes no bit) and the card's name and power
@@ -50,9 +60,22 @@ replayed from a graph of 20), and every
 gpr_spmm``: ``gpr_spmm`` on the four operands of ``bench/launch_ab.py``
 (``random_sparse(100000, 7e-5)``, ``power_law(400000, 13)``,
 ``random_sparse(2000000, 8e-6)``, the shuffled 2048x2048-grid Poisson)
-at 1, 3, 32 and 40 right-hand sides.  Run the variants in turns in one
-call, so that drift in the card's speed falls on all of them.  Needs a
-CUDA card.
+at 1, 3, 32 and 40 right-hand sides; ``--suite gather``: the gather
+(K7b) at 4,194,304 slots on the identity, the RCM perm of chip_smoke.py's
+shuffled band and a random perm, f32 and f64, beside ``index_select`` (a
+checkout with the two-pass plan also times, in f32, the direct and the
+two-pass form of each, each pass alone, chunks of 4096, 8192 and 16384
+words,
+perms of growing scatter with their ``far_share`` -- random inside
+windows of 64 to 65536 slots, the identity with a share of its slots
+shuffled -- and random perms of 2^14 to 2^22 slots), ``ro(x)`` on the
+shuffled band and K1 inside it, ``ell_spmv`` (K4) on the 2048x2048-grid
+Poisson in its natural order and in a shuffled one and on the shuffled
+band beside cuSPARSE, f32 and f64, and the batched gather (K7d) on 32
+rows; per call and replayed, every input from its own seed so that two
+checkouts hash alike; ``--suite gather-quick``: the same without the band.
+Run the variants in turns in one call, so that drift in the card's speed
+falls on all of them.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -137,6 +160,25 @@ CHANGES = {
                  "launch_tile_t<PSUM8, 512>")],
     "nopad": [("csrc/probes.cu", "const int zs = nc + 4, is = nc + 16;",
                "const int zs = nc, is = nc;")],
+    "ellb8": [("csrc/general.cu", "constexpr int kEllBatch = 4;",
+               "constexpr int kEllBatch = 8;")],
+    "ellcap": [("csrc/general.cu",
+                "  if (blocks > 0x7fffffff) blocks = 0x7fffffff;\n  ell_spmv",
+                "  if (blocks > 132 * 8) blocks = 132 * 8;\n  ell_spmv")],
+    "ellocc": [("csrc/general.cu",
+                "__launch_bounds__(kThreads)\n    ell_spmv(",
+                "__launch_bounds__(kThreads, 8)\n    ell_spmv(")],
+    "pu4": [("csrc/permute.cu", "constexpr int kPassUnroll = 8;",
+             "constexpr int kPassUnroll = 4;")],
+    "pu16": [("csrc/permute.cu", "constexpr int kPassUnroll = 8;",
+              "constexpr int kPassUnroll = 16;")],
+    "pt1024": [("csrc/permute.cu", "constexpr int kPassThreads = 512;",
+                "constexpr int kPassThreads = 1024;")],
+    "ellb2": [("csrc/general.cu", "constexpr int kEllBatch = 4;",
+               "constexpr int kEllBatch = 2;")],
+    "ellplain": [("csrc/general.cu",
+                  "  col = __ldcs(c);\n  val = __ldcs(v);",
+                  "  col = *c;\n  val = *v;")],
     "last": _l2_policy("L2::evict_last", "1.0"),
     "last-half": _l2_policy("L2::evict_last.L2::evict_unchanged", "0.5"),
 }
@@ -272,9 +314,178 @@ def _gpr_spmm(out, dev, event_ms):
         del G, m
 
 
+def _gather(out, dev, event_ms, graph_ms, quick=False):
+    import time
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from tpu_spmv_torch import utils
+    from tpu_spmv_torch.kernels import dia_stream as ds
+    from tpu_spmv_torch.kernels import ell_packed as ell
+    from tpu_spmv_torch.kernels import permute as pk
+    from tpu_spmv_torch.ops.auto import plan_spmv
+    from tpu_spmv_torch.reorder import reorder_plan
+
+    # a checkout with the planned two-pass gather also times both forms
+    planned = hasattr(pk, "_plan")
+
+    def rand(shape, dtype, seed):
+        """Inputs from their own seed: both sides of an A/B get the same."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.rand(shape, generator=gen, device=dev, dtype=dtype)
+
+    def record(key, fn, iters):
+        out[f"{key} hash"] = _hash(fn())
+        out[key] = event_ms(fn, iters, 15)
+        out[f"{key}:graph"] = graph_ms(fn)
+
+    def library(key, fn, iters):
+        out[key] = event_ms(fn, iters, 15)
+        try:
+            out[f"{key}:graph"] = graph_ms(fn)
+        except RuntimeError as e:   # a library call that cannot be captured
+            out[f"{key}:graph"] = str(e)[:200]
+
+    def plan(p, form="auto", chunk=None):
+        t0 = time.perf_counter()
+        pp = (pk.plan_permutation(p, device=dev) if form == "auto" and
+              chunk is None else pk._plan(p, dev, form, chunk or pk.CHUNK))
+        torch.cuda.synchronize()
+        return pp, time.perf_counter() - t0
+
+    n = 4_194_304
+    perms = {"identity": torch.arange(n, device=dev),
+             "random": torch.from_numpy(
+                 np.random.default_rng(5).permutation(n)).to(dev)}
+    if not quick:
+        # the band of chip_smoke.py's phase 4e: banded(n, 5) in a random
+        # node order (seed 3), entry (r, c) moved to (inv[r], inv[c])
+        bc = utils.banded(n, 5).tocoo()
+        order = np.random.default_rng(3).permutation(n)
+        inv = np.empty_like(order)
+        inv[order] = np.arange(n)
+        band = sp.csr_matrix((bc.data, (inv[bc.row], inv[bc.col])),
+                             shape=bc.shape)
+        del bc, order, inv
+        ro = reorder_plan(band, dtype=torch.float32, device=dev)
+        perms["RCM"] = ro.perm
+    for dname, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        x = rand(n, dtype, 1)
+        for pname, p in perms.items():
+            key = f"K7b {pname} {dname}"
+            pp, out[f"{key} plan s"] = plan(p)
+            record(key, lambda: pk.apply_permutation(pp, x), 100)
+            library(f"{key} index_select",
+                    lambda: torch.index_select(x, 0, p), 100)
+            if planned:
+                out[f"{key} method"] = pp.method
+                if x.element_size() > 4:    # 8-byte words: the direct form
+                    continue
+                for form in ("direct", "two_pass"):
+                    pm, _ = plan(p, form)
+                    record(f"{key} {form}",
+                           lambda: pk.apply_permutation(pm, x), 100)
+                # each pass alone (pass 2 reading the stage pass 1 wrote)
+                st = pk._one_pass(pm, x, 1)
+                for which, src in ((1, x), (2, st)):
+                    out[f"{key} pass {which}:graph"] = graph_ms(
+                        lambda: pk._one_pass(pm, src, which))
+        del x
+    if planned:
+        # the two-pass gather's chunk, and where it overtakes the direct
+        # one: random perms of growing size (replayed)
+        x = rand(n, torch.float32, 2)
+        for pname in ("RCM", "random")[quick:]:
+            for chunk in (4096, 8192, 16384):
+                pm, _ = plan(perms[pname], "two_pass", chunk)
+                fn = lambda: pk.apply_permutation(pm, x)   # noqa: E731
+                key = f"K7b {pname} f32 two_pass C={chunk}"
+                out[f"{key} hash"] = _hash(fn())
+                out[f"{key}:graph"] = graph_ms(fn)
+        # perms of growing scatter, each with its far_share beside both
+        # forms: a random perm inside each window of w slots, and the
+        # identity with a share f of its slots shuffled among themselves
+        rng = np.random.default_rng(7)
+        mixed = {}
+        for w in (64, 1024, 4096, 16384, 65536):
+            mixed[f"window {w}"] = (rng.random((n // w, w)).argsort(axis=1)
+                                    + np.arange(0, n, w)[:, None]).reshape(-1)
+        for f in (0.1, 0.25, 0.5, 0.75):
+            p = np.arange(n)
+            moved = np.flatnonzero(rng.random(n) < f)
+            p[moved] = rng.permutation(moved)
+            mixed[f"share {f}"] = p
+        for name, p in mixed.items():
+            pt = torch.from_numpy(p).to(dev)
+            out[f"K7b {name} far_share"] = pk.far_share(pt)
+            for form in ("direct", "two_pass"):
+                pm, _ = plan(pt, form)
+                out[f"K7b {name} f32 {form}:graph"] = graph_ms(
+                    lambda: pk.apply_permutation(pm, x))
+        rng = np.random.default_rng(6)
+        for m in (2**14, 2**16, 2**18, 2**20, 2**21, 2**22):
+            p = rng.permutation(m)
+            xm = x[:m].clone()
+            for form in ("direct", "two_pass"):
+                pm, _ = plan(p, form)
+                out[f"K7b random n={m} {form}:graph"] = graph_ms(
+                    lambda: pk.apply_permutation(pm, xm))
+        del x, xm
+    if not quick:
+        # ro(x) on the shuffled band: the two gathers around K1 (the
+        # reordered band's SDIA pack), and K1 alone on the same pack
+        xs = rand(n, torch.float32, 3)
+        record("ro(x) f32", lambda: ro(xs), 50)
+        A1 = ro.plan.matrix
+        xp1 = ds.pad_x(A1, pk.apply_permutation(ro.perm_plan, xs))
+        record("K1 in ro(x) f32", lambda: ds.spmv_sdia_padded(A1, xp1), 50)
+        del xs, xp1, A1
+
+    # K4: sliced ELL forced on the 2048x2048-grid Poisson in its natural
+    # order and in a shuffled node order (seed 3; the same slots and
+    # bytes), and on the shuffled band (the planner's pick where it picks
+    # sliced ELL); cuSPARSE torch.mv beside each
+    lap = utils.laplacian_2d(2048)
+    perm = np.random.default_rng(3).permutation(lap.shape[0])
+    operands = {"natural 2048^2": lap,
+                "shuffled 2048^2": lap[perm][:, perm].tocsr()}
+    if not quick:
+        band_plan = plan_spmv(band, dtype=torch.float32, device=dev)
+        out["shuffled band strategy"] = band_plan.strategy
+        del band_plan
+        operands["shuffled band"] = band
+    for name, m in operands.items():
+        csr = m.tocsr()
+        for dname, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            A = ell.pack_ell(m, dtype=dtype, device=dev)
+            x = rand(m.shape[1], dtype, 4)
+            record(f"K4 {name} {dname}", lambda: ell.spmv_ell_main(A, x), 50)
+            L = torch.sparse_csr_tensor(
+                torch.from_numpy(csr.indptr.astype(np.int32)),
+                torch.from_numpy(csr.indices.astype(np.int32)),
+                torch.from_numpy(csr.data).to(dtype),
+                size=csr.shape).to(dev)
+            library(f"K4 {name} {dname} cuSPARSE", lambda: torch.mv(L, x), 50)
+            del A, x, L
+    if quick:
+        return
+    # K7d/K7e: the batched gather on 32 rows with the RCM perm of the
+    # shuffled Poisson (chip_smoke.py's phase 4e)
+    del ro, perms
+    rop = reorder_plan(operands["shuffled 2048^2"], dtype=torch.float32,
+                       device=dev)
+    XB = rand((32, lap.shape[0]), torch.float32, 5)
+    record("K7d RCM 32 rows f32",
+           lambda: pk.apply_permutation_batched(rop.perm_plan, XB), 10)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--suite", choices=["walk", "tiles", "gpr_spmm"],
+    ap.add_argument("--suite",
+                    choices=["walk", "tiles", "gpr_spmm", "gather",
+                             "gather-quick"],
                     required=True)
     ap.add_argument("--variant", default="none")
     ap.add_argument("--root", default=str(_ROOT),
@@ -305,6 +516,9 @@ def main(argv=None) -> int:
     out = {"suite": args.suite, "variant": args.variant, "root": str(root)}
     if args.suite == "gpr_spmm":
         _gpr_spmm(out, dev, timing.event_ms)
+    elif args.suite.startswith("gather"):
+        _gather(out, dev, timing.event_ms, timing.graph_ms,
+                quick=args.suite == "gather-quick")
     else:
         _tiles(out, dev, timing.graph_ms)
         if args.suite == "walk":

@@ -22,14 +22,23 @@
 // slice (slot j of row i of slice s at slice_ptr[s] + 32 j + i); pad slots
 // hold value 0 and column 0.
 //
-// What bounds them on this card: device-memory bytes and the x gather.
+// What bounds them on this card: device-memory bytes where the x gathers
+// are local, and the L2's rate for scattered requests where they are not.
 // Per entry both read a value and an int32 column (8 B in f32) and gather
 // one x value; x is reused across rows and mostly served from the 50 MB
-// L2, and the random gather is a 32 B sector of L2 per value where L1
-// misses (32M sectors for the 2M-row operand's 32M entries, as many as a
-// library CSR kernel pays).  GPR adds 12 B of row data per row (int32 row
-// id, int64 pointer), ELL its pad slots and 8 B per 32-row slice.  Two
-// FLOPs per entry are far below the card's FLOP rate.
+// L2, and a scattered gather is a 32 B sector request to L2 per value
+// where L1 misses (32M for the 2M-row operand's 32M entries, as many as a
+// library CSR kernel pays).  On an NVIDIA H100 80GB HBM3 at 700 W
+// (bench/variant_ab.py --suite gather, PERF.md) sliced ELL one slot a step
+// took 0.0736 ms on the 2048x2048-grid Poisson in its natural order, 82%
+// of its byte bound, and 0.1613 ms on the same matrix in a shuffled node
+// order: the same slots and bytes, the difference its 21M scattered
+// gathers (about 240 G requests/s in f32, 111 G/s in f64).  With its slot
+// loads ahead (below): 0.0772 and 0.1523 ms, in f64 0.1144 and 0.2469
+// (0.2984 before).
+// GPR adds 12 B of row data per row (int32 row id, int64 pointer), ELL its
+// pad slots and 8 B per 32-row slice.  Two FLOPs per entry are far below
+// the card's FLOP rate.
 //
 // What the designs do about it.  gpr_spmv: a row of class W (8, 16, 32,
 // 64, 128 entries at most) gets T = W / 4 lanes, so each lane holds at
@@ -46,13 +55,21 @@
 // l sums entries l, l + T, l + 2T, ... in order; a fixed __shfl_xor_sync
 // butterfly combines the lanes; one lane writes the row.  All classes go
 // in one launch: the block index picks the class.
-// ell_spmv: one thread per row sums its slots j = 0 .. width-1 in order;
-// neighbouring threads read neighbouring slots, so every value and column
-// load is coalesced.  Neither kernel uses atomics: every row has one
-// writer and a fixed summation order, so results are bitwise reproducible
-// from run to run.  Sums stay in the data type (no TF32).  nvcc contracts
-// a * b + c to FMA, so results may differ from an unfused plain version in
-// the last bits.
+// ell_spmv: one warp a slice, one thread a row.  The warp reads its
+// slice's width once (slice_ptr[s], slice_ptr[s + 1]: one broadcast load
+// each), and each thread walks its row's slots in batches of kEllBatch:
+// first all the batch's column and value loads (streaming, __ldcs;
+// neighbouring threads read neighbouring slots, so they are coalesced),
+// then all its x gathers (__ldg), then the FMAs in slot order.  A loop of
+// one slot a step with a trip count the compiler does not know keeps one
+// chain (column, x, FMA) in flight a thread; the batches keep kEllBatch
+// gathers in flight, which is what the shuffled operands wait on.  Neither
+// kernel uses atomics: every row has one writer and a fixed summation
+// order (ell_spmv: slots j = 0 .. width-1, the same contraction as a loop
+// of one slot a step), so results are bitwise reproducible from run to
+// run.  Sums stay in the data type (no TF32).  nvcc contracts a * b + c to
+// FMA, so results may differ from an unfused plain version in the last
+// bits.
 //
 // gpr_spmm replaces the RHS-batched GPR pipeline (via spmm_gpr): K6
 // _fused_gather_s1_rhs_kernel (gather + stage 1 over RHS planes) and the
@@ -99,9 +116,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kClasses = 5;
-// one full wave on an H100: 132 SMs x 8 resident blocks of 256 threads
-constexpr int kMaxBlocks = 132 * 8;
-
 // gpr_spmv: lanes per row of each width class (8, 16, 32, 64, 128), a
 // quarter of the class width, so a lane holds at most kPerLane entries
 constexpr int kPerLane = 4;
@@ -205,22 +219,63 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ell_spmv: slots a thread loads before its x gathers
+constexpr int kEllBatch = 4;
+
+// one slot's column and value, read once: streamed (evict first)
 template <typename T>
-__global__ void ell_spmv(const T* __restrict__ vals,
-                         const int* __restrict__ cols,
-                         const int64_t* __restrict__ slice_ptr,
-                         const T* __restrict__ x, T* __restrict__ y,
-                         int64_t nrow) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       row < nrow; row += stride) {
-    const int64_t s = row >> 5;
-    const int64_t end = slice_ptr[s + 1];
+__device__ __forceinline__ void ell_slot(const int* c, const T* v, int& col,
+                                         T& val) {
+  col = __ldcs(c);
+  val = __ldcs(v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ell_spmv(const T* __restrict__ vals, const int* __restrict__ cols,
+             const int64_t* __restrict__ slice_ptr, const T* __restrict__ x,
+             T* __restrict__ y, int64_t nrow) {
+  constexpr int kWarps = kThreads / 32;
+  const int lane = threadIdx.x & 31;
+  const int64_t nslices = (nrow + 31) >> 5;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
+  for (int64_t s = static_cast<int64_t>(blockIdx.x) * kWarps +
+                   (threadIdx.x >> 5);
+       s < nslices; s += warps) {
+    const int64_t begin = slice_ptr[s];
+    const int width = static_cast<int>((slice_ptr[s + 1] - begin) >> 5);
+    const T* __restrict__ v = vals + begin + lane;
+    const int* __restrict__ c = cols + begin + lane;
     T acc = T(0);
-    for (int64_t p = slice_ptr[s] + (row & 31); p < end; p += 32)
-      acc += vals[p] * x[cols[p]];
-    y[row] = acc;
+    int j = 0;
+    for (; j + kEllBatch <= width; j += kEllBatch) {
+      int col[kEllBatch];
+      T val[kEllBatch], xv[kEllBatch];
+#pragma unroll
+      for (int i = 0; i < kEllBatch; ++i)
+        ell_slot(c + 32 * (j + i), v + 32 * (j + i), col[i], val[i]);
+#pragma unroll
+      for (int i = 0; i < kEllBatch; ++i) xv[i] = __ldg(x + col[i]);
+#pragma unroll
+      for (int i = 0; i < kEllBatch; ++i) acc += val[i] * xv[i];
+    }
+    if (j < width) {
+      // the last width - j < kEllBatch slots, the same three steps
+      int col[kEllBatch];
+      T val[kEllBatch], xv[kEllBatch];
+#pragma unroll
+      for (int i = 0; i < kEllBatch; ++i)
+        if (j + i < width)
+          ell_slot(c + 32 * (j + i), v + 32 * (j + i), col[i], val[i]);
+#pragma unroll
+      for (int i = 0; i < kEllBatch; ++i)
+        if (j + i < width) xv[i] = __ldg(x + col[i]);
+#pragma unroll
+      for (int i = 0; i < kEllBatch; ++i)
+        if (j + i < width) acc += val[i] * xv[i];
+    }
+    const int64_t row = (s << 5) + lane;
+    if (row < nrow) y[row] = acc;
   }
 }
 
@@ -362,8 +417,9 @@ template <typename T>
 int launch_ell(const void* vals, const void* cols, const void* slice_ptr,
                const void* x, void* y, int64_t nrow, void* stream) {
   if (nrow == 0) return 0;
+  // one warp a slice of 32 rows, every slice's warp launched at once
   int64_t blocks = (nrow + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (blocks > 0x7fffffff) blocks = 0x7fffffff;
   ell_spmv<T><<<static_cast<unsigned>(blocks), kThreads, 0,
                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(vals), static_cast<const int*>(cols),

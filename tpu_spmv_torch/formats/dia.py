@@ -41,18 +41,23 @@ class DIA:
         over the ``nrow + ncol - 1`` possible offsets, and the values land
         with a weighted bincount over ``diag_idx * nrow + row`` (the sums of
         ``np.add.at``, in one pass)."""
-        row = coo.row.cpu().numpy().astype(np.int64, copy=False)
-        col = coo.col.cpu().numpy().astype(np.int64, copy=False)
+        row = coo.row.cpu().numpy()
+        col = coo.col.cpu().numpy()
         vals = coo.data.cpu().numpy()
         nrow, ncol = coo.shape
         if row.size == 0:
             return np.zeros((1, nrow), dtype=vals.dtype), (0,)
-        diag = col - row + (nrow - 1)
-        present = np.bincount(diag, minlength=nrow + ncol - 1) > 0
+        # int64 keys worked in place: col - row + nrow - 1, then each
+        # entry's diagonal index, then its slot diag_idx * nrow + row
+        key = np.subtract(col, row, dtype=np.int64)
+        key += nrow - 1
+        present = np.bincount(key, minlength=nrow + ncol - 1) > 0
         offsets = np.flatnonzero(present) - (nrow - 1)
-        diag_idx = (np.cumsum(present) - 1)[diag]
+        key = (np.cumsum(present) - 1)[key]
+        key *= nrow
+        key += row
         nd = len(offsets)
-        data = np.bincount(diag_idx * nrow + row, weights=vals,
+        data = np.bincount(key, weights=vals,
                            minlength=nd * nrow).reshape(nd, nrow)
         return (data.astype(vals.dtype, copy=False),
                 tuple(int(o) for o in offsets))

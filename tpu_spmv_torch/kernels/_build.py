@@ -70,6 +70,9 @@ _SIGNATURES = {
     "tsp_psdia_ring_f32": [_P] * 6 + [_I64] * 5 + [_P],
     "tsp_psdia_ring_f64": [_P] * 6 + [_I64] * 5 + [_P],
     "tsp_permute_gather": [_P, _P, _I, _P, _I64, _I, _P],
+    "tsp_permute_two_pass": [_P] * 6 + [_I64, _I, _I, _P],
+    "tsp_permute_pass1": [_P] * 4 + [_I64, _I, _I, _P],
+    "tsp_permute_pass2": [_P] * 4 + [_I64, _I, _I, _P],
     "tsp_permute_gather_batched": [_P, _P, _I, _P, _I64, _I, _I, _P],
     "tsp_copy_scale": [_P, _P, _I64, _P],
     "tsp_launch_probe": [_P, _P, _P],
