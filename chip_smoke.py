@@ -14,10 +14,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    under ``build/tpu_spmv_torch/``; then ``nvcc -Xptxas -v`` of
    ``general.cu``, ``permute.cu``, ``dia_stream.cu`` and ``probes.cu``
    prints the registers, spills and static shared memory of every
-   instantiation of ``gpr_spmv``, ``ell_spmv`` and ``gpr_spmm``
-   (``gpr_spmm_lanes`` on 2 or 4 lanes of one RHS), the gathers
-   ``permute_gather``, ``permute_pass1`` and ``permute_pass2``, K3b's two
-   walks (``psdia_spmm_stride``, ``psdia_spmm_clusters``),
+   instantiation of ``gpr_spmv``, ``ell_spmv``, ``gpr_spmm`` and
+   ``ell_spmm`` (``gpr_spmm_lanes``, ``ell_spmm_lanes`` on 2 or 4 lanes of
+   one RHS), the gathers ``permute_gather``, ``permute_pass1`` and
+   ``permute_pass2``, the two walks of K3a and K3b (``dia_spmm_stride``,
+   ``dia_spmm_clusters``),
    the walks of K2 and K8b (``csrc/psdia_walk.cuh``: ``psdia_walk_bulk``,
    ``psdia_walk_stride``, ``psdia_walk_clusters``) and ``tile_permute``;
 3. kernels against their plain PyTorch versions on small operands, f32 and
@@ -30,7 +31,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    SpMM kernels K3a (``sdia_spmm``), K3b (``psdia_spmm``), ``gpr_spmm`` and
    ``ell_spmm`` on the same operands with 1, 3, 32 and 40 right-hand
    sides (K3a and K3b also 8), each column also against the SpMV kernel
-   (K3b's bitwise against K2's); K1/K2 on the
+   (bitwise: K3a's against K1's, K3b's against K2's, ``ell_spmm``'s
+   against ``ell_spmv``'s); K1/K2 on the
    transposed packs (``transpose_sdia`` / ``transpose_psdia``) against
    scipy ``A^T x``, and the backward of ``spmv_sdia`` / ``spmv_psdia``
    (``x.grad`` against scipy ``A^T g``, the coefficient gradient against
@@ -69,7 +71,8 @@ Phases, in order; any failure raises and the script exits non-zero:
       Poisson (PSDIA) and on the four general operands (GPR or sliced ELL,
       GPR forced on the shuffled Poisson), and K3b/K3a on PSDIA/SDIA packs
       built for 32 RHS, each against scipy float64 (every K3b column also
-      bitwise against K2 on the same pack); 50 fixed
+      bitwise against K2 on the same pack, every K3a column against K1);
+      50 fixed
       ``cg_multi_runner`` iterations with 8 RHS on the Poisson and on the
       power-law SPD operator; f64 ``cg_multi`` with 4 RHS on the 256x256
       Poisson and ``bus420.mtx``, every column's true residual <= 1e-10;
@@ -130,7 +133,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    port never calls (cuSPARSE: ``torch.sparse_csr_tensor @ x``,
    ``torch.sparse.mm`` for the SpMMs; ``torch.index_select`` for the
    gathers); ``ell_spmv`` also on the 2048x2048 Poisson in its natural
-   order beside the shuffled one; the gathers on the inputs of 4e (the
+   order beside the shuffled one, and ``ell_spmm`` there (32 RHS) in
+   turns with ``gpr_spmm`` and cuSPARSE; the gathers on the inputs of 4e (the
    direct gather on the RCM perm of the 1M band in its natural order, the
    two-pass gather on the RCM perm of the shuffled band, each pass also
    alone beside its plain version and ``index_select`` /
@@ -140,11 +144,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    replayed from a CUDA graph (and repeated on one input, in L2), every
    record no faster than its bound, and ``ro(x)``
    against its parent's recorded time; each SpMM also beside
-   ``plan.spmm`` end to end and 32 times its SpMV kernel; K3b's two walks (the plan's pick and the cluster walk)
-   timed in turns on the 32-RHS pack and, with 8 right-hand sides, on the
-   plan's own pack (``cg_multi_runner``'s shape) beside 8 launches of K2,
-   each with its shared-memory plan; K2 on its walk (the plan's stride
-   walk by bulk copy), and the walks of K8b on the one shard and of K2 on
+   ``plan.spmm`` end to end and 32 times its SpMV kernel; the two walks
+   of K3b and of K3a (the plan's pick and the cluster walk) timed in
+   turns on the 32-RHS packs with 32 and (K3a) 8 right-hand sides and
+   K3b's, with 8, on the plan's own pack (``cg_multi_runner``'s shape)
+   beside 8 launches of K2, each with its shared-memory plan; K2 on its
+   walk (the plan's stride walk by bulk copy), and the walks of K8b on the one shard and of K2 on
    the pack in turns (the plan's, the stride walk with the coefficients
    per tile, the cluster walk), each bitwise K2;
    ``gpr_spmv`` and ``gpr_spmm`` on every general operand in turns with
@@ -584,22 +589,24 @@ def main() -> int:
           f"-shared -> {_build.library_path().relative_to(ROOT)} "
           f"in {time.perf_counter() - t0:.2f} s")
     # the kernels redesigned last: what ptxas gives each instantiation
-    # (gpr_spmv<value type>; gpr_spmm<value type, lanes a row, RHS a
-    # lane> and, on 2 or 4 lanes of one RHS, gpr_spmm_lanes<value type,
-    # lanes a row>;
-    # K3b's two walks psdia_spmm_stride and psdia_spmm_clusters<value type,
-    # threads along the RHS, elements per window copy>; the walks of K2
+    # (gpr_spmv<value type>; gpr_spmm and ell_spmm<value type, lanes a
+    # row, RHS a lane> (one body) and, on 2 or 4 lanes of one RHS,
+    # gpr_spmm_lanes and ell_spmm_lanes<value type, lanes a row>;
+    # the two walks of K3a and K3b, dia_spmm_stride and
+    # dia_spmm_clusters<value type, threads along the RHS, elements per
+    # copy, the SDIA data rows as the coefficients (K3a)>; the walks of K2
     # and K8b, psdia_walk_bulk<value type> and psdia_walk_stride and
     # psdia_walk_clusters<value type, elements per copy>; tile_permute<sums
     # of eight>; the walks' dynamic shared memory is the host plan's, which
     # phase 5 prints)
     t0 = time.perf_counter()
     for line in ptxas_usage({"general.cu": ("gpr_spmv", "gpr_spmm",
-                                            "gpr_spmm_lanes", "ell_spmv"),
+                                            "gpr_spmm_lanes", "ell_spmv",
+                                            "ell_spmm", "ell_spmm_lanes"),
                              "permute.cu": ("permute_gather", "permute_pass1",
                                             "permute_pass2"),
-                             "dia_stream.cu": ("psdia_spmm_stride",
-                                               "psdia_spmm_clusters",
+                             "dia_stream.cu": ("dia_spmm_stride",
+                                               "dia_spmm_clusters",
                                                "psdia_walk_bulk",
                                                "psdia_walk_stride",
                                                "psdia_walk_clusters"),
@@ -700,12 +707,12 @@ def main() -> int:
                     require(bool((Y[:, :A.L] == 0).all()
                                  and (Y[:, A.L + n:] == 0).all()),
                             f"{kname} {name} pads not zero")
-                    if kname == "psdia_spmm":
-                        # K3b sums each RHS in K2's order: bit for bit
-                        require(all(torch.equal(Y[q], spmv_kern(A, Xt[q]))
-                                    for q in range(nrhs)),
-                                f"{kname} {name} {dname} nrhs={nrhs}: a "
-                                f"column differs from K2")
+                    # K3a and K3b sum each RHS in K1's and K2's order:
+                    # bit for bit
+                    require(all(torch.equal(Y[q], spmv_kern(A, Xt[q]))
+                                for q in range(nrhs)),
+                            f"{kname} {name} {dname} nrhs={nrhs}: a column "
+                            f"differs from its SpMV kernel")
 
     general_small = {
         "bus420.mtx": read_fixture("bus420.mtx"),
@@ -760,6 +767,13 @@ def main() -> int:
                         lambda Y, q, A=A, X=X, k=spmv_kern: (
                             Y[:, q], k(A, X[:, q].contiguous())),
                         X, m @ X64, dname)
+                    if kname == "ell_spmm":
+                        # every slot of a row in order, as ell_spmv
+                        Y = kern(A, X)
+                        require(all(torch.equal(Y[:, q], spmv_kern(
+                            A, X[:, q].contiguous())) for q in range(nrhs)),
+                            f"ell_spmm {name} {dname} nrhs={nrhs}: a "
+                            f"column differs from ell_spmv")
     require(gpr.pack_gpr(general_small["powerlaw800.mtx"], device=dev).nv > 0,
             "powerlaw800 has no virtual rows")
 
@@ -1117,20 +1131,20 @@ def main() -> int:
           f"err {rel:.2e}")
     require(rel <= ORACLE_TOL["float32"], f"4096^2 plan.spmm {rel:.2e}")
     Xt = F.pad(X.T, (P32.L, P32.npad - P32.L - n)).contiguous()
-    for kname, A, kern in (("psdia_spmm", P32, ds.spmm_psdia_padded_t),
-                           ("sdia_spmm", S32, ds.spmm_sdia_padded_t)):
+    for kname, A, kern, spmv_kern, k1 in (
+            ("psdia_spmm", P32, ds.spmm_psdia_padded_t, ds.spmv_psdia_padded,
+             "K2"),
+            ("sdia_spmm", S32, ds.spmm_sdia_padded_t, ds.spmv_sdia_padded,
+             "K1")):
         Yt = kern(A, Xt)
         rel = rel_err(Yt[:, A.L:A.L + n].T.cpu(), ref)
         pads = bool((Yt[:, :A.L] == 0).all() and (Yt[:, A.L + n:] == 0).all())
-        extra = ""
-        if kname == "psdia_spmm":
-            same = all(torch.equal(Yt[q], ds.spmv_psdia_padded(A, Xt[q]))
-                       for q in range(NRHS))
-            extra = f" | every column bitwise K2's {same}"
-            require(same, f"{kname} at 4096^2: a column differs from K2")
+        same = all(torch.equal(Yt[q], spmv_kern(A, Xt[q]))
+                   for q in range(NRHS))
+        require(same, f"{kname} at 4096^2: a column differs from {k1}")
         print(f"{kname} on the {NRHS}-RHS pack, [{NRHS}, {A.npad}] "
               f"({Xt.numel() * 4 / 1e9:.2f} GB): rel err {rel:.2e} | pads "
-              f"zero {pads}{extra}")
+              f"zero {pads} | every column bitwise {k1}'s {same}")
         require(rel <= ORACLE_TOL["float32"] and pads, f"{kname} at 4096^2")
         del Yt
     del ref
@@ -1934,26 +1948,34 @@ def main() -> int:
                              "source": "tpu_spmv_torch/csrc/dia_stream.cu",
                              "replaces": src_line,
                              "launches": mlaunches[kname], **nums})
-    # K3b's two walks on the same pack, timed in turns: the plan's pick
-    # (the stride walk at 4096^2) and the cluster walk (one window per
-    # cluster of offsets a tile); then at cg_multi_runner's shape, 8 RHS
-    # on the plan's own pack (4c), also beside 8 launches of K2
+    # K3b's and K3a's two walks on the same pack, timed in turns: the
+    # plan's pick (the stride walk at 4096^2) and the cluster walk (one
+    # window per cluster of offsets a tile); K3b also at cg_multi_runner's
+    # shape, 8 RHS on the plan's own pack (4c), beside 8 launches of K2,
+    # and K3a at 8 RHS on its 32-RHS pack
     X8 = F.pad(X[:, :8].T, (P.L, P.npad - P.L - n)).contiguous()
     x8 = [X8[q] for q in range(8)]
-    for A, Xk, extra in ((P32, Xt, {}), (P, X8, {
-            "8 x K2": lambda: [ds.spmv_psdia_padded(P, v) for v in x8]})):
+    libs = {}
+    for kname, A, Xk, extra in (
+            ("psdia_spmm", P32, Xt, {}),
+            ("psdia_spmm", P, X8, {"8 x K2": lambda: [
+                ds.spmv_psdia_padded(P, v) for v in x8]}),
+            ("sdia_spmm", S32, Xt, {}),
+            ("sdia_spmm", S32, Xt[:8], {})):
         k = Xk.shape[0]
         pick = ds.psdia_spmm_plan(A.offsets, k, 4)
         clusters = ds._cluster_walk(A.offsets, k, 4)
         walks = interleaved_ms({
-            "pick": lambda: ds._spmm_psdia_launch(A, Xk, pick),
-            "clusters": lambda: ds._spmm_psdia_launch(A, Xk, clusters),
+            "pick": lambda: ds._spmm_launch(A, Xk, pick),
+            "clusters": lambda: ds._spmm_launch(A, Xk, clusters),
             **extra}, 5 if k == NRHS else 10)
         bk, _ = bound(spmm_bytes(A, k, torch.float32), 2 * A.nnz * k)
-        same = torch.equal(ds._spmm_psdia_launch(A, Xk, pick),
-                           ds._spmm_psdia_launch(A, Xk, clusters))
-        lib = library_ms(mat, X[:, :k].contiguous())
-        print(f"psdia_spmm {n} rows, {k} RHS (rb {A.rb}) f32, in turns: "
+        same = torch.equal(ds._spmm_launch(A, Xk, pick),
+                           ds._spmm_launch(A, Xk, clusters))
+        if k not in libs:
+            libs[k] = library_ms(mat, X[:, :k].contiguous())
+        lib = libs[k]
+        print(f"{kname} {n} rows, {k} RHS (rb {A.rb}) f32, in turns: "
               f"the plan's walk (stride {pick.stride}) {walks['pick']:.4f} "
               f"ms ({100 * bk / walks['pick']:.1f}% of {bk:.4f}) | cluster "
               f"walk ({clusters.nclusters} windows) {walks['clusters']:.4f} "
@@ -1962,7 +1984,7 @@ def main() -> int:
               + f" | cuSPARSE {lib:.4f} ms | equal {same}")
         print(f"    plan {pick}")
         print(f"    cluster walk {clusters}")
-        require(same, f"K3b's two walks differ at {k} RHS")
+        require(same, f"{kname}'s two walks differ at {k} RHS")
     del X8, x8
     pms = time_fn(plan.spmm, X, iters=10).median_s * 1e3
     print(f"plan.spmm(X) end to end ({NRHS} RHS: transpose and pad, K3b at "
@@ -2079,7 +2101,24 @@ def main() -> int:
     print(f"    ell_spmv on the 2048^2 Poisson, natural / shuffled order: "
           f"{nums_n['ms']:.4f} / "
           f"{spmv_ms['ell_spmv', 'shuffled laplacian_2d(2048)']:.4f} ms")
-    del An, xn, lap_n
+    # ell_spmm with 32 RHS on the same natural-order operand (local X
+    # lines), in turns with gpr_spmm and cuSPARSE on the same X
+    Gn = gpr.pack_gpr(lap_n, dtype=torch.float32, device=dev)
+    Xn = torch.rand(lap_n.shape[1], NRHS, generator=gen, device=dev)
+    libn = csr_tensor(lap_n, torch.float32, dev)
+    rel = rel_err(ell.spmm_ell_packed(An, Xn).cpu(),
+                  lap_n @ Xn.cpu().double().numpy())
+    require(rel <= ORACLE_TOL["float32"], f"ell_spmm natural 2048^2 {rel:.2e}")
+    t = interleaved_ms({
+        "ell_spmm": lambda: ell.spmm_ell_main(An, Xn),
+        "gpr_spmm": lambda: gpr.spmm_gpr_rows(Gn, Xn),
+        "cuSPARSE": lambda: torch.sparse.mm(libn, Xn)}, 5)
+    bn, _ = bound(spmm_bytes(An, NRHS, torch.float32), 2 * An.nnz * NRHS)
+    print(f"ell_spmm natural laplacian_2d(2048), {NRHS} RHS f32, in turns "
+          f"({card}): {t['ell_spmm']:.4f} ms ({100 * bn / t['ell_spmm']:.1f}% "
+          f"of {bn:.4f}) | gpr_spmm {t['gpr_spmm']:.4f} ms | cuSPARSE "
+          f"{t['cuSPARSE']:.4f} ms | rel err vs scipy {rel:.2e}")
+    del An, Gn, xn, Xn, libn, lap_n
     # the gathers of 4e at their shapes.  A record is timed on the input
     # the main path gives its kernel -- the direct gather on the RCM perm
     # of the 1M band in its natural order, the two passes on ro(x)'s RCM

@@ -128,11 +128,11 @@ def test_general_plans_on_card(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("nrhs", [1, 3, 40])
+@pytest.mark.parametrize("nrhs", [1, 3, 8, 32, 40])
 def test_streaming_spmm_kernels_match_plain_on_card(card, dtype, nrhs):
     """K3a and K3b against their plain versions: within the limits,
-    bitwise reproducible, pads zero, each column equal to the SpMV
-    kernel's within the limit, each launch counted."""
+    bitwise reproducible, pads zero, every column bitwise the SpMV
+    kernel's (K1, K2) on the same pack, each launch counted."""
     m = utils.laplacian_2d(32)
     dia = convert(COO.from_scipy(m, dtype=dtype, device=card), "dia")
     X = torch.tensor(np.random.default_rng(7).random((m.shape[0], nrhs)),
@@ -151,7 +151,8 @@ def test_streaming_spmm_kernels_match_plain_on_card(card, dtype, nrhs):
         assert bool((Y1[:, :A.L] == 0).all()
                     and (Y1[:, A.L + m.shape[0]:] == 0).all())
         assert _rel(Y1, plain(A, Xt)) <= TOL[dtype]
-        assert _rel(Y1[-1], spmv_kern(A, Xt[-1].contiguous())) <= TOL[dtype]
+        for q in range(nrhs):
+            assert torch.equal(Y1[q], spmv_kern(A, Xt[q].contiguous())), q
 
 
 def _every_width(seed: int = 0):
@@ -254,7 +255,7 @@ def test_psdia_spmm_windows_match_plain_and_k2_on_card(card, dtype, nrhs,
         Xt[:, A.L:A.L + n] = X
         before = tds.LAUNCHES["psdia_spmm"]
         Y1, Y2 = tds.spmm_psdia_padded_t(A, Xt), tds.spmm_psdia_padded_t(A, Xt)
-        Yc = tds._spmm_psdia_launch(A, Xt, tds._cluster_walk(
+        Yc = tds._spmm_launch(A, Xt, tds._cluster_walk(
             A.offsets, nrhs, A.pattern.element_size()))
         assert tds.LAUNCHES["psdia_spmm"] == before + 3
         assert torch.equal(Y1, Y2) and torch.equal(Y1, Yc)
@@ -265,32 +266,148 @@ def test_psdia_spmm_windows_match_plain_and_k2_on_card(card, dtype, nrhs,
                 A, Xt[q].contiguous())), q
 
 
+#: K3a's operands: K3b's, packed as SDIA, and a row tile of 87 rows whose
+#: npad (1827) and L (87) are odd, so the data rows take one-value copies
+_SDIA_SPMM_OPERANDS = ["laplacian_2d(40)", "laplacian_2d(40), rb 87",
+                       "laplacian_2d(128)", "laplacian_2d(300, 101)",
+                       "laplacian_3d(10)", "band of 301 diagonals"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("nrhs", [1, 3, 40])
+@pytest.mark.parametrize("nrhs", [1, 3, 8, 32, 40])
+@pytest.mark.parametrize("name", _SDIA_SPMM_OPERANDS)
+def test_sdia_spmm_windows_match_plain_and_k1_on_card(card, dtype, nrhs,
+                                                     name):
+    """K3a on K3b's walks, the plan's and the cluster walk, with the data
+    rows as the coefficients: the 2-D and 3-D Poisson, an odd npad, a
+    band whose clusters the plan cuts, 40 RHS in two chunks (the data rows
+    read twice), Xt's rows 16-byte aligned and not: within the limit of
+    the plain version, rows outside [L, L + nrow) zero, bitwise
+    reproducible, every column bitwise K1 on the same pack."""
+    m, rb = {"laplacian_2d(40)": (utils.laplacian_2d(40), None),
+             "laplacian_2d(40), rb 87": (utils.laplacian_2d(40), 87),
+             "laplacian_2d(128)": (utils.laplacian_2d(128), None),
+             "laplacian_2d(300, 101)": (utils.laplacian_2d(300, 101), None),
+             "laplacian_3d(10)": (utils.laplacian_3d(10), None),
+             "band of 301 diagonals": (_toeplitz_band(1500, 150), None)}[name]
+    dia = convert(COO.from_scipy(m, dtype=dtype), "dia")
+    A = tds.pack_sdia(dia, rb=rb, nrhs=nrhs, device=card)
+    n = m.shape[0]
+    if rb == 87:
+        assert A.npad % 2 and A.L % 2
+    X = torch.tensor(np.random.default_rng(nrhs).random((nrhs, n)),
+                     dtype=dtype, device=card)
+    clusters = tds._cluster_walk(A.offsets, nrhs, A.data.element_size())
+    for shift in (0, 1):
+        buf = torch.zeros(nrhs * A.npad + 1, dtype=dtype, device=card)
+        Xt = buf[shift:shift + nrhs * A.npad].view(nrhs, A.npad)
+        Xt[:, A.L:A.L + n] = X
+        before = tds.LAUNCHES["sdia_spmm"]
+        Y1, Y2 = tds.spmm_sdia_padded_t(A, Xt), tds.spmm_sdia_padded_t(A, Xt)
+        Yc = tds._spmm_launch(A, Xt, clusters)
+        assert tds.LAUNCHES["sdia_spmm"] == before + 3
+        assert torch.equal(Y1, Y2) and torch.equal(Y1, Yc)
+        assert bool((Y1[:, :A.L] == 0).all() and (Y1[:, A.L + n:] == 0).all())
+        assert _rel(Y1, tds.spmm_sdia_padded_t_ref(A, Xt)) <= TOL[dtype]
+        for q in range(nrhs):
+            assert torch.equal(Y1[q], tds.spmv_sdia_padded(
+                A, Xt[q].contiguous())), q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sdia", "psdia"])
+def test_spmm_refuses_a_plan_that_does_not_fit_on_card(card, kind):
+    """K3a and K3b launch only a plan whose ring fits the shared memory a
+    block may have and whose tile is the kernel's: a plan with a larger
+    slot, or another tile height, raises and is not counted; nothing
+    falls back to another kernel."""
+    m = utils.laplacian_2d(64)
+    dia = convert(COO.from_scipy(m, dtype=torch.float32), "dia")
+    A = (tds.pack_sdia(dia, nrhs=8, device=card) if kind == "sdia" else
+         tds.pack_psdia(dia, period=64, nrhs=8, device=card))
+    Xt = torch.zeros(8, A.npad, device=card)
+    plan = tds.psdia_spmm_plan(A.offsets, 8, 4)
+    key = f"{kind}_spmm"
+    for bad in (dataclasses.replace(plan, slot=tds.SPMM_SMEM_MAX // 4),
+                dataclasses.replace(plan, tk=2 * plan.tk)):
+        before = tds.LAUNCHES[key]
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            tds._spmm_launch(A, Xt, bad)
+        assert tds.LAUNCHES[key] == before
+    assert torch.equal(tds._spmm_launch(A, Xt, plan), torch.zeros_like(Xt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nrhs", [1, 3, 32, 40])
+def test_ell_spmm_sums_its_slots_in_order_on_card(card, dtype, nrhs):
+    """ell_spmm bitwise against every row's slots summed in order for each
+    RHS, emulated on the host as for ell_spmv (exact dyadic products),
+    on widths 0 to MAX_WIDTH, an empty slice, a ragged last slice and the
+    side COO's row, X 16-byte aligned and not."""
+    rng = np.random.default_rng(13)
+    bits, npt = ((12, np.float32) if dtype == torch.float32
+                 else (26, np.float64))
+    m = _ell_widths(rng)
+    m.data = _dyadic(rng, m.nnz, bits)
+    X64 = _dyadic(rng, m.shape[1] * nrhs, bits).reshape(m.shape[1], nrhs)
+    A = tell.pack_ell(m, dtype=dtype, device=card)
+    vals, cols = A.vals.cpu().numpy(), A.cols.cpu().numpy()
+    ptr = A.slice_ptr.cpu().numpy()
+    widths = np.diff(ptr) // 32
+    r = np.arange(m.shape[0])
+    base, w = ptr[r // 32] + r % 32, widths[r // 32]
+    Xh = X64.astype(npt)
+    acc = np.zeros((m.shape[0], nrhs), dtype=npt)
+    for j in range(int(widths.max())):
+        at = np.where(j < w, base + 32 * j, 0)
+        term = np.where((j < w)[:, None], vals[at, None] * Xh[cols[at]], 0)
+        acc = (acc + term.astype(npt)).astype(npt)
+    for shift in (0, 1):
+        buf = torch.zeros(Xh.size + 1, dtype=dtype, device=card)
+        X = buf[shift:shift + Xh.size].view(Xh.shape)
+        X.copy_(torch.from_numpy(Xh))
+        assert np.array_equal(tell.spmm_ell_main(A, X).cpu().numpy(), acc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nrhs", [1, 3, 32, 40])
 def test_general_spmm_kernels_match_plain_on_card(card, dtype, nrhs):
     """gpr_spmm and ell_spmm against their plain versions on a power-law
-    operand with hub rows (the fold and the side COO engage): within the
-    limits, bitwise reproducible, each launch counted; the full products
-    match scipy."""
+    operand with hub rows (the fold and the side COO engage), X 16-byte
+    aligned and not (a view one value into its buffer): within the
+    limits, bitwise reproducible and equal on both, each launch counted;
+    every column of ell_spmm bitwise ell_spmv's; the full products match
+    scipy."""
     m = utils.power_law(3000, 3000, 12, seed=2)
     X64 = np.random.default_rng(8).random((3000, nrhs))
-    X = torch.tensor(X64, dtype=dtype, device=card)
     ref = m @ X64
-    for A, kern, plain, full, key, launches in (
-            (tgpr.pack_gpr(m, dtype=dtype, device=card), tgpr.spmm_gpr_rows,
-             tgpr.spmm_gpr_ref, tgpr.spmm_gpr, "gpr_spmm", tgpr.LAUNCHES),
-            (tell.pack_ell(m, dtype=dtype, device=card), tell.spmm_ell_main,
-             tell.spmm_ell_packed_ref, tell.spmm_ell_packed, "ell_spmm",
-             tell.LAUNCHES)):
-        before = launches[key]
-        Y1, Y2 = kern(A, X), kern(A, X)
-        assert launches[key] == before + 2
-        assert torch.equal(Y1, Y2)
-        assert _rel(Y1, plain(A, X)) <= TOL[dtype]
-        Y = full(A, X).cpu().double().numpy()
-        gate = 2e-5 if dtype == torch.float32 else 1e-10
-        assert np.max(np.abs(Y - ref)) <= gate * np.max(np.abs(ref))
+    for shift in (0, 1):
+        buf = torch.zeros(3000 * nrhs + 1, dtype=dtype, device=card)
+        X = buf[shift:shift + 3000 * nrhs].view(3000, nrhs)
+        X.copy_(torch.from_numpy(X64))
+        for A, kern, plain, full, key, launches in (
+                (tgpr.pack_gpr(m, dtype=dtype, device=card),
+                 tgpr.spmm_gpr_rows, tgpr.spmm_gpr_ref, tgpr.spmm_gpr,
+                 "gpr_spmm", tgpr.LAUNCHES),
+                (tell.pack_ell(m, dtype=dtype, device=card),
+                 tell.spmm_ell_main, tell.spmm_ell_packed_ref,
+                 tell.spmm_ell_packed, "ell_spmm", tell.LAUNCHES)):
+            before = launches[key]
+            Y1, Y2 = kern(A, X), kern(A, X)
+            assert launches[key] == before + 2
+            assert torch.equal(Y1, Y2)
+            assert torch.equal(Y1, kern(A, X.contiguous().clone()))
+            assert _rel(Y1, plain(A, X)) <= TOL[dtype]
+            if key == "ell_spmm":
+                for q in range(nrhs):
+                    assert torch.equal(Y1[:, q], tell.spmv_ell_main(
+                        A, X[:, q].contiguous())), q
+            Y = full(A, X).cpu().double().numpy()
+            gate = 2e-5 if dtype == torch.float32 else 1e-10
+            assert np.max(np.abs(Y - ref)) <= gate * np.max(np.abs(ref))
 
 
 @pytest.mark.cuda

@@ -1,19 +1,24 @@
 """Host-side plans of the port's hand-written kernels, on the CPU.
 
-K3b (``psdia_spmm`` in ``tpu_spmv_torch/csrc/dia_stream.cu``) stages one
-window of ``Xt`` per cluster of nearby diagonal offsets in shared memory;
-:func:`psdia_spmm_plan` picks the tile, the clusters and the windows on
-the host.  These tests hold the plan to what the kernel relies on (every
-read ``k + off_d`` of every row of a tile inside its cluster's window,
-16-byte window edges, the shared-memory budget), for the 2-D and 3-D
-Poisson, a wide band and random offset sets, and run a numpy emulation
-of the kernel's tiling against the plain version.  ``gpr_spmv``
+K3a and K3b (``sdia_spmm`` and ``psdia_spmm``, one body in
+``tpu_spmv_torch/csrc/dia_stream.cu``) stage one window of ``Xt`` per
+cluster of nearby diagonal offsets in shared memory, or one a tile along
+the stride walk, with the tile's coefficient rows (K3b's pattern at ``k
+mod rb``, K3a's SDIA data rows at ``k``); :func:`psdia_spmm_plan` picks
+the tile, the clusters and the windows on the host.  These tests hold the
+plan to what the kernel relies on (every read ``k + off_d`` of every row
+of a tile inside its cluster's window, 16-byte window edges, the
+shared-memory budget), for the 2-D and 3-D Poisson, a wide band and
+random offset sets, and run a numpy emulation of the kernel's tiling on
+PSDIA and SDIA packs against the plain versions (and, on one SDIA pack,
+the JAX package's K3a in interpret mode).  ``gpr_spmv``
 (``csrc/general.cu``) keeps its lane table in the kernel; the pack's
 width classes that the table relies on are checked here too.
 """
 
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -21,6 +26,8 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+import tpu_spmv as ts
+from tpu_spmv.kernels import dia_stream as jds
 from tpu_spmv_torch import COO, convert, utils
 from tpu_spmv_torch.kernels import dia_stream as tds
 from tpu_spmv_torch.kernels import gpr as tgpr
@@ -182,8 +189,9 @@ def test_plan_covers_every_read_and_fits(offsets, nrhs, itemsize):
 def _emulate(A, Xt: np.ndarray, plan) -> np.ndarray:
     """The kernel's tiling in numpy (float64): per (chunk, tile), each
     window staged with zeros outside ``[0, npad)`` and the coefficient
-    rows read at ``k mod rb``, summed over the diagonals in stored order;
-    rows outside ``[L, L + nrow)`` stay zero.  The cluster walk reads
+    rows read at ``k mod rb`` (PSDIA: K3b) or ``k`` (SDIA: K3a, zero from
+    ``L + nrow`` on), summed over the diagonals in stored order; rows
+    outside ``[L, L + nrow)`` stay zero.  The cluster walk reads
     cluster ``c``'s window of the tile, the stride walk diagonal ``d``'s
     window of the tile ``jd[d] * stride`` tiles away (which exists for
     every tile, pads and all, the kernel reads it at a window position
@@ -191,11 +199,21 @@ def _emulate(A, Xt: np.ndarray, plan) -> np.ndarray:
     chunk at once: the same sums, element for element, as one tile at a
     time."""
     nrhs, npad = Xt.shape
-    pat = A.pattern.numpy()
     Y = np.zeros_like(Xt)
     ntiles = -(-A.shape[0] // plan.tk)
     k0 = A.L + plan.tk * np.arange(ntiles)             # [ntiles]
-    slots = (k0[:, None] + np.arange(plan.tk)) % A.rb  # [ntiles, tk]
+    rows = k0[:, None] + np.arange(plan.tk)            # [ntiles, tk]
+    keep = rows < A.L + A.shape[0]
+    if isinstance(A, tds.SDIA):
+        data = A.data.numpy()
+
+        def coef(d):
+            return np.where(keep, data[d, np.where(keep, rows, 0)], 0.0)
+    else:
+        pat = A.pattern.numpy()
+
+        def coef(d):
+            return pat[d, rows % A.rb]
 
     def windows(q0, nq, start, w):
         """The windows of every tile: [nq, ntiles, w]."""
@@ -204,8 +222,6 @@ def _emulate(A, Xt: np.ndarray, plan) -> np.ndarray:
         return np.where(inside, Xt[q0:q0 + nq][:, np.where(inside, cols, 0)],
                         0.0)
 
-    rows = k0[:, None] + np.arange(plan.tk)
-    keep = rows < A.L + A.shape[0]
     for chunk in range(plan.nchunks):
         q0 = chunk * plan.qcap
         nq = min(plan.qcap, nrhs - q0)
@@ -221,7 +237,7 @@ def _emulate(A, Xt: np.ndarray, plan) -> np.ndarray:
                 win = staged[shift]
                 idx = np.arange(plan.tk) + A.offsets[d] - shift - a0
                 assert idx.min() >= 0 and idx.max() < w
-                acc = acc + pat[d, slots] * win[:, :, idx]
+                acc = acc + coef(d) * win[:, :, idx]
         Y[q0:q0 + nq, rows[keep]] = acc[:, keep]
     return Y
 
@@ -249,26 +265,74 @@ SPMM_OPERANDS = {
 }
 
 
-@pytest.mark.parametrize("walk", ["plan", "clusters"])
-@pytest.mark.parametrize("nrhs", [1, 3, 8, 32, 40])
-@pytest.mark.parametrize("name", list(SPMM_OPERANDS))
-def test_emulated_tiling_matches_the_plain_version(name, nrhs, walk):
-    """A ragged last tile, rows masked outside ``[L, L + nrow)``, a row
-    tile ``rb`` shorter than the kernel's tile (the pattern slot wraps),
-    clusters cut by the budget, and the stride walk; the plan's pick and
-    the cluster walk on every operand."""
+#: K3a's operands, SDIA packs: the 2-D Poisson's stride walk at 32 and 40
+#: RHS, the band's clusters cut by the budget, and an odd npad (1827) and
+#: L (87) whose tiles run past npad
+SDIA_SPMM_OPERANDS = {
+    "SDIA laplacian_2d(128), rb 1024": (utils.laplacian_2d(128), 1024),
+    "SDIA band of 301 diagonals, rb 160": (_toeplitz_band(1500, 150), 160),
+    "SDIA laplacian_2d(40), rb 87": (utils.laplacian_2d(40), 87),
+}
+
+
+def _spmm_pack(name, nrhs):
+    """The pack of a K3b (PSDIA) or K3a (SDIA) operand for ``nrhs``."""
+    if name in SDIA_SPMM_OPERANDS:
+        m, rb = SDIA_SPMM_OPERANDS[name]
+        return tds.pack_sdia(convert(COO.from_scipy(m), "dia"), rb=rb,
+                             nrhs=nrhs)
     m, rb = SPMM_OPERANDS[name]
     dia = convert(COO.from_scipy(m), "dia")
-    A = tds.pack_psdia(dia, period=tds.detect_period(dia), nrhs=nrhs, rb=rb)
+    return tds.pack_psdia(dia, period=tds.detect_period(dia), nrhs=nrhs, rb=rb)
+
+
+@pytest.mark.parametrize("walk", ["plan", "clusters"])
+@pytest.mark.parametrize("nrhs", [1, 3, 8, 32, 40])
+@pytest.mark.parametrize("name",
+                         list(SPMM_OPERANDS) + list(SDIA_SPMM_OPERANDS))
+def test_emulated_tiling_matches_the_plain_version(name, nrhs, walk):
+    """A ragged last tile, rows masked outside ``[L, L + nrow)``, a row
+    tile ``rb`` shorter than the kernel's tile (the pattern slot wraps;
+    K3a's tiles run past npad), clusters cut by the budget, and the stride
+    walk; the plan's pick and the cluster walk on every operand, PSDIA
+    (K3b) and SDIA (K3a)."""
+    A = _spmm_pack(name, nrhs)
+    sdia = isinstance(A, tds.SDIA)
+    if name.endswith("rb 87"):
+        assert A.npad % 2 and A.L % 2
     plan = _check_plan(A.offsets, nrhs, 8, None if walk == "plan" else
                        tds._cluster_walk(A.offsets, nrhs, 8))
+    if name.startswith("SDIA laplacian_2d(128)") and nrhs >= 32:
+        assert plan.stride == 1 or walk == "clusters"
+    if name.startswith("SDIA band"):
+        assert plan.nclusters > 1
     rng = np.random.default_rng(nrhs)
     Xt = np.zeros((nrhs, A.npad))
     Xt[:, A.L:A.L + A.shape[0]] = rng.random((nrhs, A.shape[0]))
-    want = tds.spmm_psdia_padded_t_ref(A, torch.from_numpy(Xt)).numpy()
+    ref = tds.spmm_sdia_padded_t_ref if sdia else tds.spmm_psdia_padded_t_ref
+    want = ref(A, torch.from_numpy(Xt)).numpy()
     got = _emulate(A, Xt, plan)
     assert np.max(np.abs(got - want)) <= 1e-13 * np.max(np.abs(want))
     assert not got[:, :A.L].any() and not got[:, A.L + A.shape[0]:].any()
+
+
+def test_emulated_sdia_tiling_matches_the_jax_k3a():
+    """K3a's tiling (the plan's walk) on the 40x40 Poisson's SDIA pack
+    with 3 RHS against the JAX package's K3a (Pallas, interpret mode) on
+    the same pack."""
+    m = utils.laplacian_2d(40)
+    A = tds.pack_sdia(convert(COO.from_scipy(m), "dia"), nrhs=3)
+    J = jds.pack_sdia(ts.convert(ts.COO.from_scipy(m, dtype=jnp.float64),
+                                 "dia"), nrhs=3)
+    assert (J.rb, J.L, J.npad, tuple(J.offsets)) == (A.rb, A.L, A.npad,
+                                                      A.offsets)
+    Xt = np.zeros((3, A.npad))
+    Xt[:, A.L:A.L + m.shape[0]] = np.random.default_rng(5).random(
+        (3, m.shape[0]))
+    want = np.asarray(jds.spmm_sdia_padded_t(J, jnp.asarray(Xt),
+                                             interpret=True))
+    got = _emulate(A, Xt, tds.psdia_spmm_plan(A.offsets, 3, 8))
+    assert np.max(np.abs(got - want)) <= 1e-13 * np.max(np.abs(want))
 
 
 def test_psdia_spmm_plans_before_it_refuses_a_meta_tensor():

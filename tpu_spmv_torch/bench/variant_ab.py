@@ -11,6 +11,9 @@
         python3 tpu_spmv_torch/bench/variant_ab.py --suite gpr_spmm \\
             --variant $v
     done
+    for r in PARENT . . PARENT; do
+        python3 tpu_spmv_torch/bench/variant_ab.py --suite spmm --root $r
+    done
 
 ``none`` times the package under ``--root`` (default: this checkout; any
 checkout since the probe kernels were ported prints what it has).  The
@@ -44,7 +47,15 @@ changes:
   warp walks several slices); ``ellocc``: a register cap of 8 blocks an
   SM;
 - ``pu4``, ``pu16``: the two-pass gather's passes keep 4 or 16 words in
-  flight a thread (not 8); ``pt1024``: blocks of 1024 threads (not 512).
+  flight a thread (not 8); ``pt1024``: blocks of 1024 threads (not 512);
+- ``ellcs``, ``ellnc``: ``ell_spmm`` loads its slots with streaming
+  (``__ldcs``) or read-only (``__ldg``) loads, not plain ones;
+  ``ellmb2``: twice the slots a batch; ``ellpf``, ``ellpf2``: the next
+  batch's slot lines prefetched (``prefetch.global.L1`` / ``.L2``) before
+  a batch's X loads; ``ellpf1``: the same in L1 from the first lane of
+  each row only; ``carry``: the SpMM body of ``gpr_spmm`` and
+  ``ell_spmm`` loads the first entry of the next batch with each batch
+  (a row one entry wider than a batch then needs no second trip).
 
 Each run builds its copy's kernels and prints one JSON line with a hash
 of each output (a variant changes no bit) and the card's name and power
@@ -73,7 +84,16 @@ shuffled band and K1 inside it, ``ell_spmv`` (K4) on the 2048x2048-grid
 Poisson in its natural order and in a shuffled one and on the shuffled
 band beside cuSPARSE, f32 and f64, and the batched gather (K7d) on 32
 rows; per call and replayed, every input from its own seed so that two
-checkouts hash alike; ``--suite gather-quick``: the same without the band.
+checkouts hash alike; ``--suite gather-quick``: the same without the band;
+``--suite spmm``: K3a (``spmm_sdia_padded_t``) on the 4096x4096-grid
+Poisson forced to SDIA beside K3b (``spmm_psdia_padded_t``) on its PSDIA
+pack, both packs built for 32 RHS, at 8 and 32 right-hand sides, and
+``ell_spmm`` (``spmm_ell_main``) beside ``gpr_spmm`` (``spmm_gpr_rows``)
+on the 2048x2048-grid Poisson in a shuffled node order (seed 3) and in
+its natural order at 3, 32 and 40 right-hand sides (f64: 32), each with
+cuSPARSE ``torch.sparse.mm`` at 8 and 32; f32 and f64, per call and
+replayed, every input from its own seed (about 95 s a run);
+``--suite spmm-general``: the same without K3a and K3b.
 Run the variants in turns in one call, so that drift in the card's speed
 falls on all of them.  Needs a CUDA card.
 """
@@ -137,6 +157,67 @@ def _l2_policy(qualifiers: str, fraction: str) -> list:
     ]
 
 
+def _ell_slots(load: str) -> list:
+    """``ell_spmm``'s slot loads (the SpMM body at STEP 32) through
+    ``load``."""
+    return [("csrc/general.cu",
+             "        col[i] = j < end ? indices[j] : 0;\n"
+             "        v[i] = j < end ? data[j] : T(0);",
+             f"        col[i] = j < end ? (STEP == 1 ? indices[j] : "
+             f"{load}(indices + j)) : 0;\n"
+             f"        v[i] = j < end ? (STEP == 1 ? data[j] : "
+             f"{load}(data + j)) : T(0);")]
+
+
+def _ell_prefetch(level: str, leader: bool = False) -> list:
+    """``ell_spmm`` (the SpMM body at STEP 32) asks for the lines of the
+    next batch's slots (``prefetch.global.<level>``) before this batch's
+    X loads, on every lane or (``leader``) on the first lane of each row:
+    a row's slots lie 128 bytes apart, so without it a row wider than a
+    batch waits on one more trip to memory for its next slot."""
+    cond = "jn < end && threadIdx.x % G == 0" if leader else "jn < end"
+    return [("csrc/general.cu",
+             "      P xv[kBatch];\n",
+             "      if constexpr (STEP > 1) {\n"
+             "#pragma unroll\n"
+             "        for (int i = 0; i < kBatch; ++i) {\n"
+             "          const int64_t jn = j0 + (kBatch + i) * STEP;\n"
+             f"          if ({cond}) {{\n"
+             f'            asm volatile("prefetch.global.{level} [%0];" '
+             ':: "l"(indices + jn));\n'
+             f'            asm volatile("prefetch.global.{level} [%0];" '
+             ':: "l"(data + jn));\n'
+             "          }\n"
+             "        }\n"
+             "      }\n"
+             "      P xv[kBatch];\n")]
+
+
+_CARRY_OLD = """\
+    for (int64_t j0 = begin; j0 < end; j0 += kBatch * STEP) {
+      int col[kBatch];
+      T v[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+"""
+_CARRY_NEW = """\
+    int c0 = begin < end ? indices[begin] : 0;
+    T v0 = begin < end ? data[begin] : T(0);
+    for (int64_t j0 = begin; j0 < end; j0 += kBatch * STEP) {
+      int col[kBatch];
+      T v[kBatch];
+      col[0] = c0;
+      v[0] = v0;
+      {
+        const int64_t jn = j0 + kBatch * STEP;
+        c0 = jn < end ? indices[jn] : 0;
+        v0 = jn < end ? data[jn] : T(0);
+      }
+#pragma unroll
+      for (int i = 1; i < kBatch; ++i) {
+"""
+
+
 #: each change: its edits (file under the package, text, replacement)
 CHANGES = {
     "cap2": [("csrc/psdia_walk.cuh", "__launch_bounds__(kBulkThreads, 3)",
@@ -179,6 +260,16 @@ CHANGES = {
     "ellplain": [("csrc/general.cu",
                   "  col = __ldcs(c);\n  val = __ldcs(v);",
                   "  col = *c;\n  val = *v;")],
+    "ellpf": _ell_prefetch("L1"),
+    "ellpf2": _ell_prefetch("L2"),
+    "ellpf1": _ell_prefetch("L1", leader=True),
+    "carry": [("csrc/general.cu", _CARRY_OLD, _CARRY_NEW)],
+    "ellcs": _ell_slots("__ldcs"),
+    "ellnc": _ell_slots("__ldg"),
+    "ellmb2": [("csrc/general.cu",
+                "  constexpr int kBatch = spmm_batch(G, V);",
+                "  constexpr int kBatch =\n"
+                "      spmm_batch(G, V) * (STEP == 1 ? 1 : 2);")],
     "last": _l2_policy("L2::evict_last", "1.0"),
     "last-half": _l2_policy("L2::evict_last.L2::evict_unchanged", "0.5"),
 }
@@ -481,11 +572,95 @@ def _gather(out, dev, event_ms, graph_ms, quick=False):
            lambda: pk.apply_permutation_batched(rop.perm_plan, XB), 10)
 
 
+def _spmm(out, dev, event_ms, graph_ms, general_only=False):
+    import numpy as np
+    import torch
+
+    from tpu_spmv_torch import COO, convert, utils
+    from tpu_spmv_torch.kernels import dia_stream as ds
+    from tpu_spmv_torch.kernels import ell_packed as ell
+    from tpu_spmv_torch.kernels import gpr
+
+    F = torch.nn.functional
+
+    def rand(shape, dtype, seed):
+        """Inputs from their own seed: both sides of an A/B get the same."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.rand(shape, generator=gen, device=dev, dtype=dtype)
+
+    def record(key, fn, iters, calls):
+        out[f"{key} hash"] = _hash(fn())
+        out[key] = event_ms(fn, iters, 11)
+        out[f"{key}:graph"] = graph_ms(fn, calls=calls, replays=5)
+
+    def cusparse(m, dtype):
+        csr = m.tocsr()
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(csr.indptr.astype(np.int32)),
+            torch.from_numpy(csr.indices.astype(np.int32)),
+            torch.from_numpy(csr.data).to(dtype), size=csr.shape).to(dev)
+
+    if not general_only:
+        # K3a on the 4096x4096-grid Poisson forced to SDIA, beside K3b on
+        # its PSDIA pack, both packs built for 32 RHS, and cuSPARSE
+        mat = utils.laplacian_2d(4096)
+        n = mat.shape[0]
+        dia = convert(COO.from_scipy(mat, dtype=torch.float32, device=dev),
+                      "dia")
+        S = ds.pack_sdia(dia, nrhs=32)
+        P = ds.pack_psdia(dia, period=4096, nrhs=32)
+        del dia
+        out["4096^2 packs"] = f"rb {S.rb} npad {S.npad} / rb {P.rb}"
+        for dname, dtype in (("f32", torch.float32),
+                             ("f64", torch.float64)):
+            Sd = dataclasses.replace(S, data=S.data.to(dtype))
+            Pd = dataclasses.replace(P, pattern=P.pattern.to(dtype))
+            lib = cusparse(mat, dtype)
+            for k in (8, 32):
+                X = rand((n, k), dtype, k)
+                calls = 2 if k == 32 else 4
+                for kname, A, kern in (("K3a", Sd, ds.spmm_sdia_padded_t),
+                                       ("K3b", Pd, ds.spmm_psdia_padded_t)):
+                    Xt = F.pad(X.T, (A.L, A.npad - A.L - n)).contiguous()
+                    record(f"{kname} 4096^2 {k} RHS {dname}",
+                           lambda: kern(A, Xt), 5, calls)
+                    del Xt
+                out[f"cuSPARSE 4096^2 {k} RHS {dname}"] = event_ms(
+                    lambda: torch.sparse.mm(lib, X), 3, 5)
+                del X
+            del Sd, Pd, lib
+        del S, P, mat
+
+    # ell_spmm (K4 SpMM) on the 2048x2048-grid Poisson in a shuffled node
+    # order (seed 3; the planner's sliced-ELL pick) and in its natural
+    # order, beside gpr_spmm (K6) on the same operand and cuSPARSE
+    lap = utils.laplacian_2d(2048)
+    perm = np.random.default_rng(3).permutation(lap.shape[0])
+    for name, m in (("shuffled 2048^2", lap[perm][:, perm].tocsr()),
+                    ("natural 2048^2", lap)):
+        for dname, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            E = ell.pack_ell(m, dtype=dtype, device=dev)
+            G = gpr.pack_gpr(m, dtype=dtype, device=dev)
+            lib = cusparse(m, dtype)
+            for k in ((3, 32, 40) if dname == "f32" else (32,)):
+                X = rand((m.shape[1], k), dtype, 100 + k)
+                calls = 4 if k >= 32 else 10
+                record(f"ell_spmm {name} {k} RHS {dname}",
+                       lambda: ell.spmm_ell_main(E, X), 10, calls)
+                record(f"gpr_spmm {name} {k} RHS {dname}",
+                       lambda: gpr.spmm_gpr_rows(G, X), 10, calls)
+                if k == 32:
+                    out[f"cuSPARSE {name} {k} RHS {dname}"] = event_ms(
+                        lambda: torch.sparse.mm(lib, X), 5, 5)
+                del X
+            del E, G, lib
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--suite",
                     choices=["walk", "tiles", "gpr_spmm", "gather",
-                             "gather-quick"],
+                             "gather-quick", "spmm", "spmm-general"],
                     required=True)
     ap.add_argument("--variant", default="none")
     ap.add_argument("--root", default=str(_ROOT),
@@ -516,6 +691,9 @@ def main(argv=None) -> int:
     out = {"suite": args.suite, "variant": args.variant, "root": str(root)}
     if args.suite == "gpr_spmm":
         _gpr_spmm(out, dev, timing.event_ms)
+    elif args.suite.startswith("spmm"):
+        _spmm(out, dev, timing.event_ms, timing.graph_ms,
+              general_only=args.suite == "spmm-general")
     elif args.suite.startswith("gather"):
         _gather(out, dev, timing.event_ms, timing.graph_ms,
                 quick=args.suite == "gather-quick")

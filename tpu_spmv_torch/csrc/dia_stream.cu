@@ -51,29 +51,38 @@
 // The bytes they must move are the coefficients once plus nrhs x and y
 // rows, so the coefficient read that bounds K1 is shared by the RHS.
 //
-// K3a: one thread owns one padded row for a chunk of QC <= 32 RHS
-// (blockIdx.y picks the chunk; the last chunk of an nrhs that QC does not
-// divide leaves its upper accumulators unused): per diagonal it loads the
-// coefficient once and does one FMA per RHS, the QC accumulators stay in
-// registers (the loops over q are unrolled), and each Xt load is coalesced
-// across the warp.  The order of the diagonals is K1's, so each RHS sums in
-// K1's order.
+// K3a and K3b run one kernel body, along the walks below, and differ only
+// in where a tile's coefficient rows come from (CoefSource): K3b's periodic
+// pattern, read at k mod rb from L2 with one-value copies, or K3a's SDIA
+// data rows, data[d * npad + k], which nothing reads twice: they stream
+// from device memory once per RHS chunk, with 16-byte copies where the
+// data, npad and L are 16-byte aligned, under an evict-first L2 policy so
+// that they do not push the windows of Xt out of L2.  K3a's former kernel
+// gave each thread one padded row of up to 32 RHS and loaded Xt[q, k +
+// off_d] from the global cache once per diagonal: each Xt value went
+// through L2 ndiags times (the +-4096 diagonals of the 4096^2 Poisson read
+// lines 16 KB away that L1 does not hold), and it took 4.1439 ms at 32 RHS
+// f32 against a bound of 1.3930 (an NVIDIA H100 80GB HBM3 at 700 W,
+// PERF.md).
 //
-// K3b stages x in shared memory, as the reference stages an [nrhs, rb] x
-// tile and two [nrhs, h] halo blocks in VMEM
-// (tpu_spmv/kernels/dia_stream.py:908-926).
-// What bounds it: the 2 * nrhs * npad * sizeof(T) bytes of Xt and Yt; the
-// pattern is a few MB at most and stays in L2.  Every x value is read by
+// The walks stage x in shared memory, as the reference stages an [nrhs,
+// rb] x tile and two [nrhs, h] halo blocks in VMEM
+// (tpu_spmv/kernels/dia_stream.py:908-926, and :339-400 for K3a, which
+// also stages the [nd, rb] data tile).
+// What bounds them: the 2 * nrhs * npad * sizeof(T) bytes of Xt and Yt,
+// and K3a's ndiags * npad * sizeof(T) of data; K3b's pattern is a few MB
+// at most and stays in L2.  Every x value is read by
 // ndiags rows; a kernel that loads it once per diagonal, or once per
 // window of nearby diagonals, from L2 is bound by L2 traffic, not device
 // memory.  The design: a tile of TK rows of QCAP RHS (kSpmmRows x kSpmmRhs
 // outputs a thread, in registers, 256 threads; TK = 128 at 32 RHS).  The
-// tile's coefficient rows (pattern slot k mod rb, computed once per tile)
-// and windows of Xt are copied into a ring of shared-memory slots with
-// cp.async (16-byte copies that bypass L1, where Xt's rows are 16-byte
-// aligned), several copies in flight while the block computes from an
-// earlier slot; threads of a warp read neighbouring rows of a window, so
-// the reads are free of bank conflicts and each store is one 128-byte line.
+// tile's coefficient rows (from the pattern slot k mod rb, computed once
+// per tile, or the data rows) and windows of Xt are copied into a ring of
+// shared-memory slots with cp.async (16-byte copies that bypass L1, where
+// Xt's rows are 16-byte aligned), several copies in flight while the block
+// computes from an earlier slot; threads of a warp read neighbouring rows
+// of a window, so the reads are free of bank conflicts and each store is
+// one 128-byte line.
 // A full halo does not fit (+-4096 rows x 32 RHS of the 4096^2 Poisson is
 // 1 MB), so the host plan (kernels/dia_stream.py:psdia_spmm_plan, from the
 // offsets, the RHS count and the shared-memory budget) picks one of two
@@ -89,9 +98,11 @@
 //     per tile; the blocks walk the tiles in row order together, so a far
 //     window that another block fetched a moment ago is still in L2.
 // Persistent blocks, as many as the card holds at once.  Each thread sums
-// its outputs over the diagonals in stored order with fma, K2's order and
-// rounding, so every column of K3b is bitwise K2's on the same pack; one
-// writer per output and no atomics, so results are bitwise reproducible.
+// its outputs over the diagonals in stored order with fma from zero, K1's
+// and K2's order and rounding, so every column of K3a is bitwise K1's and
+// every column of K3b K2's on the same pack; rows outside [L, L + nrow)
+// are written as exact zeros; one writer per output and no atomics, so
+// results are bitwise reproducible.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -131,41 +142,9 @@ __global__ void sdia_spmv(const T* __restrict__ data,
   }
 }
 
-template <typename T, int QC>
-__global__ void sdia_spmm(const T* __restrict__ data,
-                          const int* __restrict__ offsets, int ndiags,
-                          const T* __restrict__ xt, T* __restrict__ yt,
-                          int64_t npad, int nrhs) {
-  extern __shared__ int s_off[];
-  for (int d = threadIdx.x; d < ndiags; d += blockDim.x) s_off[d] = offsets[d];
-  __syncthreads();
-  const int q0 = blockIdx.y * QC;
-  const int nq = min(QC, nrhs - q0);
-  const T* x = xt + q0 * npad;
-  T* y = yt + q0 * npad;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       k < npad; k += stride) {
-    T acc[QC];
-#pragma unroll
-    for (int q = 0; q < QC; ++q) acc[q] = T(0);
-    for (int d = 0; d < ndiags; ++d) {
-      const int64_t j = k + s_off[d];
-      if (j >= 0 && j < npad) {
-        const T c = data[d * npad + k];
-#pragma unroll
-        for (int q = 0; q < QC; ++q)
-          if (q < nq) acc[q] += c * x[q * npad + j];
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < QC; ++q)
-      if (q < nq) y[q * npad + k] = acc[q];
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K3b psdia_spmm: windows of Xt staged in shared memory (see the header)
+// K3a sdia_spmm and K3b psdia_spmm: windows of Xt staged in shared memory
+// (see the header)
 // ---------------------------------------------------------------------------
 
 // slots in the ring of the cluster walk: kSpmmStages - 1 copies are in
@@ -177,7 +156,7 @@ constexpr int kSpmmRhs = 4;
 
 // the operand's geometry and the host plan's scalars
 struct SpmmShape {
-  int64_t rb, npad, L, nrow;
+  int64_t npad, L, nrow;
   int64_t seg;    // the stride walk: tiles per segment (launcher)
   int nrhs;
   int ndiags;
@@ -187,6 +166,25 @@ struct SpmmShape {
   int slot;       // elements of one ring slot
   int nslot;      // slots in the ring
 };
+
+// where a tile's coefficient rows come from: K3b's pattern, coef(d, k) =
+// p[d * ld + k mod ld] (ld = rb), or with SDIA K3a's data rows, coef(d, k)
+// = p[d * ld + k] (ld = npad), whose rows from `end` = L + nrow on are
+// never stored and are staged as zeros
+template <typename T>
+struct CoefSource {
+  const T* p;
+  int64_t ld;
+  int64_t end;
+};
+
+// the column of a tile's first row k0 in the coefficient rows (once a
+// tile)
+template <bool SDIA, typename T>
+__device__ __forceinline__ int64_t coef_base(const CoefSource<T>& c,
+                                             int64_t k0) {
+  return SDIA ? k0 : k0 % c.ld;
+}
 
 // the row mask: rows outside [L, L + nrow) are zero (every block a share)
 template <typename T>
@@ -231,16 +229,33 @@ __device__ __forceinline__ void stage_window(T* __restrict__ win,
 }
 
 // copy the coefficients of diagonals d0 .. d0 + nd for the TK rows from
-// pattern slot `base` (= k0 mod rb, once per tile) on, wrapping at rb
-template <typename T, int TK>
-__device__ __forceinline__ void stage_pattern(T* __restrict__ pat,
-                                              const T* __restrict__ pattern,
-                                              int d0, int nd, int64_t base,
-                                              int64_t rb) {
-  for (int e = threadIdx.x; e < nd * TK; e += kThreads) {
-    int64_t k = base + e % TK;
-    if (k >= rb) k %= rb;
-    cp_async<sizeof(T)>(pat + e, pattern + (d0 + e / TK) * rb + k);
+// column `base` (coef_base) on to pat[dd * TK ..]: the pattern one value a
+// copy, wrapping at rb; the data rows V values a copy (p, ld and base are
+// then V-aligned: the launcher sees to it), first out of L2
+template <typename T, int TK, int V, bool SDIA>
+__device__ __forceinline__ void stage_coef(T* __restrict__ pat,
+                                           const CoefSource<T>& c, int d0,
+                                           int nd, int64_t base) {
+  if constexpr (SDIA) {
+    constexpr int nv = TK / V;
+    const uint64_t pol = evict_first_policy();
+    for (int e = threadIdx.x; e < nd * nv; e += kThreads) {
+      const int dd = e / nv, v = e % nv;
+      const int64_t k = base + static_cast<int64_t>(v) * V;
+      T* const dst = pat + dd * TK + v * V;
+      if (k < c.end) {
+        cp_async_hint<V * sizeof(T)>(dst, c.p + (d0 + dd) * c.ld + k, pol);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) dst[i] = T(0);
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < nd * TK; e += kThreads) {
+      int64_t k = base + e % TK;
+      if (k >= c.ld) k %= c.ld;
+      cp_async<sizeof(T)>(pat + e, c.p + (d0 + e / TK) * c.ld + k);
+    }
   }
 }
 
@@ -253,10 +268,12 @@ struct Stage {
   int64_t tile;
   int chunk;
   int c;
-  int64_t base;  // k0 mod rb of the tile's first row k0
+  int64_t base;  // coef_base of the tile's first row k0
 };
 
+template <bool SDIA, typename T>
 __device__ __forceinline__ void next_stage(Stage& st, const SpmmShape& g,
+                                           const CoefSource<T>& coef,
                                            int64_t dtile, int dchunk,
                                            int64_t tk) {
   if (++st.c < g.nclusters) return;
@@ -267,22 +284,21 @@ __device__ __forceinline__ void next_stage(Stage& st, const SpmmShape& g,
     st.chunk -= g.nchunks;
     ++st.tile;
   }
-  st.base = (g.L + st.tile * tk) % g.rb;  // once per item
+  st.base = coef_base<SDIA>(coef, g.L + st.tile * tk);  // once per item
 }
 
 // QT threads along the RHS, kThreads / QT along the rows; a tile is
 // TK = kSpmmRows * kThreads / QT rows of QCAP = kSpmmRhs * QT RHS.  V:
-// elements per window copy (16 bytes, or 1 where Xt is not 16-byte
-// aligned).  table: the plan's cluster starts (nclusters + 1 diagonal
-// indices), then each cluster's window start a0 and width w (columns
-// k0 + a0 .. k0 + a0 + w of Xt for the tile at k0).
-template <typename T, int QT, int V>
+// elements per copy of a window or a data row (16 bytes, or 1 where Xt or
+// the data rows are not 16-byte aligned).  SDIA: the coefficient source
+// (K3a's data rows, else K3b's pattern).  table: the plan's cluster starts
+// (nclusters + 1 diagonal indices), then each cluster's window start a0
+// and width w (columns k0 + a0 .. k0 + a0 + w of Xt for the tile at k0).
+template <typename T, int QT, int V, bool SDIA>
 __global__ void __launch_bounds__(kThreads)
-    psdia_spmm_clusters(const T* __restrict__ pattern,
-                        const int* __restrict__ offsets,
-                        const int* __restrict__ table,
-                        const T* __restrict__ xt, T* __restrict__ yt,
-                        SpmmShape g) {
+    dia_spmm_clusters(CoefSource<T> coef, const int* __restrict__ offsets,
+                      const int* __restrict__ table, const T* __restrict__ xt,
+                      T* __restrict__ yt, SpmmShape g) {
   constexpr int RT = kThreads / QT;
   constexpr int TK = RT * kSpmmRows;
   constexpr int QCAP = QT * kSpmmRhs;
@@ -300,7 +316,7 @@ __global__ void __launch_bounds__(kThreads)
   first.tile = blockIdx.x / g.nchunks;
   first.chunk = static_cast<int>(blockIdx.x % g.nchunks);
   first.c = 0;
-  first.base = (g.L + first.tile * TK) % g.rb;
+  first.base = coef_base<SDIA>(coef, g.L + first.tile * TK);
 
   // stage st into a slot: the cluster's coefficient rows [nd, TK], then
   // its window of the chunk's RHS rows
@@ -310,7 +326,7 @@ __global__ void __launch_bounds__(kThreads)
       const int d0 = __ldg(cstart + st.c);
       const int nd = __ldg(cstart + st.c + 1) - d0;
       T* const pat = smem + slot * g.slot;
-      stage_pattern<T, TK>(pat, pattern, d0, nd, st.base, g.rb);
+      stage_coef<T, TK, V, SDIA>(pat, coef, d0, nd, st.base);
       stage_window<T, V>(pat + nd * TK, xt,
                          g.L + st.tile * TK + __ldg(ca0 + st.c),
                          __ldg(cwidth + st.c), q0, min(QCAP, g.nrhs - q0),
@@ -323,7 +339,7 @@ __global__ void __launch_bounds__(kThreads)
   int slot_ahead = 0;
   for (int i = 0; i < kSpmmStages - 1; ++i) {
     issue(ahead, slot_ahead);
-    next_stage(ahead, g, dtile, dchunk, TK);
+    next_stage<SDIA>(ahead, g, coef, dtile, dchunk, TK);
     slot_ahead = slot_ahead + 1 == kSpmmStages ? 0 : slot_ahead + 1;
   }
 
@@ -337,7 +353,7 @@ __global__ void __launch_bounds__(kThreads)
   int slot = 0;
   for (Stage st = first; st.tile < ntiles;) {
     issue(ahead, slot_ahead);
-    next_stage(ahead, g, dtile, dchunk, TK);
+    next_stage<SDIA>(ahead, g, coef, dtile, dchunk, TK);
     slot_ahead = slot_ahead + 1 == kSpmmStages ? 0 : slot_ahead + 1;
     cp_async_wait<kSpmmStages - 1>();  // this thread's copies of st landed
     __syncthreads();                   // and every other thread's
@@ -349,16 +365,16 @@ __global__ void __launch_bounds__(kThreads)
     const int a0 = __ldg(ca0 + st.c), w = __ldg(cwidth + st.c);
     const T* const pat = smem + slot * g.slot + ir;
     const T* const win = smem + slot * g.slot + nd * TK + iq * w + ir - a0;
-    // diagonals in stored order, so each RHS sums in K2's order
+    // diagonals in stored order, so each RHS sums in K1's and K2's order
     for (int dd = 0; dd < nd; ++dd) {
       const T* const xrow = win + __ldg(offsets + d0 + dd);
 #pragma unroll
       for (int a = 0; a < kSpmmRows; ++a) {
-        const T coef = pat[dd * TK + a * RT];
+        const T cf = pat[dd * TK + a * RT];
 #pragma unroll
         for (int b = 0; b < kSpmmRhs; ++b)
           if (iq + b * QT < nq)
-            acc[a][b] = fma(coef, xrow[b * QT * w + a * RT], acc[a][b]);
+            acc[a][b] = fma(cf, xrow[b * QT * w + a * RT], acc[a][b]);
       }
     }
     if (st.c == g.nclusters - 1) {  // the item's last cluster: store
@@ -376,7 +392,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     __syncthreads();  // the slot is read before a later stage refills it
-    next_stage(st, g, dtile, dchunk, TK);
+    next_stage<SDIA>(st, g, coef, dtile, dchunk, TK);
     slot = slot + 1 == kSpmmStages ? 0 : slot + 1;
   }
   cp_async_wait<0>();
@@ -415,13 +431,11 @@ __device__ __forceinline__ void walk_item(Walk& wk, int64_t item,
   }
 }
 
-template <typename T, int QT, int V>
+template <typename T, int QT, int V, bool SDIA>
 __global__ void __launch_bounds__(kThreads)
-    psdia_spmm_stride(const T* __restrict__ pattern,
-                      const int* __restrict__ offsets,
-                      const int* __restrict__ table,
-                      const T* __restrict__ xt, T* __restrict__ yt,
-                      SpmmShape g) {
+    dia_spmm_stride(CoefSource<T> coef, const int* __restrict__ offsets,
+                    const int* __restrict__ table, const T* __restrict__ xt,
+                    T* __restrict__ yt, SpmmShape g) {
   constexpr int RT = kThreads / QT;
   constexpr int TK = RT * kSpmmRows;
   constexpr int QCAP = QT * kSpmmRhs;
@@ -452,9 +466,9 @@ __global__ void __launch_bounds__(kThreads)
       T* const pat = smem + slot * g.slot;
       const int64_t i = wk.p - jlast;  // the tile this copy completes
       if (i >= wk.i0)
-        stage_pattern<T, TK>(pat, pattern, 0, nd,
-                             (g.L + (wk.column + i * g.stride) * TK) % g.rb,
-                             g.rb);
+        stage_coef<T, TK, V, SDIA>(
+            pat, coef, 0, nd,
+            coef_base<SDIA>(coef, g.L + (wk.column + i * g.stride) * TK));
       const int q0 = wk.chunk * QCAP;
       stage_window<T, V>(pat + nd * TK, xt,
                          g.L + (wk.column + wk.p * g.stride) * TK + a0, w,
@@ -496,7 +510,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int a = 0; a < kSpmmRows; ++a)
 #pragma unroll
         for (int b = 0; b < kSpmmRhs; ++b) acc[a][b] = T(0);
-      // diagonals in stored order, so each RHS sums in K2's order
+      // diagonals in stored order, so each RHS sums in K1's and K2's order
       for (int d = 0; d < nd; ++d) {
         const int j = __ldg(jd + d);
         int ws = slot - jlast + j;  // the slot of window i + j
@@ -505,11 +519,11 @@ __global__ void __launch_bounds__(kThreads)
                               (__ldg(offsets + d) - j * span - a0);
 #pragma unroll
         for (int a = 0; a < kSpmmRows; ++a) {
-          const T coef = pat[d * TK + a * RT];
+          const T cf = pat[d * TK + a * RT];
 #pragma unroll
           for (int b = 0; b < kSpmmRhs; ++b)
             if (iq + b * QT < nq)
-              acc[a][b] = fma(coef, xrow[b * QT * w + a * RT], acc[a][b]);
+              acc[a][b] = fma(cf, xrow[b * QT * w + a * RT], acc[a][b]);
         }
       }
       const int64_t k0 = g.L + (wk.column + i * g.stride) * TK;
@@ -553,37 +567,12 @@ int launch_psdia(const void* pattern, const void* args, const void* xpad,
                         ypad, 0, L, nrow, stream);
 }
 
-// the RHS chunk: the smallest power of two that holds nrhs, at most 32
-template <typename T, template <typename, int> class Launch, typename... A>
-int by_chunk(int nrhs, A... args) {
-  if (nrhs <= 0) return 0;
-  if (nrhs == 1) return Launch<T, 1>::run(nrhs, args...);
-  if (nrhs <= 2) return Launch<T, 2>::run(nrhs, args...);
-  if (nrhs <= 4) return Launch<T, 4>::run(nrhs, args...);
-  if (nrhs <= 8) return Launch<T, 8>::run(nrhs, args...);
-  if (nrhs <= 16) return Launch<T, 16>::run(nrhs, args...);
-  return Launch<T, 32>::run(nrhs, args...);
-}
-
-template <typename T, int QC>
-struct SdiaSpmm {
-  static int run(int nrhs, const void* data, const void* offsets, int ndiags,
-                 const void* xt, void* yt, int64_t npad, void* stream) {
-    const dim3 grid(grid_for(npad), (nrhs + QC - 1) / QC);
-    sdia_spmm<T, QC><<<grid, kThreads, ndiags * sizeof(int),
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(data), static_cast<const int*>(offsets), ndiags,
-        static_cast<const T*>(xt), static_cast<T*>(yt), npad, nrhs);
-    return static_cast<int>(cudaGetLastError());
-  }
-};
-
-template <typename T, int QT, int V>
-int launch_psdia_spmm_t(const void* pattern, const void* offsets,
-                        const void* table, const void* xt, void* yt,
-                        SpmmShape g, cudaStream_t stream) {
-  auto kernel = g.stride ? psdia_spmm_stride<T, QT, V>
-                         : psdia_spmm_clusters<T, QT, V>;
+template <typename T, int QT, int V, bool SDIA>
+int launch_dia_spmm_t(CoefSource<T> coef, const void* offsets,
+                      const void* table, const void* xt, void* yt,
+                      SpmmShape g, cudaStream_t stream) {
+  auto kernel = g.stride ? dia_spmm_stride<T, QT, V, SDIA>
+                         : dia_spmm_clusters<T, QT, V, SDIA>;
   const size_t smem = static_cast<size_t>(g.nslot) * g.slot * sizeof(T);
   int dev = 0, sms = 0, per_sm = 0;
   // above 48 KB only with the kernel's limit raised (per device)
@@ -616,22 +605,23 @@ int launch_psdia_spmm_t(const void* pattern, const void* offsets,
   int64_t blocks = resident < items ? resident : items;
   if (blocks < 1) blocks = 1;
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const T*>(pattern), static_cast<const int*>(offsets),
-      static_cast<const int*>(table), static_cast<const T*>(xt),
-      static_cast<T*>(yt), g);
+      coef, static_cast<const int*>(offsets), static_cast<const int*>(table),
+      static_cast<const T*>(xt), static_cast<T*>(yt), g);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3b with the host plan: tk = kSpmmRows * kThreads / qt rows per tile
-// (the plan's rule, checked here), qt in {1, 2, 4, 8}; stride 0 walks the
-// clusters (nslot = kSpmmStages), stride M > 0 walks the tiles M apart;
-// 16-byte window copies where Xt's rows start 16-byte aligned
-template <typename T>
-int launch_psdia_spmm(const void* pattern, const void* offsets, int ndiags,
-                      const void* table, int nclusters, int stride, int qt,
-                      int tk, int slot, int nslot, int64_t rb,
-                      const void* xt, void* yt, int64_t npad, int64_t L,
-                      int64_t nrow, int nrhs, void* stream) {
+// K3a (SDIA: coef is the [ndiags, npad] data) and K3b (coef is the
+// [ndiags, rb] pattern, ld = rb) with the host plan: tk = kSpmmRows *
+// kThreads / qt rows per tile (the plan's rule, checked here), qt in {1,
+// 2, 4, 8}; stride 0 walks the clusters (nslot = kSpmmStages), stride M >
+// 0 walks the tiles M apart; 16-byte copies where Xt's rows (and K3a's
+// data rows) start 16-byte aligned.  A plan that does not fit is refused.
+template <typename T, bool SDIA>
+int launch_dia_spmm(const void* coef, const void* offsets, int ndiags,
+                    const void* table, int nclusters, int stride, int qt,
+                    int tk, int slot, int nslot, int64_t rb, const void* xt,
+                    void* yt, int64_t npad, int64_t L, int64_t nrow,
+                    int nrhs, void* stream) {
   if (nrhs <= 0) return 0;
   if (qt < 1 || tk != kSpmmRows * kThreads / qt || slot < 1 || stride < 0 ||
       (stride == 0 && (nclusters < 1 || nslot != kSpmmStages)) ||
@@ -640,9 +630,11 @@ int launch_psdia_spmm(const void* pattern, const void* offsets, int ndiags,
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int V = 16 / sizeof(T);
   const bool aligned = reinterpret_cast<uintptr_t>(xt) % 16 == 0 &&
+                       (!SDIA || reinterpret_cast<uintptr_t>(coef) % 16 == 0) &&
                        npad % V == 0 && L % V == 0;
+  const CoefSource<T> src{static_cast<const T*>(coef), SDIA ? npad : rb,
+                          L + nrow};
   SpmmShape g;
-  g.rb = rb;
   g.npad = npad;
   g.L = L;
   g.nrow = nrow;
@@ -655,24 +647,24 @@ int launch_psdia_spmm(const void* pattern, const void* offsets, int ndiags,
   g.slot = slot;
   g.nslot = nslot;
   const auto st = static_cast<cudaStream_t>(stream);
-#define TSP_PSDIA_SPMM(QT)                                                   \
-  return aligned ? launch_psdia_spmm_t<T, QT, V>(pattern, offsets, table, xt, \
-                                                 yt, g, st)                  \
-                 : launch_psdia_spmm_t<T, QT, 1>(pattern, offsets, table, xt, \
-                                                 yt, g, st)
+#define TSP_DIA_SPMM(QT)                                                    \
+  return aligned ? launch_dia_spmm_t<T, QT, V, SDIA>(src, offsets, table,  \
+                                                     xt, yt, g, st)        \
+                 : launch_dia_spmm_t<T, QT, 1, SDIA>(src, offsets, table,  \
+                                                     xt, yt, g, st)
   switch (qt) {
     case 1:
-      TSP_PSDIA_SPMM(1);
+      TSP_DIA_SPMM(1);
     case 2:
-      TSP_PSDIA_SPMM(2);
+      TSP_DIA_SPMM(2);
     case 4:
-      TSP_PSDIA_SPMM(4);
+      TSP_DIA_SPMM(4);
     case 8:
-      TSP_PSDIA_SPMM(8);
+      TSP_DIA_SPMM(8);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef TSP_PSDIA_SPMM
+#undef TSP_DIA_SPMM
 }
 
 }  // namespace
@@ -704,38 +696,47 @@ int tsp_psdia_spmv_f64(const void* pattern, const void* args,
                               stream);
 }
 
-int tsp_sdia_spmm_f32(const void* data, const void* offsets, int ndiags,
-                      const void* xt, void* yt, int64_t npad, int nrhs,
-                      void* stream) {
-  return by_chunk<float, SdiaSpmm>(nrhs, data, offsets, ndiags, xt, yt, npad,
-                                   stream);
+// K3a (coef: the SDIA data; rb unused) and K3b (coef: the pattern): the
+// same walks, the same plan (kernels/dia_stream.py:psdia_spmm_plan) and the
+// same arguments
+int tsp_sdia_spmm_f32(const void* coef, const void* offsets, int ndiags,
+                      const void* table, int nclusters, int stride, int qt,
+                      int tk, int slot, int nslot, int64_t rb, const void* xt,
+                      void* yt, int64_t npad, int64_t L, int64_t nrow,
+                      int nrhs, void* stream) {
+  return launch_dia_spmm<float, true>(coef, offsets, ndiags, table, nclusters,
+                                      stride, qt, tk, slot, nslot, rb, xt, yt,
+                                      npad, L, nrow, nrhs, stream);
 }
 
-int tsp_sdia_spmm_f64(const void* data, const void* offsets, int ndiags,
-                      const void* xt, void* yt, int64_t npad, int nrhs,
-                      void* stream) {
-  return by_chunk<double, SdiaSpmm>(nrhs, data, offsets, ndiags, xt, yt, npad,
-                                    stream);
+int tsp_sdia_spmm_f64(const void* coef, const void* offsets, int ndiags,
+                      const void* table, int nclusters, int stride, int qt,
+                      int tk, int slot, int nslot, int64_t rb, const void* xt,
+                      void* yt, int64_t npad, int64_t L, int64_t nrow,
+                      int nrhs, void* stream) {
+  return launch_dia_spmm<double, true>(coef, offsets, ndiags, table, nclusters,
+                                       stride, qt, tk, slot, nslot, rb, xt, yt,
+                                       npad, L, nrow, nrhs, stream);
 }
 
-int tsp_psdia_spmm_f32(const void* pattern, const void* offsets,
-                       int ndiags, const void* table, int nclusters,
-                       int stride, int qt, int tk, int slot, int nslot,
-                       int64_t rb, const void* xt, void* yt, int64_t npad,
-                       int64_t L, int64_t nrow, int nrhs, void* stream) {
-  return launch_psdia_spmm<float>(pattern, offsets, ndiags, table, nclusters,
-                                  stride, qt, tk, slot, nslot, rb, xt, yt,
-                                  npad, L, nrow, nrhs, stream);
+int tsp_psdia_spmm_f32(const void* coef, const void* offsets, int ndiags,
+                       const void* table, int nclusters, int stride, int qt,
+                       int tk, int slot, int nslot, int64_t rb, const void* xt,
+                       void* yt, int64_t npad, int64_t L, int64_t nrow,
+                       int nrhs, void* stream) {
+  return launch_dia_spmm<float, false>(coef, offsets, ndiags, table, nclusters,
+                                       stride, qt, tk, slot, nslot, rb, xt, yt,
+                                       npad, L, nrow, nrhs, stream);
 }
 
-int tsp_psdia_spmm_f64(const void* pattern, const void* offsets,
-                       int ndiags, const void* table, int nclusters,
-                       int stride, int qt, int tk, int slot, int nslot,
-                       int64_t rb, const void* xt, void* yt, int64_t npad,
-                       int64_t L, int64_t nrow, int nrhs, void* stream) {
-  return launch_psdia_spmm<double>(pattern, offsets, ndiags, table,
-                                   nclusters, stride, qt, tk, slot, nslot,
-                                   rb, xt, yt, npad, L, nrow, nrhs, stream);
+int tsp_psdia_spmm_f64(const void* coef, const void* offsets, int ndiags,
+                       const void* table, int nclusters, int stride, int qt,
+                       int tk, int slot, int nslot, int64_t rb, const void* xt,
+                       void* yt, int64_t npad, int64_t L, int64_t nrow,
+                       int nrhs, void* stream) {
+  return launch_dia_spmm<double, false>(coef, offsets, ndiags, table, nclusters,
+                                        stride, qt, tk, slot, nslot, rb, xt, yt,
+                                        npad, L, nrow, nrhs, stream);
 }
 
 const char* tsp_error_string(int code) {

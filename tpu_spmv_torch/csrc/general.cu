@@ -97,15 +97,25 @@
 // (spmm_batch; the group's lanes read the same address, one broadcast),
 // then their X values (V at a time), then runs the FMAs in entry order;
 // one RHS a lane on 2 or 4 lanes a row runs gpr_spmm_lanes, a plain loop
-// over the row unrolled by 4.  A warp of one lane per RHS that shares each
+// over the row unrolled by 4 (spmm_row_lanes).  A warp of one lane per RHS that shares each
 // entry by __shfl_sync, a warp per group of short rows, the streaming
 // hints on the matrix and Y, and deeper batches were all slower on the
 // card.  Every output has one writer and sums its entries in order from
-// zero with fma (nvcc contracts gpr_spmm_lanes' acc += v * x to the same
+// zero with fma (nvcc contracts spmm_row_lanes' acc += v * x to the same
 // fma), so results are bitwise reproducible and equal on every path.
-// ell_spmm: a group of G lanes per row, one lane per RHS, looping over
-// chunks of G RHS when nrhs > 32; every lane of a group walks the row's
-// slots in order (j = 0 .. width-1), so results are bitwise reproducible.
+// ell_spmm runs gpr_spmm's body (spmm_row), with the entries of a row
+// addressed as sliced ELL's slots: slot j of row r at slice_ptr[r / 32] +
+// 32 j + r % 32, every slot of the slice's width, pads included, the rows
+// in order.  At 32 f32 RHS the 4 rows of a warp are neighbours of one
+// slice, so each slot load of a batch reads neighbouring words of one
+// sector, and each lane's 16-byte X loads fetch a 128-byte line with its
+// row's 7 other lanes.  Its former design (a warp a row, one lane per RHS,
+// one 4-byte X load a slot in a plain loop) kept one row's chain of column,
+// X line and FMA in flight a warp: 1.9877 ms at 32 RHS on the shuffled
+// 2048^2 Poisson against gpr_spmm's 1.1322 on the same operand (PERF.md).
+// Each output sums its row's slots j = 0 .. width-1 in order from zero
+// with fma, as the former kernel and ell_spmv did, so every column equals
+// ell_spmv's and results are bitwise the former kernel's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -293,68 +303,62 @@ __host__ __device__ constexpr int spmm_batch(int G, int V) {
   return V > 1 ? 16 / V : (G == 1 ? 16 : 8);
 }
 
-// one RHS a lane on 2 or 4 lanes a row: a plain loop unrolled by 4 (the
-// batches, and the launch bounds, were slower here)
-template <typename T, int G>
-__global__ void gpr_spmm_lanes(const int* __restrict__ rows,
-                               const int64_t* __restrict__ indptr,
-                               const int* __restrict__ indices,
-                               const T* __restrict__ data,
-                               const T* __restrict__ x, T* __restrict__ y,
-                               int64_t nrows, int nrhs) {
-  constexpr int kRowsPerBlock = kThreads / G;
-  const int64_t r =
-      static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / G;
-  if (r >= nrows) return;
-  const int64_t begin = indptr[r], end = indptr[r + 1];
-  T* yrow = y + static_cast<int64_t>(rows[r]) * nrhs;
+// The SpMM body that gpr_spmm and ell_spmm both run, on the G lanes of one
+// row whose entries are j = begin, begin + STEP, ... below end (CSR: STEP
+// 1; sliced ELL: STEP 32, every slot of the slice's width, pads included)
+// and whose output row starts at yrow.  One RHS a lane on 2 or 4 lanes a
+// row: a plain loop unrolled by 4 (the batches, and the launch bounds, were
+// slower here)
+template <typename T, int G, int STEP>
+__device__ __forceinline__ void spmm_row_lanes(int64_t begin, int64_t end,
+                                               const int* __restrict__ indices,
+                                               const T* __restrict__ data,
+                                               const T* __restrict__ x,
+                                               T* __restrict__ yrow,
+                                               int nrhs) {
   for (int q = threadIdx.x % G; q < nrhs; q += G) {
     T acc = T(0);
 #pragma unroll 4
-    for (int64_t j = begin; j < end; ++j)
+    for (int64_t j = begin; j < end; j += STEP)
       acc += data[j] * x[static_cast<int64_t>(indices[j]) * nrhs + q];
     yrow[q] = acc;
   }
 }
 
-template <typename T, int G, int V>
-__global__ void __launch_bounds__(kThreads)
-    gpr_spmm(const int* __restrict__ rows, const int64_t* __restrict__ indptr,
-             const int* __restrict__ indices, const T* __restrict__ data,
-             const T* __restrict__ x, T* __restrict__ y, int64_t nrows,
-             int nrhs) {
+// V RHS a lane, a batch of entries' columns and values loaded ahead of
+// their X values
+template <typename T, int G, int V, int STEP>
+__device__ __forceinline__ void spmm_row(int64_t begin, int64_t end,
+                                         const int* __restrict__ indices,
+                                         const T* __restrict__ data,
+                                         const T* __restrict__ x,
+                                         T* __restrict__ yrow_t, int nrhs) {
   using P = Pack<T, V>;
   constexpr int kBatch = spmm_batch(G, V);
-  constexpr int kRowsPerBlock = kThreads / G;
-  const int64_t r =
-      static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / G;
-  if (r >= nrows) return;
-  const int64_t begin = indptr[r], end = indptr[r + 1];
-  P* const yrow =
-      reinterpret_cast<P*>(y + static_cast<int64_t>(rows[r]) * nrhs);
+  P* const yrow = reinterpret_cast<P*>(yrow_t);
   const P* const xp = reinterpret_cast<const P*>(x);
   const int64_t xstride = nrhs / V;
   for (int q = threadIdx.x % G; q < xstride; q += G) {
     T acc[V];
 #pragma unroll
     for (int t = 0; t < V; ++t) acc[t] = T(0);
-    for (int64_t j0 = begin; j0 < end; j0 += kBatch) {
+    for (int64_t j0 = begin; j0 < end; j0 += kBatch * STEP) {
       int col[kBatch];
       T v[kBatch];
 #pragma unroll
       for (int i = 0; i < kBatch; ++i) {
-        const int64_t j = j0 + i;
+        const int64_t j = j0 + i * STEP;
         col[i] = j < end ? indices[j] : 0;
         v[i] = j < end ? data[j] : T(0);
       }
       P xv[kBatch];
 #pragma unroll
       for (int i = 0; i < kBatch; ++i)
-        if (j0 + i < end)
+        if (j0 + i * STEP < end)
           xv[i] = xp[static_cast<int64_t>(col[i]) * xstride + q];
 #pragma unroll
       for (int i = 0; i < kBatch; ++i)
-        if (j0 + i < end) {
+        if (j0 + i * STEP < end) {
 #pragma unroll
           for (int t = 0; t < V; ++t) acc[t] = fma(v[i], xv[i].v[t], acc[t]);
         }
@@ -366,26 +370,68 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// gpr_spmm and ell_spmm take the same arguments: rows and ptr are GPR's
+// output rows and indptr, or (ELL) unused and the slice pointers
 template <typename T, int G>
-__global__ void ell_spmm(const T* __restrict__ vals,
-                         const int* __restrict__ cols,
-                         const int64_t* __restrict__ slice_ptr,
-                         const T* __restrict__ x, T* __restrict__ y,
-                         int64_t nrow, int nrhs) {
+__global__ void gpr_spmm_lanes(const int* __restrict__ rows,
+                               const int64_t* __restrict__ indptr,
+                               const int* __restrict__ indices,
+                               const T* __restrict__ data,
+                               const T* __restrict__ x, T* __restrict__ y,
+                               int64_t nrows, int nrhs) {
   constexpr int kRowsPerBlock = kThreads / G;
-  const int64_t row =
+  const int64_t r =
       static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / G;
-  if (row >= nrow) return;
-  const int64_t s = row >> 5;
-  const int64_t begin = slice_ptr[s] + (row & 31), end = slice_ptr[s + 1];
-  T* yrow = y + row * nrhs;
-  for (int q = threadIdx.x % G; q < nrhs; q += G) {
-    T acc = T(0);
-#pragma unroll 4
-    for (int64_t p = begin; p < end; p += 32)
-      acc += vals[p] * x[static_cast<int64_t>(cols[p]) * nrhs + q];
-    yrow[q] = acc;
-  }
+  if (r >= nrows) return;
+  spmm_row_lanes<T, G, 1>(indptr[r], indptr[r + 1], indices, data, x,
+                          y + static_cast<int64_t>(rows[r]) * nrhs, nrhs);
+}
+
+template <typename T, int G, int V>
+__global__ void __launch_bounds__(kThreads)
+    gpr_spmm(const int* __restrict__ rows, const int64_t* __restrict__ indptr,
+             const int* __restrict__ indices, const T* __restrict__ data,
+             const T* __restrict__ x, T* __restrict__ y, int64_t nrows,
+             int nrhs) {
+  constexpr int kRowsPerBlock = kThreads / G;
+  const int64_t r =
+      static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / G;
+  if (r >= nrows) return;
+  spmm_row<T, G, V, 1>(indptr[r], indptr[r + 1], indices, data, x,
+                       y + static_cast<int64_t>(rows[r]) * nrhs, nrhs);
+}
+
+// sliced ELL: slot j of row r at slice_ptr[r / 32] + 32 j + r % 32
+template <typename T, int G>
+__global__ void ell_spmm_lanes(const int* __restrict__ rows,
+                               const int64_t* __restrict__ slice_ptr,
+                               const int* __restrict__ cols,
+                               const T* __restrict__ vals,
+                               const T* __restrict__ x, T* __restrict__ y,
+                               int64_t nrow, int nrhs) {
+  constexpr int kRowsPerBlock = kThreads / G;
+  const int64_t r =
+      static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / G;
+  if (r >= nrow) return;
+  spmm_row_lanes<T, G, 32>(slice_ptr[r >> 5] + (r & 31),
+                           slice_ptr[(r >> 5) + 1], cols, vals, x,
+                           y + r * nrhs, nrhs);
+}
+
+template <typename T, int G, int V>
+__global__ void __launch_bounds__(kThreads)
+    ell_spmm(const int* __restrict__ rows,
+             const int64_t* __restrict__ slice_ptr,
+             const int* __restrict__ cols, const T* __restrict__ vals,
+             const T* __restrict__ x, T* __restrict__ y, int64_t nrow,
+             int nrhs) {
+  constexpr int kRowsPerBlock = kThreads / G;
+  const int64_t r =
+      static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / G;
+  if (r >= nrow) return;
+  spmm_row<T, G, V, 32>(slice_ptr[r >> 5] + (r & 31),
+                        slice_ptr[(r >> 5) + 1], cols, vals, x, y + r * nrhs,
+                        nrhs);
 }
 
 template <typename T>
@@ -428,18 +474,6 @@ int launch_ell(const void* vals, const void* cols, const void* slice_ptr,
   return static_cast<int>(cudaGetLastError());
 }
 
-// lanes per row: the smallest power of two that holds nrhs, at most 32
-template <typename T, template <typename, int> class Launch, typename... A>
-int by_group(int64_t nrows, int nrhs, A... args) {
-  if (nrows <= 0 || nrhs <= 0) return 0;
-  if (nrhs == 1) return Launch<T, 1>::run(nrows, nrhs, args...);
-  if (nrhs <= 2) return Launch<T, 2>::run(nrows, nrhs, args...);
-  if (nrhs <= 4) return Launch<T, 4>::run(nrows, nrhs, args...);
-  if (nrhs <= 8) return Launch<T, 8>::run(nrows, nrhs, args...);
-  if (nrhs <= 16) return Launch<T, 16>::run(nrows, nrhs, args...);
-  return Launch<T, 32>::run(nrows, nrhs, args...);
-}
-
 template <int G>
 int row_blocks(int64_t nrows, unsigned* blocks) {
   const int64_t n = (nrows + kThreads / G - 1) / (kThreads / G);
@@ -448,37 +482,36 @@ int row_blocks(int64_t nrows, unsigned* blocks) {
   return 0;
 }
 
-template <typename T, int G, int V>
-int launch_gpr_spmm_g(int64_t nrows, int nrhs, const void* rows,
-                      const void* indptr, const void* indices,
-                      const void* data, const void* x, void* y,
-                      cudaStream_t stream) {
+// ELL: ell_spmm (rows unused, ptr the slice pointers), else gpr_spmm
+template <typename T, int G, int V, bool ELL>
+int launch_spmm_g(int64_t nrows, int nrhs, const void* rows, const void* ptr,
+                  const void* indices, const void* data, const void* x,
+                  void* y, cudaStream_t stream) {
   unsigned blocks;
   if (int err = row_blocks<G>(nrows, &blocks)) return err;
   const auto launch = [&](auto kernel) {
     kernel<<<blocks, kThreads, 0, stream>>>(
-        static_cast<const int*>(rows), static_cast<const int64_t*>(indptr),
+        static_cast<const int*>(rows), static_cast<const int64_t*>(ptr),
         static_cast<const int*>(indices), static_cast<const T*>(data),
         static_cast<const T*>(x), static_cast<T*>(y), nrows, nrhs);
     return static_cast<int>(cudaGetLastError());
   };
   if constexpr (V == 1 && (G == 2 || G == 4))
-    return launch(gpr_spmm_lanes<T, G>);
+    return launch(ELL ? ell_spmm_lanes<T, G> : gpr_spmm_lanes<T, G>);
   else
-    return launch(gpr_spmm<T, G, V>);
+    return launch(ELL ? ell_spmm<T, G, V> : gpr_spmm<T, G, V>);
 }
 
-// gpr_spmm with V RHS a lane: G the smallest power of two of lanes that
-// holds nrhs / V, at most 32
-template <typename T, int V>
-int launch_gpr_spmm_v(int64_t nrows, int nrhs, const void* rows,
-                      const void* indptr, const void* indices,
-                      const void* data, const void* x, void* y,
-                      cudaStream_t stream) {
+// V RHS a lane: G the smallest power of two of lanes that holds nrhs / V,
+// at most 32
+template <typename T, int V, bool ELL>
+int launch_spmm_v(int64_t nrows, int nrhs, const void* rows, const void* ptr,
+                  const void* indices, const void* data, const void* x,
+                  void* y, cudaStream_t stream) {
   const int lanes = nrhs / V;
   const auto run = [&](auto g) {
-    return launch_gpr_spmm_g<T, decltype(g)::value, V>(
-        nrows, nrhs, rows, indptr, indices, data, x, y, stream);
+    return launch_spmm_g<T, decltype(g)::value, V, ELL>(
+        nrows, nrhs, rows, ptr, indices, data, x, y, stream);
   };
   if (lanes <= 1) return run(std::integral_constant<int, 1>());
   if (lanes <= 2) return run(std::integral_constant<int, 2>());
@@ -492,10 +525,10 @@ int launch_gpr_spmm_v(int64_t nrows, int nrhs, const void* rows,
 // leaves at least 4 lanes a row (nrhs / V >= 4: fewer lanes would put
 // more rows, of unequal lengths, on one warp) and whose alignment X and Y
 // have
-template <typename T>
-int launch_gpr_spmm(int64_t nrows, int nrhs, const void* rows,
-                    const void* indptr, const void* indices, const void* data,
-                    const void* x, void* y, void* stream) {
+template <typename T, bool ELL>
+int launch_spmm(int64_t nrows, int nrhs, const void* rows, const void* ptr,
+                const void* indices, const void* data, const void* x,
+                void* y, void* stream) {
   if (nrows <= 0 || nrhs <= 0) return 0;
   const auto st = static_cast<cudaStream_t>(stream);
   auto fits = [&](int v) {
@@ -506,30 +539,15 @@ int launch_gpr_spmm(int64_t nrows, int nrhs, const void* rows,
   };
   if constexpr (sizeof(T) == 4) {
     if (fits(4))
-      return launch_gpr_spmm_v<T, 4>(nrows, nrhs, rows, indptr, indices, data,
-                                     x, y, st);
+      return launch_spmm_v<T, 4, ELL>(nrows, nrhs, rows, ptr, indices, data,
+                                      x, y, st);
   }
   if (fits(2))
-    return launch_gpr_spmm_v<T, 2>(nrows, nrhs, rows, indptr, indices, data,
-                                   x, y, st);
-  return launch_gpr_spmm_v<T, 1>(nrows, nrhs, rows, indptr, indices, data, x,
-                                 y, st);
+    return launch_spmm_v<T, 2, ELL>(nrows, nrhs, rows, ptr, indices, data, x,
+                                    y, st);
+  return launch_spmm_v<T, 1, ELL>(nrows, nrhs, rows, ptr, indices, data, x,
+                                  y, st);
 }
-
-template <typename T, int G>
-struct EllSpmm {
-  static int run(int64_t nrow, int nrhs, const void* vals, const void* cols,
-                 const void* slice_ptr, const void* x, void* y,
-                 void* stream) {
-    unsigned blocks;
-    if (int err = row_blocks<G>(nrow, &blocks)) return err;
-    ell_spmm<T, G><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(vals), static_cast<const int*>(cols),
-        static_cast<const int64_t*>(slice_ptr), static_cast<const T*>(x),
-        static_cast<T*>(y), nrow, nrhs);
-    return static_cast<int>(cudaGetLastError());
-  }
-};
 
 }  // namespace
 
@@ -566,29 +584,29 @@ int tsp_ell_spmv_f64(const void* vals, const void* cols, const void* slice_ptr,
 int tsp_gpr_spmm_f32(const void* rows, const void* indptr,
                      const void* indices, const void* data, const void* x,
                      void* y, int64_t nrows, int nrhs, void* stream) {
-  return launch_gpr_spmm<float>(nrows, nrhs, rows, indptr, indices, data, x, y,
-                                stream);
+  return launch_spmm<float, false>(nrows, nrhs, rows, indptr, indices, data,
+                                  x, y, stream);
 }
 
 int tsp_gpr_spmm_f64(const void* rows, const void* indptr,
                      const void* indices, const void* data, const void* x,
                      void* y, int64_t nrows, int nrhs, void* stream) {
-  return launch_gpr_spmm<double>(nrows, nrhs, rows, indptr, indices, data, x,
-                                 y, stream);
+  return launch_spmm<double, false>(nrows, nrhs, rows, indptr, indices, data,
+                                   x, y, stream);
 }
 
 int tsp_ell_spmm_f32(const void* vals, const void* cols, const void* slice_ptr,
                      const void* x, void* y, int64_t nrow, int nrhs,
                      void* stream) {
-  return by_group<float, EllSpmm>(nrow, nrhs, vals, cols, slice_ptr, x, y,
-                                  stream);
+  return launch_spmm<float, true>(nrow, nrhs, nullptr, slice_ptr, cols, vals,
+                                  x, y, stream);
 }
 
 int tsp_ell_spmm_f64(const void* vals, const void* cols, const void* slice_ptr,
                      const void* x, void* y, int64_t nrow, int nrhs,
                      void* stream) {
-  return by_group<double, EllSpmm>(nrow, nrhs, vals, cols, slice_ptr, x, y,
-                                   stream);
+  return launch_spmm<double, true>(nrow, nrhs, nullptr, slice_ptr, cols,
+                                   vals, x, y, stream);
 }
 
 }  // extern "C"

@@ -6,7 +6,8 @@ CUDA tensors launch the kernel, built at first use (:mod:`._build`).
 - :mod:`.dia_stream`: streaming DIA, K1 ``sdia_spmv`` and K2
   ``psdia_spmv`` (the walks of ``csrc/psdia_walk.cuh``, planned by
   ``psdia_walk_plan``, which K8b shares), their SpMMs K3a ``sdia_spmm``
-  and K3b ``psdia_spmm``;
+  and K3b ``psdia_spmm`` (one body along the walks that
+  ``psdia_spmm_plan`` picks);
 - :mod:`.gpr`: class-sorted CSR with hub rows split, ``gpr_spmv`` and
   ``gpr_spmm``;
 - :mod:`.ell_packed`: sliced ELL, ``ell_spmv`` and ``ell_spmm``;

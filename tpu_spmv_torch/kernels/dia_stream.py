@@ -37,6 +37,12 @@ arguments up once per pack key (:func:`_walk_launch`) and passes them as
 one pointer; on an operand of few tiles (:func:`_direct_tiles`), K2 runs
 one thread a row instead (``psdia_walk_direct``).
 
+K3a and K3b run one kernel body too (``dia_spmm_stride`` and
+``dia_spmm_clusters`` in ``csrc/dia_stream.cu``), along the walk that
+:func:`psdia_spmm_plan` picks from the offsets, the RHS count and the
+value type; they differ only in where a tile's coefficient rows come
+from: K3b's pattern at ``k mod rb``, K3a's data rows at ``k``.
+
 The row-tile size ``rb`` keeps the reference's rule (``_auto_rb`` and the
 ``pack_psdia`` rb block, derived from TPU VMEM budgets, with their ``nrhs``
 argument for the SpMM layout) so the packs are identical; on Hopper it only
@@ -81,7 +87,7 @@ _RHS_PANEL_BUDGET = 8 << 20
 LAUNCHES = {"sdia": 0, "psdia": 0, "sdia_spmm": 0, "psdia_spmm": 0}
 #: the kernels keep the offsets in 48 KB of shared memory
 _MAX_DIAGS = 12288
-#: K3b (``psdia_spmm``, the same constants in ``csrc/dia_stream.cu``):
+#: K3a and K3b (the same constants in ``csrc/dia_stream.cu``):
 #: stage slots in a block's ring, the most dynamic shared memory a block
 #: may ask for on sm_90, threads per block, and the outputs a thread keeps
 #: (rows x right-hand sides)
@@ -619,25 +625,22 @@ def spmm_sdia_padded_t(A: SDIA, Xt_pad: torch.Tensor) -> torch.Tensor:
     """``Yt_pad = (A @ Xt_pad.T).T`` for transposed multi-RHS operands
     ``[nrhs, npad] -> [nrhs, npad]`` (shape-preserving and chainable, as
     :func:`spmv_sdia_padded`: row ``q`` of ``Xt_pad`` is right-hand side
-    ``q`` in padded row space).
+    ``q`` in padded row space); the rows outside ``[L, L + nrow)`` come
+    out zero, and every column is bitwise K1's on the same pack.
 
-    CUDA tensor: launches K3a (``sdia_spmm`` in ``csrc/dia_stream.cu``);
-    CPU tensor: :func:`spmm_sdia_padded_t_ref`."""
+    CUDA tensor: launches K3a (``sdia_spmm`` in ``csrc/dia_stream.cu``:
+    K3b's walks with the data rows as the coefficients) with the tiling of
+    :func:`psdia_spmm_plan`; CPU tensor: :func:`spmm_sdia_padded_t_ref`."""
     _check("spmm_sdia_padded_t", A.data, A, Xt_pad, A.npad, rhs_axis=True)
     if Xt_pad.is_cpu:
         return spmm_sdia_padded_t_ref(A, Xt_pad)
-    Yt = torch.empty_like(Xt_pad)
-    offs = _offsets_on(A.offsets, Xt_pad.device)
-    _build.launcher("sdia_spmm", Xt_pad.dtype)(
-        Xt_pad, A.data.data_ptr(), offs.data_ptr(), A.ndiags,
-        Xt_pad.data_ptr(), Yt.data_ptr(), A.npad, Xt_pad.shape[0])
-    LAUNCHES["sdia_spmm"] += 1
-    return Yt
+    return _spmm_launch(A, Xt_pad, psdia_spmm_plan(
+        A.offsets, Xt_pad.shape[0], Xt_pad.element_size()))
 
 
 @dataclasses.dataclass(frozen=True)
 class SpmmWindowPlan:
-    """K3b's tiling of one operand for one RHS count
+    """The tiling of K3a and K3b on one operand for one RHS count
     (:func:`psdia_spmm_plan`).
 
     A tile is ``tk`` padded rows of a chunk of ``qcap`` right-hand sides
@@ -778,8 +781,10 @@ def _stride_walk(offsets: tuple[int, ...], nrhs: int,
 @functools.lru_cache(maxsize=256)
 def psdia_spmm_plan(offsets: tuple[int, ...], nrhs: int,
                     itemsize: int) -> SpmmWindowPlan:
-    """K3b's shared-memory plan for the diagonal ``offsets`` (in stored
-    order), ``nrhs`` right-hand sides and values of ``itemsize`` bytes:
+    """The shared-memory plan of K3a and K3b for the diagonal ``offsets``
+    (in stored order), ``nrhs`` right-hand sides and values of
+    ``itemsize`` bytes (the tiles start at the pack's ``L``, so neither
+    ``rb`` nor the period enters it):
     the stride walk (:func:`_stride_walk`) where it stages fewer columns a
     tile than the cluster walk's windows together (the 2-D Poisson:
     ``tk + 8`` against ``3 tk + 8``), else the cluster walk
@@ -793,18 +798,22 @@ def psdia_spmm_plan(offsets: tuple[int, ...], nrhs: int,
     return clusters
 
 
-def _spmm_psdia_launch(A: PSDIA, Xt_pad: torch.Tensor,
-                       plan: SpmmWindowPlan) -> torch.Tensor:
-    """Launch K3b with ``plan`` on checked CUDA operands; count it."""
+def _spmm_launch(A: SDIA | PSDIA, Xt_pad: torch.Tensor,
+                 plan: SpmmWindowPlan) -> torch.Tensor:
+    """Launch K3a (an SDIA pack: its data rows are the coefficients) or
+    K3b (a PSDIA pack: its pattern) with ``plan`` on checked CUDA operands;
+    count it.  The launcher refuses a plan that does not fit."""
+    sdia = isinstance(A, SDIA)
     Yt = torch.empty_like(Xt_pad)
     offs = _offsets_on(A.offsets, Xt_pad.device)
     table = _offsets_on(plan.table, Xt_pad.device)
-    _build.launcher("psdia_spmm", Xt_pad.dtype)(
-        Xt_pad, A.pattern.data_ptr(), offs.data_ptr(), A.ndiags,
-        table.data_ptr(), plan.nclusters, plan.stride, plan.qt, plan.tk,
-        plan.slot, plan.nslot, A.rb, Xt_pad.data_ptr(), Yt.data_ptr(),
-        A.npad, A.L, A.shape[0], Xt_pad.shape[0])
-    LAUNCHES["psdia_spmm"] += 1
+    name = "sdia_spmm" if sdia else "psdia_spmm"
+    _build.launcher(name, Xt_pad.dtype)(
+        Xt_pad, (A.data if sdia else A.pattern).data_ptr(), offs.data_ptr(),
+        A.ndiags, table.data_ptr(), plan.nclusters, plan.stride, plan.qt,
+        plan.tk, plan.slot, plan.nslot, A.rb, Xt_pad.data_ptr(),
+        Yt.data_ptr(), A.npad, A.L, A.shape[0], Xt_pad.shape[0])
+    LAUNCHES[name] += 1
     return Yt
 
 
@@ -819,7 +828,7 @@ def spmm_psdia_padded_t(A: PSDIA, Xt_pad: torch.Tensor) -> torch.Tensor:
     _check("spmm_psdia_padded_t", A.pattern, A, Xt_pad, A.rb, rhs_axis=True)
     if Xt_pad.is_cpu:
         return spmm_psdia_padded_t_ref(A, Xt_pad)
-    return _spmm_psdia_launch(A, Xt_pad, psdia_spmm_plan(
+    return _spmm_launch(A, Xt_pad, psdia_spmm_plan(
         A.offsets, Xt_pad.shape[0], Xt_pad.element_size()))
 
 

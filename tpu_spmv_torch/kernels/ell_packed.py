@@ -18,9 +18,12 @@ int8 lane and gather-round planes, because a TPU gathers fast only within
   side COO on the XLA tier (``ell_pallas.py:27-29``, ``:399-402``).
 
 On a CUDA tensor :func:`spmv_ell_main` launches ``ell_spmv`` and
-:func:`spmm_ell_main` launches ``ell_spmm``, which gives each row one lane
-per right-hand side of ``X [ncol, nrhs]`` (``csrc/general.cu``, built at
+:func:`spmm_ell_main` launches ``ell_spmm``, ``gpr_spmm``'s body on the
+slice's slots: each row's lanes hold up to 16 bytes of consecutive
+right-hand sides of ``X [ncol, nrhs]`` each (``csrc/general.cu``, built at
 first use by :mod:`._build`); each counts the launch in :data:`LAUNCHES`.
+Every output sums its row's slots in order, so each column of
+``ell_spmm`` is bitwise ``ell_spmv``'s.
 On a CPU tensor they run the plain versions :func:`spmv_ell_packed_ref` and
 :func:`spmm_ell_packed_ref`.  Nothing falls back from one to the other.
 """
