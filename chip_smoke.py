@@ -16,8 +16,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    prints the registers, spills and static shared memory of every
    instantiation of ``gpr_spmv``, ``ell_spmv``, ``gpr_spmm`` and
    ``ell_spmm`` (``gpr_spmm_lanes``, ``ell_spmm_lanes`` on 2 or 4 lanes of
-   one RHS), the gathers ``permute_gather``, ``permute_pass1`` and
-   ``permute_pass2``, the two walks of K3a and K3b (``dia_spmm_stride``,
+   one RHS), the gathers ``permute_gather``, ``permute_pass1``,
+   ``permute_pass2`` and their forms on rows ``permute_gather_batched``
+   and ``permute_rows_two_pass``, the two walks of K3a and K3b
+   (``dia_spmm_stride``,
    ``dia_spmm_clusters``),
    the walks of K2 and K8b (``csrc/psdia_walk.cuh``: ``psdia_walk_bulk``,
    ``psdia_walk_stride``, ``psdia_walk_clusters``) and ``tile_permute``;
@@ -40,9 +42,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``apply_permutation`` at n = 1000, 16384, 60000, 99991 and
    ``apply_tile_permutation``), the two-pass gather on the same perms
    (chunks of 1024 words; each pass alone also against its plain
-   version, in f32: 8-byte words take the direct gather) and
-   ``permute_gather_batched`` (1, 3, 32, 40 RHS), bitwise against their
-   plain versions and ``x[perm]``, with and without don't-care slots, and
+   version, in f32: 8-byte words take the direct gather) and both forms
+   on rows, ``permute_gather_batched`` and ``permute_rows_two_pass`` (1,
+   3, 32, 40 RHS; f64 takes the direct form), bitwise against their plain
+   versions and ``x[perm]``, with and without don't-care slots, and
    reproducible; the probe kernels
    ``copy_scale`` (K9), ``launch_probe`` (T1), ``segsum8`` (T2) and every
    ``tile_permute`` variant of T3/T4 at the probes' shapes, bitwise against
@@ -97,9 +100,14 @@ Phases, in order; any failure raises and the script exits non-zero:
       ``ro(x)`` launches it twice and K1 once), against scipy; the
       shuffled 2048x2048 Poisson of 4b through ``reorder_plan``, 50 fixed
       CG iterations in permuted space, and ``apply_permutation_batched``
-      with its RCM perm on 32 rows of 4,194,304; 4a's 1M-row band in its
-      natural order through ``reorder_plan`` (a local perm: two direct
-      gathers); ``plan.transpose()`` of 4a's 1M-row band (K1 on the
+      with its RCM perm on 32 and 8 rows of 4,194,304 (f32: the two-pass
+      form ``permute_rows_two_pass``; f64: the direct form
+      ``permute_gather_batched``) and with that perm planned direct, each
+      bitwise the plain version, ``index_select`` and the other form; 4a's
+      1M-row band in its natural order through ``reorder_plan`` (a local
+      perm: two direct gathers) and the batched gather on 32 rows with
+      its perm (the direct form); ``plan.transpose()`` of 4a's 1M-row band
+      (K1 on the
       transposed SDIA); one backward through ``spmv_psdia`` on 4a's PSDIA
       pack and ``matvec_differentiable`` on the power-law GPR plan with
       ``plan_spmv(P.T)``, against scipy; the screened Poisson
@@ -141,9 +149,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``index_copy_``) and on 4,194,304 f32 values with the identity and a
    random perm, each beside the direct gather and ``index_select``,
    bitwise, on rotated copies of its inputs that hold four times the L2,
-   replayed from a CUDA graph (and repeated on one input, in L2), every
-   record no faster than its bound, and ``ro(x)``
-   against its parent's recorded time; each SpMM also beside
+   replayed from a CUDA graph (and repeated on one input, in L2); the
+   batched gather at 4e's shapes per call (the two-pass form on the
+   shuffled Poisson's RCM perm at 32 and 8 rows beside the same perm
+   planned direct, the direct form on the natural band's perm at 32 rows
+   and on the RCM perm in f64), each beside its bound, its plain version,
+   ``index_select`` and one ``apply_permutation`` a row; every
+   record no faster than its bound, and ``ro(x)``; each SpMM also beside
    ``plan.spmm`` end to end and 32 times its SpMV kernel; the two walks
    of K3b and of K3a (the plan's pick and the cluster walk) timed in
    turns on the 32-RHS packs with 32 and (K3a) 8 right-hand sides and
@@ -157,7 +169,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``gpr_spmm``'s rate of X lines; the GPR packs' rows per width class;
    the probe kernels beside their plain versions, bounds
    and one library call (``torch.mul``, ``copy_`` and ``clone()``,
-   ``sum``, ``take_along_dim``; timed in turns with the kernel), every
+   ``sum``, ``take_along_dim``, for the whole-tile variants on their flat
+   source with the steps' composed index; timed in turns with the
+   kernel), every
    ``tile_permute`` variant with its own bound
    (``bench/roofline.py:tile_permute_bytes``), its replayed time and its
    launches on the probe path; the block
@@ -604,7 +618,9 @@ def main() -> int:
                                             "gpr_spmm_lanes", "ell_spmv",
                                             "ell_spmm", "ell_spmm_lanes"),
                              "permute.cu": ("permute_gather", "permute_pass1",
-                                            "permute_pass2"),
+                                            "permute_pass2",
+                                            "permute_gather_batched",
+                                            "permute_rows_two_pass"),
                              "dia_stream.cu": ("dia_spmm_stride",
                                                "dia_spmm_clusters",
                                                "psdia_walk_bulk",
@@ -800,8 +816,8 @@ def main() -> int:
                                    pk.apply_permutation_ref, x1, tplan)]
                 cases += [(pk.apply_permutation_batched,
                            pk.apply_permutation_batched_ref,
-                           torch.tensor(X64[:k], dtype=dt, device=dev), pplan)
-                          for k in (1, 3, 32, 40)]
+                           torch.tensor(X64[:k], dtype=dt, device=dev), q)
+                          for k in (1, 3, 32, 40) for q in (pplan, tplan)]
                 for kern, plain, xk, plan_k in cases:
                     y1, y2, yr = kern(plan_k, xk), kern(plan_k, xk), plain(
                         plan_k, xk)
@@ -822,9 +838,10 @@ def main() -> int:
                             f"two-pass passes n={n_p} {label} {dt}")
             print(f"permute_gather(_batched) n={n_p} {label}: f32 and f64, "
                   f"1 vector (direct, and two-pass in f32 with each pass "
-                  f"alone against its plain version) and 1, 3, 32, 40 rows, "
-                  f"bitwise equal to the plain versions and x[perm], "
-                  f"reproducible, don't-care slots zero")
+                  f"alone against its plain version) and 1, 3, 32, 40 rows "
+                  f"(both forms on rows), bitwise equal to the plain "
+                  f"versions and x[perm], reproducible, don't-care slots "
+                  f"zero")
     p_tile = rng.permutation(pk.TILE)
     tplan = pk.plan_tile_permutation(p_tile, device=dev)
     for dt in (torch.float32, torch.float64):
@@ -1439,8 +1456,8 @@ def main() -> int:
           f"{pk.far_share(ro.perm_plan.perm):.3f}) in {pplan_s:.3f} s on "
           f"the card | launches (two-pass gathers, K1) {spent} | rel err vs "
           f"scipy f64 {rel_ro:.2e} (direct {rel_direct:.2e}) | {ro_ms:.4f} "
-          f"ms per product (its parent with the direct gather: 0.1931-0.1932 "
-          f"ms, PERF.md) against the direct {direct.strategy} plan's "
+          f"ms per product (host clock; phase 5 times its perms' forms in "
+          f"turns) against the direct {direct.strategy} plan's "
           f"{direct_ms:.4f} ms")
     require(spent == (2, 1), f"ro(x) launched {spent}")
     require(rel_ro <= ORACLE_TOL["float32"], f"ro(x) rel err {rel_ro:.2e}")
@@ -1482,14 +1499,40 @@ def main() -> int:
     require(np.isfinite(r50) and r50 < 0.1, "permuted-space CG residual")
     del run, res, b, bp
     XB = torch.rand(NRHS, msh.shape[0], generator=gen, device=dev)
-    YB = pk.apply_permutation_batched(ro_p.perm_plan, XB)
-    same = torch.equal(YB, pk.apply_permutation_batched_ref(ro_p.perm_plan,
-                                                            XB))
-    torch.cuda.synchronize()
-    print(f"apply_permutation_batched, RCM perm, X [{NRHS}, {msh.shape[0]}] "
-          f"f32: bitwise equal to the plain version {same}")
-    require(same, "batched gather at full width")
-    del YB
+    # the batched gather at full width: the RCM perm's two-pass plan on 32
+    # and 8 rows (f32: permute_rows_two_pass; f64: permute_gather_batched)
+    # and the same perm planned direct, each bitwise the plain version,
+    # index_select and the other form
+    rcm_direct = pk._plan(ro_p.perm_plan.perm, dev, "direct", pk.CHUNK)
+
+    def batched_check(label, pplan, X, other=None):
+        before = (pk.LAUNCHES["permute_batched"],
+                  pk.LAUNCHES["permute_batched_two_pass"])
+        Y = pk.apply_permutation_batched(pplan, X)
+        same = (torch.equal(Y, pk.apply_permutation_batched_ref(pplan, X))
+                and torch.equal(Y, torch.index_select(X, 1,
+                                                      pplan.perm.long())))
+        if other is not None:
+            same = same and torch.equal(
+                Y, pk.apply_permutation_batched(other, X))
+        torch.cuda.synchronize()
+        form = pk.gather_form(pplan.method, X.element_size())
+        key = 1 if form == "two_pass" else 0
+        spent = (pk.LAUNCHES["permute_batched"] - before[0],
+                 pk.LAUNCHES["permute_batched_two_pass"] - before[1])
+        print(f"apply_permutation_batched, {label}, X {list(X.shape)} "
+              f"{str(X.dtype).removeprefix('torch.')}: {form} form, "
+              f"bitwise equal to the plain version, index_select"
+              f"{' and the direct form' if other is not None else ''} "
+              f"{same}")
+        require(same and spent[key] >= 1, f"batched gather {label} "
+                f"{X.dtype} {tuple(X.shape)}: {same}, launches {spent}")
+
+    XB64 = XB.double()
+    for Xr in (XB, XB[:8], XB64, XB64[:8]):
+        batched_check("RCM perm", ro_p.perm_plan, Xr, rcm_direct)
+    batched_check("RCM perm planned direct", rcm_direct, XB)
+    del XB64
     # the 1M-row band of 4a in its natural order: its RCM perm is local
     # (neighbouring slots read neighbouring sources), so both of ro's
     # perms take the direct gather
@@ -1510,6 +1553,8 @@ def main() -> int:
             f"{rel_b:.2e}")
     nat_plan = ro_b.perm_plan    # the direct gather's input, timed in 5
     del ro_b, yr
+    XN = torch.rand(NRHS, nat_plan.n, generator=gen, device=dev)
+    batched_check("RCM perm of the natural band", nat_plan, XN)
 
     xb64 = rng.random(band.shape[0])
     xb = torch.tensor(xb64, dtype=torch.float32, device=dev)
@@ -1588,8 +1633,8 @@ def main() -> int:
     elaunches = {**pk.LAUNCHES, "sdia": ds.LAUNCHES["sdia"],
                  "psdia": ds.LAUNCHES["psdia"], "gpr": gpr.LAUNCHES["gpr"]}
     print(f"launch counts on the reorder / transform path: {elaunches}")
-    for k in ("permute", "permute_two_pass", "permute_batched", "sdia",
-              "psdia", "gpr"):
+    for k in ("permute", "permute_two_pass", "permute_batched",
+              "permute_batched_two_pass", "sdia", "psdia", "gpr"):
         require(elaunches[k] > 0, f"{k} never launched in 4e")
 
     # -- 4f. block formats at full width ----------------------------------
@@ -2163,7 +2208,7 @@ def main() -> int:
                         pk.apply_permutation_batched_ref) if batched else
                        (pk.apply_permutation, pk.apply_permutation_ref))
         idx = pplan.perm.long()       # no don't-care slots on these paths
-        staged = not batched and pk._staged(pplan, xk)
+        staged = pk._staged(pplan, xk)
         direct_plan = (pk._plan(idx, dev, "direct", pk.CHUNK) if staged
                        else pplan)
         yk, yp = kern(pplan, xk), plain(pplan, xk)
@@ -2180,19 +2225,32 @@ def main() -> int:
         nbytes = (2 * nrhs * pplan.n * xk.element_size()
                   + pplan.n * pplan.perm.element_size())
         bound_ms, bound_by = bound(nbytes, 0)
-        form = ("" if batched else
-                f"{'two-pass' if staged else 'direct'} gather ")
-        if batched:       # 32 rows: its bytes outgrow the L2 in one call
-            iters = 20
+        form = f"{'two-pass' if staged else 'direct'} form "
+        if batched:       # its rows outgrow the L2 in one call
+            iters = 10
             ms = time_fn(kern, pplan, xk, iters=iters).median_s * 1e3
             plain_ms = time_fn(plain, pplan, xk, iters=iters).median_s * 1e3
             lib_ms = time_fn(torch.index_select, xk, 1, idx,
                              iters=iters).median_s * 1e3
-            print(f"{kname} {label}: {ms:.4f} ms ({nbytes / ms / 1e6:.1f} "
-                  f"GB/s) | bound {bound_ms:.4f} ms ({bound_by}, "
+            # one apply_permutation a row, each row its own memory (so no
+            # row is served from L2 by the call before)
+            rows = [xk[q] for q in range(nrhs)]
+            loop_ms = time_fn(lambda: [pk.apply_permutation(pplan, v)
+                                       for v in rows][-1],
+                              iters=iters).median_s * 1e3
+            beside = ""
+            if staged:
+                dms = time_fn(kern, direct_plan, xk,
+                              iters=iters).median_s * 1e3
+                beside = f" | direct form {dms:.4f} ms"
+            print(f"{kname} {label}: {form}{ms:.4f} ms "
+                  f"({nbytes / ms / 1e6:.1f} GB/s){beside} | bound "
+                  f"{bound_ms:.4f} ms ({bound_by}, "
                   f"{100 * bound_ms / ms:.1f}%) | plain {plain_ms:.4f} ms | "
                   f"index_select {lib_ms:.4f} ms (kernel/index_select "
-                  f"{ms / lib_ms:.2f}) | bitwise equal True")
+                  f"{ms / lib_ms:.2f}) | {nrhs} x apply_permutation "
+                  f"{loop_ms:.4f} ms | bitwise equal True (per call)")
+            del rows
         else:
             sets = copies(pplan, xk, nbytes)
             ms = rotated_ms(kern, sets)
@@ -2210,8 +2268,9 @@ def main() -> int:
                 del dsets
             del sets
             beside = (f" | direct gather {dms:.4f} ms" if staged else "")
-            print(f"{kname} {label}: {form}{ms:.4f} ms ({nbytes / ms / 1e6:.1f}"
-                  f" GB/s){beside} | bound {bound_ms:.4f} ms ({bound_by}, "
+            print(f"{kname} {label}: {form.replace('form', 'gather')}"
+                  f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s){beside} | "
+                  f"bound {bound_ms:.4f} ms ({bound_by}, "
                   f"{100 * bound_ms / ms:.1f}%) | plain {plain_ms:.4f} ms | "
                   f"index_select {lib_ms:.4f} ms (kernel/index_select "
                   f"{ms / lib_ms:.2f}) | bitwise equal True | max abs err "
@@ -2306,23 +2365,57 @@ def main() -> int:
     rand_plan = pk.plan_permutation(np.random.default_rng(5).permutation(NB),
                                     device=dev)
     timed_gather("permute_gather", rand_plan, xs, f"n={NB} f32, random perm")
+    # the batched gather (K7d/K7e) at 4e's shapes: the two-pass form on
+    # the RCM perm of the shuffled Poisson, the direct form on the RCM
+    # perm of the natural band; side lines: 8 rows, f64 (the direct form)
+    # and the RCM perm planned direct
+    rcm = f"{msh.shape[0]}] f32, RCM perm of the shuffled Poisson"
+    perm_records.append({
+        "name": "permute_rows_two_pass", "route": "cuda",
+        "source": "tpu_spmv_torch/csrc/permute.cu",
+        "replaces": "tpu_spmv/kernels/permute.py:945",
+        "launches": elaunches["permute_batched_two_pass"],
+        **timed_gather("permute_rows_two_pass", ro_p.perm_plan, XB,
+                       f"[{NRHS}, {rcm}")})
     perm_records.append({
         "name": "permute_gather_batched", "route": "cuda",
         "source": "tpu_spmv_torch/csrc/permute.cu",
         "replaces": "tpu_spmv/kernels/permute.py:939",
         "launches": elaunches["permute_batched"],
-        **timed_gather("permute_gather_batched", ro_p.perm_plan, XB,
-                       f"[{NRHS}, {msh.shape[0]}] f32, RCM perm of the "
-                       f"shuffled Poisson")})
+        **timed_gather("permute_gather_batched", nat_plan, XN,
+                       f"[{NRHS}, {nat_plan.n}] f32, RCM perm of the "
+                       f"natural band")})
+    timed_gather("permute_rows_two_pass", ro_p.perm_plan, XB[:8],
+                 f"[8, {rcm}")
+    timed_gather("permute_gather_batched", rcm_direct, XB,
+                 f"[{NRHS}, {rcm}, planned direct")
+    XB64 = XB.double()
+    for Xr in (XB64, XB64[:8]):
+        timed_gather("permute_gather_batched", ro_p.perm_plan, Xr,
+                     f"[{Xr.shape[0]}, {msh.shape[0]}] f64, RCM perm of the "
+                     f"shuffled Poisson")
+    del XB64
     for r in perm_records:
         require(r["ms"] >= r["bound_ms"], f"{r['name']}: {r['ms']:.4f} ms "
                 f"under its bound {r['bound_ms']:.4f} ms")
-    one_ms = time_fn(pk.apply_permutation, rand_plan, xs).median_s * 1e3
-    print(f"    {NRHS} x permute_gather (random perm): {NRHS * one_ms:.4f} ms")
-    ro_ms = time_fn(ro, xs, iters=50).median_s * 1e3
-    print(f"ro(x) on the shuffled band: {ro_ms:.4f} ms (its parent with the "
-          f"direct gather: 0.1931-0.1932 ms, PERF.md; {card})")
-    del ro, ro_p, XB, rand_plan, xs, id_plan, nat_plan, xnat
+    # ro(x) with both of its perms planned to each form, in turns (the
+    # plan's rule picks the two-pass form for them)
+    ro_forms = {f: (pk._plan(ro.perm, dev, f, pk.CHUNK),
+                    pk._plan(ro.inv_perm, dev, f, pk.CHUNK))
+                for f in ("direct", "two_pass")}
+
+    def ro_x(form):
+        p_, q_ = ro_forms[form]
+        return lambda: pk.apply_permutation(q_, ro.plan(
+            pk.apply_permutation(p_, xs)))
+
+    ro_t = interleaved_ms({"plan's forms": lambda: ro(xs),
+                           **{f"both {f}": ro_x(f) for f in ro_forms}}, 50)
+    print("ro(x) on the shuffled band, CUDA events, timed in turns: "
+          + " | ".join(f"{k} {v:.4f} ms" for k, v in ro_t.items())
+          + f" ({card})")
+    del ro_forms
+    del ro, ro_p, XB, XN, rand_plan, xs, id_plan, nat_plan, xnat, rcm_direct
     print(f"cg_multi_runner f32, 8 RHS, ms/iteration: {cgm}")
 
     # the probe kernels at the probes' shapes: the probe path's times,
@@ -2410,6 +2503,24 @@ def main() -> int:
             gl = prog.idx[0].long()
             libs = {"take_along_dim":
                     lambda: torch.take_along_dim(src, gl, dim=1)}
+        elif not psum8:
+            # a variant without sums is one gather of its flat source: the
+            # index composed by the plain version on the source's
+            # positions (+ 1; 0, a row not loaded, reads a zero put past
+            # the source's end), built outside the timed call
+            pos = torch.arange(1, src.numel() + 1, dtype=torch.float64,
+                               device=dev).reshape(src.shape)
+            cidx = pr.tile_permute_ref(prog, pos).reshape(-1).long() - 1
+            cidx[cidx < 0] = src.numel()
+            flat = torch.cat([src.reshape(-1), src.new_zeros(1)])
+            require(torch.equal(
+                torch.take_along_dim(flat, cidx, dim=0),
+                pr.tile_permute(prog, src).reshape(-1)),
+                f"tile_permute {vname}: the composed index")
+            libs = {"take_along_dim (composed index)":
+                    lambda flat=flat, cidx=cidx:
+                    torch.take_along_dim(flat, cidx, dim=0)}
+            del pos
         key = f"tile_permute:{vname}"
         rec = probe_record(
             "tile_permute", key,

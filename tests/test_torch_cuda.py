@@ -892,6 +892,142 @@ def test_permute_forms_match_x_perm_on_card(card, word, chunk, n):
                 assert torch.equal(y, want), (name, itype, "one pass")
 
 
+def _batched_cases(n: int, rng):
+    """Index vectors for the batched forms: the single gather's cases and
+    one of don't-care slots only."""
+    return {**_perm_cases(n, rng), "all don't care": np.full(n, -1)}
+
+
+def _batched_forms(card, perm, chunk):
+    """``(plan, launch key)`` of the batched forms on ``perm``: a forced
+    two-pass plan, a direct plan with int32 and with int64 indices."""
+    two = tperm._plan(perm, card, "two_pass", chunk)
+    direct = tperm._plan(perm, card, "direct", chunk)
+    wide = dataclasses.replace(direct, perm=direct.perm.long())
+    return two, direct, wide
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("word", _WORDS)
+@pytest.mark.parametrize("chunk,n", [(1024, 1), (1024, 1023),
+                                     (1024, 5 * 1024 + 77),
+                                     (16384, 3 * 16384 + 5)])
+def test_batched_forms_match_x_perm_on_card(card, word, chunk, n):
+    """apply_permutation_batched on a two-pass plan (permute_rows_two_pass
+    for 1-, 2- and 4-byte words, in groups of two_pass_rows rows; 8-byte
+    words take permute_gather_batched) and on a direct plan with int32
+    and int64 indices (permute_gather_batched, four rows a thread),
+    bitwise X[:, perm], the plain version, index_select (perms without
+    don't-care slots) and each other: 1, 3, R + 1 and 40 rows, one chunk
+    and ragged chunks, n = 1 and n not a multiple of 4; each call counted
+    under its form."""
+    rng = np.random.default_rng(n)
+    w = torch.empty(0, dtype=word).element_size()
+    staged = w <= 4
+    R = tperm.two_pass_rows(w) if staged else 1
+    for name, perm in _batched_cases(n, rng).items():
+        real = perm >= 0
+        idx = torch.from_numpy(np.where(real, perm, 0)).to(card)
+        forms = _batched_forms(card, perm.astype(np.int32), chunk)
+        for nrhs in (1, 3, R + 1, 40):
+            X = torch.from_numpy(rng.integers(1, 100, (nrhs, n))).to(
+                word).to(card)
+            want = X[:, idx]
+            want[:, torch.from_numpy(~real).to(card)] = 0
+            ys = []
+            for plan in forms:
+                key = ("permute_batched_two_pass" if plan.method == "two_pass"
+                       and staged else "permute_batched")
+                before = tperm.LAUNCHES[key]
+                y = tperm.apply_permutation_batched(plan, X)
+                torch.cuda.synchronize()
+                assert tperm.LAUNCHES[key] == before + 1
+                assert torch.equal(y, want), (name, nrhs, plan.method)
+                assert torch.equal(
+                    y, tperm.apply_permutation_batched_ref(plan, X))
+                if real.all():
+                    assert torch.equal(y, torch.index_select(X, 1, idx))
+                ys.append(y)
+            assert all(torch.equal(ys[0], y) for y in ys[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("word", _WORDS)
+def test_batched_direct_groups_on_card(card, word, monkeypatch):
+    """permute_gather_batched with groups of 1, 2 and 4 rows (the rows
+    a group holds follow BATCH_L2_BYTES, set here so that small rows take
+    each), bitwise X[:, perm] on a random and a don't-care perm, n not a
+    multiple of 4, 1, 3, 5 and 40 rows."""
+    rng = np.random.default_rng(17)
+    n = 5 * 1024 + 77
+    w = torch.empty(0, dtype=word).element_size()
+    for name, perm in _batched_cases(n, rng).items():
+        if name not in ("random", "don't care"):
+            continue
+        real = perm >= 0
+        idx = torch.from_numpy(np.where(real, perm, 0)).to(card)
+        plan = tperm._plan(perm, card, "direct", 1024)
+        for group in (1, 2, 4):
+            monkeypatch.setattr(tperm, "BATCH_L2_BYTES", group * n * w)
+            assert tperm.direct_rows(n, w) == group
+            for nrhs in (1, 3, 5, 40):
+                X = torch.from_numpy(rng.integers(1, 100, (nrhs, n))).to(
+                    word).to(card)
+                want = X[:, idx]
+                want[:, torch.from_numpy(~real).to(card)] = 0
+                y = tperm.apply_permutation_batched(plan, X)
+                torch.cuda.synchronize()
+                assert torch.equal(y, want), (name, group, nrhs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("word", _WORDS)
+def test_batched_forms_on_many_rows_on_card(card, word):
+    """65,537 rows of a small n (the direct form's groups of rows along
+    gridDim.y; the two-pass form's 65,537 / R groups, their counters and a
+    stage row a row): both forms bitwise X[:, perm]."""
+    rng = np.random.default_rng(3)
+    n, nrhs = 37, 65_537
+    perm = rng.permutation(n)
+    perm[5] = -1
+    X = torch.from_numpy(rng.integers(1, 100, (nrhs, n))).to(word).to(card)
+    want = X[:, torch.from_numpy(np.where(perm >= 0, perm, 0)).to(card)]
+    want[:, 5] = 0
+    for plan in _batched_forms(card, perm, 256):
+        y = tperm.apply_permutation_batched(plan, X)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want), plan.method
+
+
+@pytest.mark.cuda
+def test_batched_two_pass_on_a_side_stream_and_in_a_graph_on_card(card):
+    """permute_rows_two_pass zeroes its counters on the current stream:
+    on a side stream, and captured once in a CUDA graph and replayed
+    three times (on new values of X), it gives X[:, perm]."""
+    rng = np.random.default_rng(5)
+    n = 5 * 1024 + 77
+    perm = rng.permutation(n)
+    plan = tperm._plan(perm, card, "two_pass", 1024)
+    idx = torch.from_numpy(perm).to(card)
+    X = torch.rand(9, n, device=card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y = tperm.apply_permutation_batched(plan, X)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(y, X[:, idx])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        yg = tperm.apply_permutation_batched(plan, X)
+    for seed in range(3):
+        X.copy_(torch.rand(9, n, device=card,
+                           generator=torch.Generator(device=card).manual_seed(seed)))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(yg, X[:, idx]), seed
+
+
 @pytest.mark.cuda
 def test_permute_plan_on_card_equals_the_cpu_plan(card):
     """The plan built on the card with torch ops is the plan built on the

@@ -14,6 +14,9 @@
     for r in PARENT . . PARENT; do
         python3 tpu_spmv_torch/bench/variant_ab.py --suite spmm --root $r
     done
+    for r in PARENT . . PARENT; do
+        python3 tpu_spmv_torch/bench/variant_ab.py --suite batched --root $r
+    done
 
 ``none`` times the package under ``--root`` (default: this checkout; any
 checkout since the probe kernels were ported prints what it has).  The
@@ -46,8 +49,23 @@ changes:
   streaming ones; ``ellcap``: its grid capped at 132 x 8 blocks (each
   warp walks several slices); ``ellocc``: a register cap of 8 blocks an
   SM;
-- ``pu4``, ``pu16``: the two-pass gather's passes keep 4 or 16 words in
-  flight a thread (not 8); ``pt1024``: blocks of 1024 threads (not 512);
+- ``pu4``, ``pu16``: the two-pass gather's pass 2 keeps 4 or 16 words of
+  1 or 2 bytes in flight a thread (not 8); ``async4``, ``async16``: 4 or
+  16 cp.async copies of 4-byte words in flight a lane (not 8);
+  ``vecs1``, ``vecs4``: pass 1 loads 1 or 4 runs of 8 offsets a thread
+  at once (not 2); ``nolast``: the two-pass form on rows loads its
+  offsets under an L2 evict-normal policy (not evict-last); ``pt1024``:
+  blocks of 1024 threads (not 512);
+- ``direct4``: the direct gather on rows (``permute_gather_batched``)
+  uses each group of four indices for 4 rows whatever their bytes (not as
+  many as fit ``BATCH_L2_BYTES``); ``lagk``: the two-pass form on rows
+  puts pass 2 of a chunk K items after its pass 1 (not K plus half the
+  grid), ``lag4`` K plus a quarter of the grid; ``occ1``, ``occ3``: its
+  blocks under a register cap of one or three an SM (not two);
+  ``noinline``: the pass bodies called, not inlined (each allocates its
+  own registers); diagnostics that change the result: ``nowait`` (no
+  item waits for another), ``p1only``, ``p2only`` (the other pass's items
+  do nothing);
 - ``ellcs``, ``ellnc``: ``ell_spmm`` loads its slots with streaming
   (``__ldcs``) or read-only (``__ldg``) loads, not plain ones;
   ``ellmb2``: twice the slots a batch; ``ellpf``, ``ellpf2``: the next
@@ -82,9 +100,20 @@ windows of 64 to 65536 slots, the identity with a share of its slots
 shuffled -- and random perms of 2^14 to 2^22 slots), ``ro(x)`` on the
 shuffled band and K1 inside it, ``ell_spmv`` (K4) on the 2048x2048-grid
 Poisson in its natural order and in a shuffled one and on the shuffled
-band beside cuSPARSE, f32 and f64, and the batched gather (K7d) on 32
-rows; per call and replayed, every input from its own seed so that two
-checkouts hash alike; ``--suite gather-quick``: the same without the band;
+band beside cuSPARSE, f32 and f64, and the batched gather (K7d/K7e) as
+``--suite batched`` times it; per call and replayed, every input from its
+own seed so that two checkouts hash alike; ``--suite gather-quick``: the
+same without the band and the batched gather; ``--suite batched``: the
+batched gather (``apply_permutation_batched``) on the RCM perm of the
+2048x2048-grid Poisson in a shuffled node order (seed 3; n = 4,194,304,
+a two-pass plan) at 32 and 8 rows in f32 and f64, the same rows with the
+plan forced direct, and on the RCM perm of ``banded(1000000, 5)`` in its
+natural order (a direct plan) at 32 rows in f32, each beside
+``torch.index_select`` and one ``apply_permutation`` per row (each row its
+own memory, so that no row is served from L2 by the call before), per
+call and replayed; then ``ro(x)`` on chip_smoke.py's shuffled band with
+both of its perms forced direct and forced two-pass, timed in turns
+(direct, two-pass, two-pass, direct);
 ``--suite spmm``: K3a (``spmm_sdia_padded_t``) on the 4096x4096-grid
 Poisson forced to SDIA beside K3b (``spmm_psdia_padded_t``) on its PSDIA
 pack, both packs built for 32 RHS, at 8 and 32 right-hand sides, and
@@ -255,6 +284,44 @@ CHANGES = {
               "constexpr int kPassUnroll = 16;")],
     "pt1024": [("csrc/permute.cu", "constexpr int kPassThreads = 512;",
                 "constexpr int kPassThreads = 1024;")],
+    "async4": [("csrc/permute.cu", "  constexpr int kAsync = 8;",
+                "  constexpr int kAsync = 4;")],
+    "async16": [("csrc/permute.cu", "  constexpr int kAsync = 8;",
+                 "  constexpr int kAsync = 16;")],
+    "vecs1": [("csrc/permute.cu", "constexpr int kVecs = 2;",
+               "constexpr int kVecs = 1;")],
+    "vecs4": [("csrc/permute.cu", "constexpr int kVecs = 2;",
+               "constexpr int kVecs = 4;")],
+    "nolast": [("csrc/permute.cu",
+                "createpolicy.fractional.L2::evict_last.b64",
+                "createpolicy.fractional.L2::evict_normal.b64")],
+    "direct4": [("kernels/permute.py", "\nBATCH_L2_BYTES = 24 << 20\n",
+                 "\nBATCH_L2_BYTES = 1 << 40\n")],
+    "lagk": [("csrc/permute.cu",
+              "      nchunks + (grid / 2 < nchunks ? grid / 2 : nchunks);",
+              "      nchunks;")],
+    "lag4": [("csrc/permute.cu",
+              "      nchunks + (grid / 2 < nchunks ? grid / 2 : nchunks);",
+              "      nchunks + (grid / 4 < nchunks ? grid / 4 : nchunks);")],
+    "nowait": [("csrc/permute.cu", "      wait_count(done + g, "
+                "static_cast<unsigned>(nchunks));\n",
+                "      __syncthreads();\n")],
+    "p1only": [("csrc/permute.cu", "      rows_pass2<W, R>(smem, st,",
+                "      if (false) rows_pass2<W, R>(smem, st,")],
+    "p2only": [("csrc/permute.cu",
+                "      rows_pass1<W, R>(reinterpret_cast<W*>(smem),",
+                "      if (false) rows_pass1<W, R>(reinterpret_cast<W*>("
+                "smem),")],
+    "noinline": [("csrc/permute.cu",
+                  "__device__ __forceinline__ void rows_pass1(",
+                  "__device__ __noinline__ void rows_pass1("),
+                 ("csrc/permute.cu",
+                  "__device__ __forceinline__ void rows_pass2(",
+                  "__device__ __noinline__ void rows_pass2(")],
+    "occ1": [("csrc/permute.cu", "constexpr int kRowsBlocksPerSM = 2;",
+              "constexpr int kRowsBlocksPerSM = 1;")],
+    "occ3": [("csrc/permute.cu", "constexpr int kRowsBlocksPerSM = 2;",
+              "constexpr int kRowsBlocksPerSM = 3;")],
     "ellb2": [("csrc/general.cu", "constexpr int kEllBatch = 4;",
                "constexpr int kEllBatch = 2;")],
     "ellplain": [("csrc/general.cu",
@@ -405,11 +472,104 @@ def _gpr_spmm(out, dev, event_ms):
         del G, m
 
 
+def _shuffled_band(n: int):
+    """The band of chip_smoke.py's phase 4e: ``banded(n, 5)`` in a random
+    node order (seed 3), entry (r, c) moved to (inv[r], inv[c])."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from tpu_spmv_torch import utils
+
+    bc = utils.banded(n, 5).tocoo()
+    order = np.random.default_rng(3).permutation(n)
+    inv = np.empty_like(order)
+    inv[order] = np.arange(n)
+    return sp.csr_matrix((bc.data, (inv[bc.row], inv[bc.col])),
+                         shape=bc.shape)
+
+
+def _rand(dev, shape, dtype, seed):
+    """Inputs from their own seed: both sides of an A/B get the same."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.rand(shape, generator=gen, device=dev, dtype=dtype)
+
+
+def _batched(out, dev, event_ms, graph_ms, band=None, quick=False):
+    """K7d/K7e (``apply_permutation_batched``) at the main path's shapes,
+    beside ``index_select`` and one ``apply_permutation`` per row; then
+    ``ro(x)`` on the shuffled band (``band``, built if not given) with its
+    perms forced to each form, in turns.  ``quick``: the batched gather
+    alone at 32 rows (f32 and f64, forced direct, the natural band)."""
+    import numpy as np
+    import torch
+
+    from tpu_spmv_torch import utils
+    from tpu_spmv_torch.kernels import permute as pk
+    from tpu_spmv_torch.reorder import reorder_plan
+
+    lap = utils.laplacian_2d(2048)
+    perm = np.random.default_rng(3).permutation(lap.shape[0])
+    rop = reorder_plan(lap[perm][:, perm].tocsr(), dtype=torch.float32,
+                       device=dev)
+    rcm = rop.perm_plan
+    natural = reorder_plan(utils.banded(1_000_000, 5, seed=1),
+                           dtype=torch.float32, device=dev).perm_plan
+    del lap, perm, rop
+    out["K7d RCM method"] = rcm.method
+    out["K7d natural band method"] = natural.method
+    forced = pk._plan(rcm.perm, dev, "direct", pk.CHUNK)
+    cases = [("RCM", rcm, 32, torch.float32), ("RCM", rcm, 8, torch.float32),
+             ("RCM", rcm, 32, torch.float64), ("RCM", rcm, 8, torch.float64),
+             ("RCM forced direct", forced, 32, torch.float32),
+             ("natural band RCM", natural, 32, torch.float32)]
+    for seed, (name, plan, rows, dtype) in enumerate(cases):
+        if quick and rows != 32:
+            continue
+        X = _rand(dev, (rows, plan.n), dtype, 10 + seed)
+        idx = plan.perm.long()
+        key = (f"K7d {name} {rows} rows "
+               f"{'f32' if dtype == torch.float32 else 'f64'}")
+        one = [X[q] for q in range(rows)]   # each row its own memory
+        fns = {"": lambda: pk.apply_permutation_batched(plan, X),
+               " index_select": lambda: torch.index_select(X, 1, idx),
+               f" {rows} x apply_permutation": lambda: [
+                   pk.apply_permutation(plan, v) for v in one]}
+        out[f"{key} hash"] = _hash(fns[""]())
+        for side, fn in list(fns.items())[:1 if quick else None]:
+            out[f"{key}{side}"] = event_ms(fn, 5, 11)
+            out[f"{key}{side}:graph"] = graph_ms(fn, calls=4, replays=7)
+        del X, one, fns
+    del rcm, natural, forced
+    if quick:
+        return
+
+    # ro(x) on the shuffled band with both perms forced to one form
+    ro = reorder_plan(band if band is not None else _shuffled_band(4_194_304),
+                      dtype=torch.float32, device=dev)
+    forms = {f: (pk._plan(ro.perm, dev, f, pk.CHUNK),
+                 pk._plan(ro.inv_perm, dev, f, pk.CHUNK))
+             for f in ("direct", "two_pass")}
+    xs = _rand(dev, ro.perm.numel(), torch.float32, 3)
+
+    def ro_x(form):
+        p, q = forms[form]
+        return lambda: pk.apply_permutation(q, ro.plan(
+            pk.apply_permutation(p, xs)))
+
+    for turn, form in enumerate(("direct", "two_pass", "two_pass",
+                                 "direct")):
+        key = f"ro(x) {form} turn {turn}"
+        out[f"ro(x) {form} hash"] = _hash(ro_x(form)())
+        out[key] = event_ms(ro_x(form), 50, 15)
+        out[f"{key}:graph"] = graph_ms(ro_x(form))
+
+
 def _gather(out, dev, event_ms, graph_ms, quick=False):
     import time
 
     import numpy as np
-    import scipy.sparse as sp
     import torch
 
     from tpu_spmv_torch import utils
@@ -423,9 +583,7 @@ def _gather(out, dev, event_ms, graph_ms, quick=False):
     planned = hasattr(pk, "_plan")
 
     def rand(shape, dtype, seed):
-        """Inputs from their own seed: both sides of an A/B get the same."""
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        return torch.rand(shape, generator=gen, device=dev, dtype=dtype)
+        return _rand(dev, shape, dtype, seed)
 
     def record(key, fn, iters):
         out[f"{key} hash"] = _hash(fn())
@@ -451,15 +609,7 @@ def _gather(out, dev, event_ms, graph_ms, quick=False):
              "random": torch.from_numpy(
                  np.random.default_rng(5).permutation(n)).to(dev)}
     if not quick:
-        # the band of chip_smoke.py's phase 4e: banded(n, 5) in a random
-        # node order (seed 3), entry (r, c) moved to (inv[r], inv[c])
-        bc = utils.banded(n, 5).tocoo()
-        order = np.random.default_rng(3).permutation(n)
-        inv = np.empty_like(order)
-        inv[order] = np.arange(n)
-        band = sp.csr_matrix((bc.data, (inv[bc.row], inv[bc.col])),
-                             shape=bc.shape)
-        del bc, order, inv
+        band = _shuffled_band(n)
         ro = reorder_plan(band, dtype=torch.float32, device=dev)
         perms["RCM"] = ro.perm
     for dname, dtype in (("f32", torch.float32), ("f64", torch.float64)):
@@ -562,14 +712,8 @@ def _gather(out, dev, event_ms, graph_ms, quick=False):
             del A, x, L
     if quick:
         return
-    # K7d/K7e: the batched gather on 32 rows with the RCM perm of the
-    # shuffled Poisson (chip_smoke.py's phase 4e)
-    del ro, perms
-    rop = reorder_plan(operands["shuffled 2048^2"], dtype=torch.float32,
-                       device=dev)
-    XB = rand((32, lap.shape[0]), torch.float32, 5)
-    record("K7d RCM 32 rows f32",
-           lambda: pk.apply_permutation_batched(rop.perm_plan, XB), 10)
+    del ro, perms, operands
+    _batched(out, dev, event_ms, graph_ms, band)
 
 
 def _spmm(out, dev, event_ms, graph_ms, general_only=False):
@@ -660,7 +804,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--suite",
                     choices=["walk", "tiles", "gpr_spmm", "gather",
-                             "gather-quick", "spmm", "spmm-general"],
+                             "gather-quick", "batched", "batched-quick",
+                             "spmm",
+                             "spmm-general"],
                     required=True)
     ap.add_argument("--variant", default="none")
     ap.add_argument("--root", default=str(_ROOT),
@@ -694,6 +840,9 @@ def main(argv=None) -> int:
     elif args.suite.startswith("spmm"):
         _spmm(out, dev, timing.event_ms, timing.graph_ms,
               general_only=args.suite == "spmm-general")
+    elif args.suite.startswith("batched"):
+        _batched(out, dev, timing.event_ms, timing.graph_ms,
+                 quick=args.suite == "batched-quick")
     elif args.suite.startswith("gather"):
         _gather(out, dev, timing.event_ms, timing.graph_ms,
                 quick=args.suite == "gather-quick")

@@ -77,7 +77,8 @@ _SIGNATURES = {
     "tsp_permute_two_pass": [_P] * 6 + [_I64, _I, _I, _P],
     "tsp_permute_pass1": [_P] * 4 + [_I64, _I, _I, _P],
     "tsp_permute_pass2": [_P] * 4 + [_I64, _I, _I, _P],
-    "tsp_permute_gather_batched": [_P, _P, _I, _P, _I64, _I, _I, _P],
+    "tsp_permute_gather_batched": [_P, _P, _I, _P, _I64, _I, _I, _I, _P],
+    "tsp_permute_rows_two_pass": [_P] * 7 + [_I64, _I64] + [_I] * 4 + [_P],
     "tsp_copy_scale": [_P, _P, _I64, _P],
     "tsp_launch_probe": [_P, _P, _P],
     "tsp_segsum8": [_P, _P, _I64, _P],

@@ -32,8 +32,12 @@ offsets inside the chunks (int16 holding values below ``chunk``, read as
 uint16) and the bucket starts (int32).  :func:`plan_permutation` and
 :func:`plan_permutation_auto` give the same plan at every ``n``.
 :func:`apply_permutation` (K7a–K7c) launches the plan's form;
-:func:`apply_permutation_batched` (K7d/K7e) launches
-``permute_gather_batched`` on ``[nrhs, n]`` with one perm for every row;
+:func:`apply_permutation_batched` (K7d/K7e) launches the plan's form on
+``[nrhs, n]`` with one perm for every row (:func:`gather_form` picks it
+for both): ``permute_rows_two_pass``, both passes over groups of
+:func:`two_pass_rows` rows in one persistent launch, or
+``permute_gather_batched``, the direct gather with each loaded index used
+for the :func:`direct_rows` rows of a group;
 :func:`plan_tile_permutation` / :func:`apply_tile_permutation` are the same
 gather on one ``[128, 128]`` tile (16384 entries: the direct form).
 
@@ -57,7 +61,9 @@ from . import _build
 
 __all__ = ["Q", "TILE", "LAUNCHES", "CHUNK", "PermutationPlan",
            "permute_reference", "far_share", "plan_permutation",
-           "two_pass_pairs", "two_pass_ref",
+           "two_pass_pairs", "two_pass_ref", "gather_form",
+           "two_pass_rows", "direct_rows", "STAGE_ALIGN",
+           "BATCH_L2_BYTES",
            "plan_permutation_auto", "plan_tile_permutation",
            "apply_permutation", "apply_permutation_ref",
            "apply_permutation_batched", "apply_permutation_batched_ref",
@@ -69,9 +75,10 @@ TILE = Q * Q
 #: kernel launches by the wrappers on CUDA tensors (plain-version calls on
 #: CPU tensors are not counted); ``permute_two_pass`` counts one launch of
 #: the two-pass form's both passes, ``permute_pass`` one pass launched
-#: alone to time it
+#: alone to time it; ``permute_batched`` the direct form on rows,
+#: ``permute_batched_two_pass`` the two-pass form on rows (both passes)
 LAUNCHES = {"permute": 0, "permute_two_pass": 0, "permute_pass": 0,
-            "permute_batched": 0}
+            "permute_batched": 0, "permute_batched_two_pass": 0}
 _WORD_BYTES = (1, 2, 4, 8)
 #: the two-pass form's words (8-byte words take the direct gather)
 _STAGED_BYTES = (1, 2, 4)
@@ -97,6 +104,17 @@ TABLE_SHARE = 1 / 8
 #: the most chunks the kernels take (pass 2 keeps two ints a chunk in
 #: shared memory beside its chunk); a forced plan with more is refused
 MAX_CHUNKS = 4096
+#: the direct form on rows gathers a group of rows with each group of four
+#: loaded indices; the group's rows are all in flight at once, and a
+#: scattered perm reads all of each, so they are as many (4, 2 or 1) as
+#: keep within this many bytes, a share of the card's 50 MB L2 (four rows
+#: of 4,194,304 f32 values missed it: 2.2x one slot a thread's time)
+BATCH_L2_BYTES = 24 << 20
+#: the two-pass form on rows gives every row its own stage row of the
+#: plan's pairs, rounded up to a multiple of this many words (whole
+#: 128-byte lines of 4-byte words: pass 2 reads them through L1, so no
+#: line may hold two rows)
+STAGE_ALIGN = 32
 _FORMS = ("auto", "direct", "two_pass")
 
 
@@ -244,11 +262,14 @@ def _gather_ref(plan: PermutationPlan, x2: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(kernel: str, key: str, plan: PermutationPlan, src: torch.Tensor,
-            *nrhs: int) -> torch.Tensor:
+            *rows: int) -> torch.Tensor:
+    """``permute_gather`` on a flat ``src``, or with ``rows`` (nrhs, rows
+    a group) ``permute_gather_batched`` on ``[nrhs, n]``."""
     out = torch.empty_like(src)
+    nrhs, group = rows[:1], rows[1:]
     _build.launcher(kernel)(
         src, src.data_ptr(), plan.perm.data_ptr(), plan.perm.element_size(),
-        out.data_ptr(), plan.n, *nrhs, src.element_size())
+        out.data_ptr(), plan.n, *nrhs, src.element_size(), *group)
     LAUNCHES[key] += 1
     return out
 
@@ -276,10 +297,34 @@ def two_pass_ref(plan: PermutationPlan, x: torch.Tensor):
     return stage, out
 
 
+def gather_form(method: str, word_bytes: int) -> str:
+    """The form a plan of ``method`` gathers words of ``word_bytes`` with,
+    one vector or the rows of a block alike: ``"two_pass"`` for a
+    two-pass plan on words of 1, 2 or 4 bytes, else ``"direct"`` (8-byte
+    words gather directly: the two forms were level in f64)."""
+    return ("two_pass" if method == "two_pass" and word_bytes in
+            _STAGED_BYTES else "direct")
+
+
+def two_pass_rows(word_bytes: int) -> int:
+    """Rows a group of the two-pass form on rows holds: 4 bytes of every
+    slot (one row of 4-byte words, two of 2-byte, four of 1-byte), so
+    that a group's chunks take 64 KiB of shared memory at ``CHUNK`` and
+    its stage is one 4-byte row's, while each offset a block loads serves
+    every row of the group."""
+    return 4 // word_bytes
+
+
+def direct_rows(n: int, word_bytes: int) -> int:
+    """Rows a group of the direct form on rows holds: 4, 2 or 1, the most
+    whose ``n`` words each fit ``BATCH_L2_BYTES`` together."""
+    return next((r for r in (4, 2) if r * n * word_bytes <= BATCH_L2_BYTES),
+                1)
+
+
 def _staged(plan: PermutationPlan, x: torch.Tensor) -> bool:
     """Whether ``x`` goes through the two-pass form of ``plan``."""
-    return (plan.method == "two_pass"
-            and x.element_size() in _STAGED_BYTES)
+    return gather_form(plan.method, x.element_size()) == "two_pass"
 
 
 def _two_pass(plan: PermutationPlan, src: torch.Tensor) -> torch.Tensor:
@@ -350,12 +395,35 @@ def apply_permutation_batched_ref(plan: PermutationPlan,
     return _gather_ref(plan, X)
 
 
+def _rows_two_pass(plan: PermutationPlan, X: torch.Tensor) -> torch.Tensor:
+    """Both passes of a two-pass plan on the rows of a contiguous CUDA
+    ``X [nrhs, n]`` of 1-, 2- or 4-byte words, in one launch; the stage
+    (a row of the plan's pairs for every row of ``X``) and the launch's
+    counters come from the caching allocator."""
+    nrhs, w = X.shape[0], X.element_size()
+    rows = two_pass_rows(w)
+    stride = -(-plan.src_off.numel() // STAGE_ALIGN) * STAGE_ALIGN
+    stage = torch.empty(nrhs * stride, dtype=X.dtype, device=X.device)
+    counters = torch.empty(2 + -(-nrhs // rows), dtype=torch.int32,
+                           device=X.device)
+    out = torch.empty_like(X)
+    _build.launcher("permute_rows_two_pass")(
+        X, X.data_ptr(), plan.src_off.data_ptr(), plan.dst_off.data_ptr(),
+        plan.bucket_ptr.data_ptr(), stage.data_ptr(), counters.data_ptr(),
+        out.data_ptr(), plan.n, stride, nrhs, plan.chunk.bit_length() - 1, w,
+        rows)
+    LAUNCHES["permute_batched_two_pass"] += 1
+    return out
+
+
 def apply_permutation_batched(plan: PermutationPlan,
                               X: torch.Tensor) -> torch.Tensor:
     """One permutation applied to every row: ``X [nrhs, n]`` → same
     shape, ``out[q, i] = X[q, perm[i]]``.
 
-    CUDA tensor: launches ``permute_gather_batched``; CPU tensor:
+    CUDA tensor: launches the plan's form (:func:`gather_form`;
+    ``csrc/permute.cu``: ``permute_rows_two_pass``, or
+    ``permute_gather_batched``); CPU tensor:
     :func:`apply_permutation_batched_ref`."""
     _check("apply_permutation_batched", plan, X)
     if X.dim() != 2 or X.shape[1] != plan.n:
@@ -365,8 +433,12 @@ def apply_permutation_batched(plan: PermutationPlan,
         return apply_permutation_batched_ref(plan, X)
     if not X.is_contiguous():
         raise ValueError("apply_permutation_batched: X must be contiguous")
+    if X.shape[0] == 0:
+        return torch.empty_like(X)
+    if _staged(plan, X):
+        return _rows_two_pass(plan, X)
     return _launch("permute_gather_batched", "permute_batched", plan, X,
-                   X.shape[0])
+                   X.shape[0], direct_rows(plan.n, X.element_size()))
 
 
 def apply_tile_permutation_ref(x: torch.Tensor,
