@@ -126,6 +126,28 @@ Phases, in order; any failure raises and the script exits non-zero:
       shards over it on the SPD form at 32, true residual <= 1e-10; ELL
       forced on ``random_sparse(100000, 100000, 7e-5)`` against sliced ELL
       (K4);
+   g. the solvers behind ``--solve`` on 4a's 4096x4096 Poisson plan (no
+      second planning of it), the counters zeroed and read around each
+      solver, its iterations, ms/iteration (host clock) and launches
+      printed: ``power_iteration`` (50 steps; its Rayleigh quotient at or
+      under the analytic lambda_max) and ``eigsh_lanczos(k=80)`` (both
+      ends inside the analytic spectrum); on the screened operator ``A +
+      I`` (4e's ``shift_diagonal`` of the PSDIA pack) ``bicgstab``,
+      ``gmres(restart=30)``, ``chebyshev`` on ``[1, 9]``, CG with
+      ``chebyshev_preconditioner`` and multicolor ``sor``, each to a true
+      relative residual <= 1e-5 by scipy float64; CG with
+      ``mg_preconditioner((4096, 4096))`` on the unscreened operator to
+      ``tol=1e-5`` within 200 iterations beside plain CG's iterations;
+      ``lsqr`` on 4a's 1M-row band with its plan's ``transpose()``, its
+      residual norms after 10, 20, ... 50 iterations non-increasing;
+      ``ir_solve`` on the screened operator to a true residual <= 1e-5
+      twice: both plans forced to SDIA (hi K1 f32, low K1 on bf16 data)
+      and as planned (hi K2, low ``plan_spmv(A + I,
+      dtype=torch.bfloat16)``: K2 on the bf16 pattern widened once); K1
+      on bf16 data through ``plan_spmv(dtype=torch.bfloat16)`` of a
+      random-valued ``banded(1000000, 5)``, against its plain version (2e-5
+      relative) and scipy float64 of the f32 matrix (printed as the
+      reference's ``bf16_data_rel_err``);
 5. the probe path first (``run_probes``: ``copy_scale`` and torch's
    ``copy_`` over 256 MiB, whose higher rate is the roofline's peak, the
    launch probe once and four in a row, ``segsum8`` and every
@@ -160,7 +182,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    of K3b and of K3a (the plan's pick and the cluster walk) timed in
    turns on the 32-RHS packs with 32 and (K3a) 8 right-hand sides and
    K3b's, with 8, on the plan's own pack (``cg_multi_runner``'s shape)
-   beside 8 launches of K2, each with its shared-memory plan; K2 on its
+   beside 8 launches of K2, each with its shared-memory plan; K1 on bf16
+   data (``sdia_spmv_bf16``) on 4a's SDIA pack with its data cast to
+   bf16, after K1 and K2, beside its bound ((2 ndiags + 8) npad bytes),
+   its plain version and K1 f32 (no library call computes bf16 data with
+   f32 sums: ``library_ms`` null); K2 on its
    walk (the plan's stride walk by bulk copy), and the walks of K8b on the one shard and of K2 on
    the pack in turns (the plan's, the stride walk with the coefficients
    per tile, the cluster walk), each bitwise K2;
@@ -191,6 +217,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -575,8 +602,12 @@ def main() -> int:
     from tpu_spmv_torch.ops.shift import shift_diagonal
     from tpu_spmv_torch.ops.spmm import spmm_coo
     from tpu_spmv_torch.reorder import rcm_permutation, reorder_plan
-    from tpu_spmv_torch.solvers import (cg, cg_multi, cg_multi_runner,
-                                        cg_runner, dist_cg)
+    from tpu_spmv_torch.solvers import (bicgstab, cg, cg_multi,
+                                        cg_multi_runner, cg_runner, chebyshev,
+                                        chebyshev_preconditioner, dist_cg,
+                                        eigsh_lanczos, gmres, ir_solve, lsqr,
+                                        mg_preconditioner, multicolor,
+                                        power_iteration, safe_dinv, sor)
     F = torch.nn.functional
 
     dev = torch.device("cuda")
@@ -1804,6 +1835,196 @@ def main() -> int:
             f"forced general arm ({gstrategy}) never launched in 4f")
     require(blaunches["ell"] > 0, "sliced ELL (K4) never launched in 4f")
 
+    # -- 4g. the solvers behind --solve at full width -----------------------
+    print(f"== 4g. solvers on the 4096^2 Poisson of 4a, no second planning of "
+          f"its f32 plan (counters zeroed and read around each solver; ms "
+          f"per iteration by the host clock, the solvers' host reads "
+          f"included; {card})")
+    n = mat.shape[0]
+    lam_hi = 8 * math.sin(math.pi * GRID / (2 * (GRID + 1))) ** 2
+    lam_lo = 8 * math.sin(math.pi / (2 * (GRID + 1))) ** 2
+    g_launches = {}
+    solver_rows = {}
+
+    def solver_run(label, fn, iters_of):
+        """Run one solver with the counters zeroed just before and read
+        just after; print its iterations, ms/iteration and launches."""
+        zero(ds.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k: v for k, v in ds.LAUNCHES.items() if v}
+        for k, v in counts.items():
+            g_launches[k] = g_launches.get(k, 0) + v
+        its = iters_of(out)
+        solver_rows[label] = (its, 1e3 * secs / max(its, 1))
+        print(f"  {label}: {its} iterations, {1e3 * secs / max(its, 1):.4f} "
+              f"ms/iteration ({secs:.3f} s) | launches {counts}")
+        return out
+
+    # start vectors drawn on the card (a CUDA generator)
+    gen = torch.Generator(device=dev)
+    lam, _ = solver_run("power_iteration(iters=50)",
+                        lambda: power_iteration(
+                            plan, iters=50, generator=gen.manual_seed(0)),
+                        lambda out: 51)
+    lam = float(lam)
+    print(f"    Rayleigh quotient {lam:.7f}, analytic lambda_max "
+          f"{lam_hi:.7f}")
+    require(np.isfinite(lam) and 0 < lam <= lam_hi * (1 + 1e-6),
+            f"power iteration's Rayleigh quotient {lam} above {lam_hi}")
+    ends = solver_run("eigsh_lanczos(k=80, full_reorth)",
+                      lambda: eigsh_lanczos(plan, k=80,
+                                            generator=gen.manual_seed(0)),
+                      lambda out: 80)
+    print(f"    spectrum estimate [{ends[0]:.6g}, {ends[1]:.7f}] inside the "
+          f"analytic [{lam_lo:.6g}, {lam_hi:.7f}] (slack 1e-5 lambda_max)")
+    require(lam_lo - 1e-5 * lam_hi <= ends[0] < ends[1]
+            <= lam_hi * (1 + 1e-5), f"Lanczos ends {ends} outside "
+            f"[{lam_lo}, {lam_hi}]")
+
+    # the screened Poisson A + I (4e's), on 4a's PSDIA pack
+    t0 = time.perf_counter()
+    PS = shift_diagonal(P, 1.0)
+    plan_scr = plan_from_matrix(PS, "pdia_stream")
+    mat_scr = (mat + sp.identity(n, dtype=mat.dtype, format="csr")).tocsr()
+    bs64 = rng.random(n)
+    bs = torch.tensor(bs64, dtype=torch.float32, device=dev)
+    inv = safe_dinv(mat_scr.diagonal(), dtype=torch.float32, device=dev)
+    color = multicolor(mat_scr)
+    print(f"  screened Poisson: host set-up {time.perf_counter() - t0:.2f} s "
+          f"(multicolor: {int(color.max()) + 1} colours)")
+    t0 = time.perf_counter()
+    cheb = chebyshev_preconditioner(plan_scr, dinv=inv, n=n,
+                                    generator=gen.manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"  chebyshev_preconditioner: lmax of D^-1 A by 20 power steps, "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    def true_rel(x) -> float:
+        xs = x.cpu().double().numpy()
+        return float(np.linalg.norm(bs64 - mat_scr @ xs)
+                     / np.linalg.norm(bs64))
+
+    for label, fn in (
+            ("bicgstab", lambda: bicgstab(plan_scr, bs, tol=1e-6,
+                                          maxiter=1000)),
+            ("gmres(restart=30)", lambda: gmres(plan_scr, bs, tol=1e-6,
+                                                restart=30, maxiter=1000)),
+            ("chebyshev([1, 9])", lambda: chebyshev(
+                plan_scr, bs, lmin=1.0, lmax=9.0, tol=1e-6, maxiter=1000)),
+            ("chebcg (degree 4)", lambda: cg(plan_scr, bs, tol=1e-6,
+                                             maxiter=1000, precond=cheb)),
+            ("sor (multicolor Gauss-Seidel)", lambda: sor(
+                plan_scr, bs, color=color, dinv=inv, tol=1e-6,
+                maxiter=1000))):
+        res = solver_run(label, fn, lambda out: int(out.iterations))
+        tr = true_rel(res.x)
+        print(f"    converged={bool(res.converged)}, true rel residual "
+              f"(scipy f64) {tr:.3e}")
+        require(tr <= 1e-5, f"{label} true residual {tr:.3e}")
+    del res, color, cheb
+
+    # MG-PCG on the unscreened operator beside plain CG (b = A x_true)
+    bm64 = mat @ rng.random(n)
+    bm = torch.tensor(bm64, dtype=torch.float32, device=dev)
+    mres = solver_run("cg + mg_preconditioner((4096, 4096))", lambda: cg(
+        plan, bm, tol=1e-5, maxiter=200,
+        precond=mg_preconditioner((GRID, GRID))),
+        lambda out: out.iterations)
+    mtrue = float(np.linalg.norm(bm64 - mat @ mres.x.cpu().double().numpy())
+                  / np.linalg.norm(bm64))
+    pres = solver_run("plain cg (same b, tol 1e-5, maxiter 20000)",
+                      lambda: cg(plan, bm, tol=1e-5, maxiter=20_000),
+                      lambda out: out.iterations)
+    print(f"    MG-PCG {mres.iterations} iterations (converged="
+          f"{bool(mres.converged)}, true rel residual {mtrue:.3e}) beside "
+          f"plain CG's {pres.iterations} (converged={bool(pres.converged)})")
+    require(bool(mres.converged) and mtrue <= 1e-4,
+            f"MG-PCG: converged={bool(mres.converged)}, true {mtrue:.3e}")
+    del bm, mres, pres
+
+    # LSQR on 4a's 1M-row band with its plan's transpose()
+    plan_bT = planb.transpose()
+    bl = torch.tensor(band @ rng.random(band.shape[0]), dtype=torch.float32,
+                      device=dev)
+    norms = []
+    for k in (10, 20, 30, 40):
+        norms.append(float(lsqr(planb, bl, At=plan_bT, tol=0.0,
+                                maxiter=k).residual_norm))
+    lres = solver_run("lsqr(maxiter=50) on banded(1000000,5)", lambda: lsqr(
+        planb, bl, At=plan_bT, tol=0.0, maxiter=50),
+        lambda out: out.iterations)
+    norms.append(float(lres.residual_norm))
+    print(f"    residual norms after 10..50 iterations: "
+          f"{', '.join(f'{v:.4e}' for v in norms)}")
+    require(all(b_ <= a_ * (1 + 1e-6) for a_, b_ in zip(norms, norms[1:]))
+            and norms[-1] < norms[0], f"LSQR residuals rose: {norms}")
+    del plan_bT, bl, lres
+
+    # mixed-precision refinement, twice: both plans forced to SDIA (hi K1
+    # f32, low K1 bf16: the f32 pack's data cast, which is
+    # pack_sdia(data_dtype=bfloat16)'s pack at the same tile), then as
+    # plan_spmv picks (hi K2, low K2 on the bf16 pattern widened once)
+    hiS = plan_from_matrix(shift_diagonal(S, 1.0), "dia_stream")
+    require(ds._auto_rb(S.ndiags, S.offsets, n, itemsize=2) == S.rb,
+            "the bf16 SDIA tile differs from the f32 one")
+    loS = plan_from_matrix(dataclasses.replace(
+        hiS.matrix, data=hiS.matrix.data.to(torch.bfloat16)), "dia_stream")
+    t0 = time.perf_counter()
+    lo_p = plan_spmv(mat_scr, dtype=torch.bfloat16, device=dev)
+    print(f"  plan_spmv(A + I, dtype=bfloat16): strategy={lo_p.strategy} "
+          f"pattern {lo_p.matrix.pattern.dtype} rb={lo_p.matrix.rb} (host "
+          f"planning {time.perf_counter() - t0:.2f} s)")
+    require(lo_p.strategy == "pdia_stream"
+            and lo_p.matrix.pattern.dtype == torch.bfloat16
+            and lo_p.matrix.rb == PS.rb, "the bf16 plan of A + I")
+    for label, hi, lo in (("ir_solve, SDIA (hi K1 f32, low K1 bf16)", hiS,
+                           loS),
+                          ("ir_solve, as planned (hi K2, low K2 on the "
+                           "widened bf16 pattern)", plan_scr, lo_p)):
+        ires = solver_run(label, lambda: ir_solve(
+            hi, bs, low=lo, inner_iters=16, maxiter=40, tol=1e-6),
+            lambda out: out.outer_iterations)
+        tr = true_rel(ires.x)
+        print(f"    {ires.outer_iterations} outer iterations of 16 inner "
+              f"steps, converged={bool(ires.converged)}, true rel residual "
+              f"(scipy f64) {tr:.3e}")
+        require(tr <= 1e-5, f"{label} true residual {tr:.3e}")
+    del hiS, loS, lo_p, ires, PS, plan_scr, mat_scr, inv
+
+    # K1 bf16 on a random-valued band through plan_spmv(dtype=bfloat16),
+    # against its plain version on the same bf16 data and scipy float64 of
+    # the float32 matrix (the coefficients' rounding: the reference's
+    # bf16_data_rel_err)
+    p16 = plan_spmv(band, dtype=torch.bfloat16, device=dev)
+    A16 = p16.matrix
+    require(p16.strategy == "dia_stream"
+            and A16.data.dtype == torch.bfloat16, "bf16 band plan")
+    x16_64 = rng.random(band.shape[0])
+    xp16 = ds.pad_x(A16, torch.tensor(x16_64, dtype=torch.float32,
+                                      device=dev))
+    yk = ds.spmv_sdia_padded(A16, xp16)
+    yp = ds.spmv_sdia_padded_ref(A16, xp16)
+    torch.cuda.synchronize()
+    rel_p16 = float((yk - yp).abs().max() / yp.abs().max())
+    band32 = band.astype(np.float32).astype(np.float64)
+    bf16_rel = rel_err(ds.unpad_y(A16, yk).cpu(),
+                       band32 @ x16_64.astype(np.float32).astype(np.float64))
+    print(f"  K1 bf16 on banded(1000000,5) (rb={A16.rb}): vs plain "
+          f"{rel_p16:.2e} | bf16_data_rel_err (scipy f64 of the f32 "
+          f"matrix) {bf16_rel:.3e}")
+    require(rel_p16 <= 2e-5, f"K1 bf16 vs plain {rel_p16:.2e}")
+    require(np.isfinite(bf16_rel) and bf16_rel <= 1e-2,
+            f"bf16_data_rel_err {bf16_rel:.3e}")
+    del p16, A16, xp16, yk, yp
+
+    print(f"launch counts on the solver path: {g_launches}")
+    for k in ("psdia", "sdia", "sdia_bf16"):
+        require(g_launches.get(k, 0) > 0, f"{k} never launched in 4g")
+
     # -- 5. kernels vs plain at the main paths' shapes, timed ---------------
     print("== 5. kernels vs plain versions at the main paths' shapes")
     # the probe path first (its bandwidth probes set the roofline's peak),
@@ -1908,6 +2129,39 @@ def main() -> int:
         records.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": src_line, "launches": launches[key],
                         **nums})
+    # K1 on bf16 data on 4a's SDIA pack (its data cast to bf16: the pack
+    # pack_sdia(data_dtype=bfloat16) makes at the same tile, checked in
+    # 4g); no library call computes bf16 data with f32 sums
+    S16 = dataclasses.replace(S, data=S.data.to(torch.bfloat16))
+    xp16 = ds.pad_x(S16, x)
+    yk, yp = ds.spmv_sdia_padded(S16, xp16), ds.spmv_sdia_padded_ref(S16, xp16)
+    torch.cuda.synchronize()
+    err16 = float((yk - yp).abs().max())
+    rel16 = err16 / float(yp.abs().max())
+    require(rel16 <= PLAIN_TOL["float32"], f"K1 bf16 vs plain {rel16:.2e}")
+    del yk, yp
+    ms16 = time_fn(ds.spmv_sdia_padded, S16, xp16, iters=50).median_s * 1e3
+    plain16 = time_fn(ds.spmv_sdia_padded_ref, S16, xp16,
+                      iters=5).median_s * 1e3
+    bytes16 = (2 * S16.ndiags + 8) * S16.npad
+    bound16, by16 = bound(bytes16, 2 * S16.nnz)
+    k1 = next(r for r in records if r["name"] == "sdia_spmv")
+    print(f"sdia_spmv_bf16 (K1 on bf16 data) {mat.shape[0]} rows: "
+          f"{ms16:.4f} ms ({bytes16 / ms16 / 1e6:.1f} GB/s model) | bound "
+          f"{bound16:.4f} ms ({by16}, {100 * bound16 / ms16:.1f}%; "
+          f"(2 ndiags + 8) npad = {bytes16} B) | plain {plain16:.4f} ms | K1 "
+          f"f32 {k1['ms']:.4f} ms (bound {k1['bound_ms']:.4f}, cuSPARSE "
+          f"{k1['library_ms']:.4f}; bf16/f32 {ms16 / k1['ms']:.3f}) | "
+          f"library: none | max abs err {err16:.3e} (rel {rel16:.2e}) | "
+          f"launches in 4g {g_launches.get('sdia_bf16', 0)} ({card})")
+    records.append({"name": "sdia_spmv_bf16", "route": "cuda",
+                    "source": "tpu_spmv_torch/csrc/dia_stream.cu",
+                    "replaces": "tpu_spmv/kernels/dia_stream.py:269",
+                    "launches": g_launches.get("sdia_bf16", 0),
+                    "max_abs_err": err16, "ms": ms16, "plain_ms": plain16,
+                    "bound_ms": bound16, "bound_by": by16,
+                    "library_ms": None})
+    del S16, xp16
     plan_ms = time_fn(plan, x, iters=50).median_s * 1e3
     print(f"plan(x) end to end (pad + K2 + unpad): {plan_ms:.4f} ms")
     # K8b and K8a on the one shard of the 4096^2 packs (phase 4d, ndev=1):

@@ -1381,3 +1381,76 @@ def test_launch_switches_to_the_tensors_card(card):
     assert torch.cuda.current_device() == 0
     assert y.device == other and torch.equal(y, tile)
     assert torch.equal(s, pr.segsum8_ref(v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["laplacian_2d(48)", "banded(50000,5)",
+                                  "banded(70001,40)"])
+def test_k1_bf16_data_matches_plain_on_card(card, name):
+    """K1 on bf16 coefficients against float32 x: within 1e-6 of its plain
+    version (the data widened), bitwise reproducible, pads zero, counted
+    apart from K1 f32; K2 on the pack's bf16 pattern (widened once) for
+    the Poisson; bf16 data against a float64 x refused."""
+    m = (utils.laplacian_2d(48) if name.startswith("laplacian")
+         else utils.banded(*map(int, name[7:-1].split(",")), seed=6))
+    dia = convert(COO.from_scipy(m, dtype=torch.float32, device=card), "dia")
+    A = tds.pack_sdia(dia, data_dtype=torch.bfloat16)
+    assert A.data.dtype == torch.bfloat16
+    x = torch.tensor(np.random.default_rng(4).random(m.shape[0]),
+                     dtype=torch.float32, device=card)
+    xp = tds.pad_x(A, x)
+    before = dict(tds.LAUNCHES)
+    y1, y2 = tds.spmv_sdia_padded(A, xp), tds.spmv_sdia_padded(A, xp)
+    assert tds.LAUNCHES["sdia_bf16"] == before["sdia_bf16"] + 2
+    assert tds.LAUNCHES["sdia"] == before["sdia"]
+    assert y1.dtype == torch.float32 and torch.equal(y1, y2)
+    assert bool((y1[:A.L] == 0).all() and (y1[A.L + m.shape[0]:] == 0).all())
+    plain = tds.spmv_sdia_padded_ref(
+        dataclasses.replace(A, data=A.data.float()), xp)
+    assert _rel(y1, plain) <= 1e-6
+    with pytest.raises(TypeError, match="bfloat16"):
+        tds.spmv_sdia_padded(A, xp.double())
+    if name.startswith("laplacian"):
+        P = tds.pack_psdia(dia, period=48, data_dtype=torch.bfloat16)
+        yp = tds.spmv_psdia_padded(P, tds.pad_x(P, x))
+        assert _rel(yp, tds.spmv_psdia_padded_ref(P, tds.pad_x(P, x))) \
+            <= 1e-6
+
+
+@pytest.mark.cuda
+def test_solvers_on_card(card):
+    """The solver path on the card: ir_solve with a bf16 SDIA low plan
+    (K1 bf16) and a bf16 PSDIA low plan (K2), BiCGSTAB, GMRES, multicolor
+    SOR and MG-PCG on the screened 64 x 64 Poisson, each to a true
+    residual <= 1e-5 against scipy (float32: GMRES's own flag may read
+    False a hair above its 1e-6 tol, so the true residual decides)."""
+    import scipy.sparse as sp
+
+    from tpu_spmv_torch import solvers as T
+    from tpu_spmv_torch.ops.auto import plan_from_matrix
+
+    m = (utils.laplacian_2d(64) + sp.identity(64 * 64)).tocsr()
+    b64 = np.random.default_rng(8).random(m.shape[0])
+    b = torch.tensor(b64, dtype=torch.float32, device=card)
+    hi = plan_spmv(m, dtype=torch.float32, device=card)
+    lo = plan_spmv(m, dtype=torch.bfloat16, device=card)
+    dia = convert(COO.from_scipy(m, dtype=torch.float32, device=card), "dia")
+    hi_s = plan_from_matrix(tds.pack_sdia(dia), "dia_stream")
+    lo_s = plan_from_matrix(tds.pack_sdia(dia, data_dtype=torch.bfloat16),
+                            "dia_stream")
+
+    def true_rel(x):
+        x = x.cpu().double().numpy()
+        return np.linalg.norm(b64 - m @ x) / np.linalg.norm(b64)
+
+    before = tds.LAUNCHES["sdia_bf16"]
+    assert true_rel(T.ir_solve(hi_s, b, low=lo_s, inner_iters=20,
+                               tol=1e-6).x) <= 1e-5
+    assert tds.LAUNCHES["sdia_bf16"] > before
+    assert true_rel(T.ir_solve(hi, b, low=lo, inner_iters=20,
+                               tol=1e-6).x) <= 1e-5
+    for res in (T.bicgstab(hi, b, tol=1e-6), T.gmres(hi, b, tol=1e-6),
+                T.sor(hi, b, host_mat=m, tol=1e-6),
+                T.cg(hi, b, tol=1e-6,
+                     precond=T.mg_preconditioner((64, 64), shift=1.0))):
+        assert true_rel(res.x) <= 1e-5

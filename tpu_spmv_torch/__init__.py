@@ -16,7 +16,10 @@ reference package.
   :mod:`.bench.probes`).
 - **Reorder** (:mod:`.reorder`): RCM reordering, ``reorder_plan`` and the
   ``ReorderedOperator`` that permutes on the device.
-- **Solvers** (:mod:`.solvers`): CG, multi-RHS CG and distributed CG.
+- **Solvers** (:mod:`.solvers`): CG, multi-RHS CG, distributed CG,
+  BiCGSTAB, GMRES, LSQR, Chebyshev, Lanczos, power iteration, multicolor
+  SOR / SymGS, geometric multigrid and mixed-precision iterative
+  refinement on bf16-data plans.
 - **Dist** (:mod:`.dist`): row-partitioned sharding over a mesh of devices
   (one device may hold several shards), the distributed planner and its
   sharded kernels.

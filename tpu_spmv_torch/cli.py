@@ -6,10 +6,13 @@ formats (or the planner's pick with ``--auto``) and print the
 ``### <FMT> <MODE> GFLOPS`` protocol lines, each product checked against a
 float64 scipy oracle; optionally benchmark the SpMM with ``--spmm NRHS``
 (``### <FMT> SPMM<k> GFLOPS``), the planned distributed SpMV over ``--dist
-NDEV`` shards (``### CSR DIST<ndev> GFLOPS``) and solve with CG, one
-right-hand side or ``--solve-nrhs K`` at once (``cg_multi`` through the
-plan's SpMM).  MODE is ``GPU`` on the card and ``CPU`` on the CPU, with
-``-AUTO`` for the planner's pick.
+NDEV`` shards (``### CSR DIST<ndev> GFLOPS``) and run a solver on the plan
+with ``--solve``: CG (one right-hand side, or ``--solve-nrhs K`` at once
+through the plan's SpMM), Jacobi-, Chebyshev- or multigrid-preconditioned
+CG, mixed-precision iterative refinement (a bf16 plan inside, the float32
+plan's residual outside), BiCGSTAB, GMRES, multicolor Gauss-Seidel, power
+iteration or Lanczos.  MODE is ``GPU`` on the card and ``CPU`` on the CPU,
+with ``-AUTO`` for the planner's pick.
 
 Usage::
 
@@ -20,6 +23,11 @@ Usage::
     python -m tpu_spmv_torch --synthetic laplacian:4096 --auto --spmm 32
     python -m tpu_spmv_torch --synthetic laplacian:256 --auto --solve cg \
         --solve-nrhs 8
+    python -m tpu_spmv_torch --synthetic laplacian:2048 --auto --solve mgpcg
+    python -m tpu_spmv_torch --synthetic laplacian:1024 --auto --solve ir \
+        --inner-iters 100
+    python -m tpu_spmv_torch --synthetic laplacian:1024 --auto --solve gmres
+    python -m tpu_spmv_torch --synthetic laplacian:1024 --auto --solve lanczos
     python -m tpu_spmv_torch --synthetic laplacian:4096 --dist 1   # sharded
     python -m tpu_spmv_torch --synthetic laplacian:512 --dist 4 \
         --device cuda:0 --dist-strategy bdia     # sharded block diagonals
@@ -57,6 +65,104 @@ def _parse_synthetic(spec: str):
         raise SystemExit(
             f"unknown synthetic matrix {name!r}; valid: {sorted(gens)}")
     return gens[name](*args)
+
+
+#: the ``--solve`` choices (the reference's)
+SOLVERS = ["cg", "pcg", "chebcg", "mgpcg", "ir", "bicgstab", "gmres",
+           "power", "lanczos", "sor"]
+
+
+def _grid_shape(spec: str | None) -> tuple[int, ...]:
+    """The grid of a ``laplacian`` / ``laplacian3d`` synthetic spec (the
+    generators' defaults filled in), for ``--solve mgpcg``."""
+    name, _, argstr = (spec or "").partition(":")
+    dims = [int(a) for a in argstr.split(",") if a]
+    if name == "laplacian":
+        gx = dims[0] if dims else 256
+        return (gx, dims[1] if len(dims) > 1 else gx)
+    if name == "laplacian3d":
+        gx = dims[0] if dims else 32
+        gy = dims[1] if len(dims) > 1 else gx
+        return (gx, gy, dims[2] if len(dims) > 2 else gy)
+    raise SystemExit("tpu_spmv_torch: --solve mgpcg needs a grid operator "
+                     "(--synthetic laplacian:N / laplacian3d:N); for general "
+                     "SPD matrices use pcg or chebcg")
+
+
+def _solve(args, solve_plan, host_mat, dtype, device):
+    """Run ``--solve`` (one right-hand side) on ``solve_plan``: the result
+    line (a dict) and its text form."""
+    import torch
+
+    from .ops.auto import plan_spmv
+    from . import solvers
+
+    n = host_mat.shape[0]
+    t0 = time.perf_counter()
+
+    def wall():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return round(time.perf_counter() - t0, 3)
+
+    if args.solve == "power":
+        lam, _ = solvers.power_iteration(solve_plan, n=n, iters=200)
+        line = {"solver": "power", "strategy": solve_plan.strategy,
+                "eigenvalue": float(lam), "wall_s": wall()}
+        return line, (f"    power-iteration ({solve_plan.strategy}): "
+                      f"lambda_max = {float(lam):.6g} ({line['wall_s']}s)")
+    if args.solve == "lanczos":
+        lmin, lmax = solvers.eigsh_lanczos(solve_plan, k=80, n=n,
+                                           full_reorth=True)
+        line = {"solver": "lanczos", "strategy": solve_plan.strategy,
+                "eigenvalue_min": lmin, "eigenvalue_max": lmax,
+                "wall_s": wall()}
+        return line, (f"    lanczos(k=80, {solve_plan.strategy}): spectrum "
+                      f"in [{lmin:.6g}, {lmax:.6g}] ({line['wall_s']}s)")
+    rng_b = np.random.default_rng(args.seed + 1)
+    b = torch.tensor(rng_b.random(n), dtype=dtype, device=device)
+    precond = None
+    if args.solve == "mgpcg":
+        precond = solvers.mg_preconditioner(_grid_shape(args.synthetic))
+    if args.solve in ("pcg", "chebcg"):
+        # Jacobi from the host diagonal (packed strategy formats have no
+        # CSR view to take it from)
+        inv = solvers.safe_dinv(host_mat.diagonal().astype(np.float64),
+                                dtype=dtype, device=device)
+        precond = (solvers.chebyshev_preconditioner(solve_plan, dinv=inv,
+                                                    n=n)
+                   if args.solve == "chebcg" else (lambda r: inv * r))
+    if args.solve == "bicgstab":
+        res = solvers.bicgstab(solve_plan, b, tol=args.tol, maxiter=10_000)
+    elif args.solve == "gmres":
+        res = solvers.gmres(solve_plan, b, tol=args.tol, maxiter=10_000)
+    elif args.solve == "sor":
+        res = solvers.sor(solve_plan, b, host_mat=host_mat.tocsr(),
+                          tol=args.tol, maxiter=10_000)
+    elif args.solve == "ir":
+        # the bf16-data plan of the same matrix inside, a float32 plan's
+        # true residual outside (the bf16 kernels take float32 vectors)
+        hi = solve_plan
+        if dtype != torch.float32:
+            hi = plan_spmv(host_mat, dtype=torch.float32, device=device)
+            b = b.float()
+        low = plan_spmv(host_mat, dtype=torch.bfloat16, device=device)
+        ires = solvers.ir_solve(hi, b, low=low,
+                                inner_iters=args.inner_iters, maxiter=400,
+                                tol=args.tol)
+        res = solvers.CGResult(x=ires.x, iterations=ires.outer_iterations,
+                               residual_norm=ires.residual_norm,
+                               converged=ires.converged)
+    else:
+        res = solvers.cg(solve_plan, b, tol=args.tol, maxiter=10_000,
+                         precond=precond)
+    rel = float(res.residual_norm / torch.linalg.norm(b))
+    line = {"solver": args.solve, "strategy": solve_plan.strategy,
+            "iterations": int(res.iterations), "rel_residual": rel,
+            "converged": bool(res.converged), "wall_s": wall()}
+    return line, (f"    {args.solve.upper()} ({solve_plan.strategy}): "
+                  f"{line['iterations']} iters, rel residual {rel:.2e}, "
+                  f"converged={line['converged']} ({line['wall_s']}s)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -98,15 +204,26 @@ def build_parser() -> argparse.ArgumentParser:
                             "csr_allgather"],
                    help="force the distributed strategy (default: the "
                         "distributed planner's pick)")
-    p.add_argument("--solve", choices=["cg", "pcg"], default=None,
-                   help="solve A x = b with CG (pcg: Jacobi-preconditioned) "
-                        "and report iterations, residual and wall time")
+    p.add_argument("--solve", choices=SOLVERS, default=None,
+                   help="run a solver on the planned matrix and report "
+                        "iterations, residual and wall time: cg, pcg "
+                        "(Jacobi), chebcg (Chebyshev polynomial) and mgpcg "
+                        "(geometric multigrid, laplacian / laplacian3d "
+                        "synthetics only) need SPD; ir = mixed-precision "
+                        "iterative refinement (bf16-data inner CG, float32 "
+                        "true residual); bicgstab and gmres take general "
+                        "square matrices; power = dominant eigenvalue; "
+                        "lanczos = both spectrum ends of a symmetric "
+                        "matrix; sor = multicolor Gauss-Seidel")
     p.add_argument("--tol", type=float, default=1e-6,
                    help="solver convergence tolerance (with --solve)")
     p.add_argument("--solve-nrhs", type=int, metavar="K", default=0,
                    help="with --solve cg: solve K right-hand sides at once "
                         "through the plan's SpMM (k lockstep CG "
                         "recurrences)")
+    p.add_argument("--inner-iters", type=int, default=100,
+                   help="with --solve ir: bf16 inner-CG steps per "
+                        "refinement cycle")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the numpy generator of x and b")
     p.add_argument("--json", action="store_true",
@@ -245,7 +362,7 @@ def main(argv=None) -> int:
         if host_mat.shape[0] != host_mat.shape[1]:
             print("error: --solve needs a square matrix", file=sys.stderr)
             return 2
-        from .solvers import cg, cg_multi, safe_dinv
+        from .solvers import cg_multi
 
         solve_plan = plan or plan_spmv(host_mat, dtype=dtype, device=device)
         rng_b = np.random.default_rng(args.seed + 1)
@@ -269,29 +386,7 @@ def main(argv=None) -> int:
                    f"{line['rel_residual_max']:.2e}, "
                    f"converged={line['converged']} ({line['wall_s']}s)")
         else:
-            b = torch.tensor(rng_b.random(host_mat.shape[0]), dtype=dtype,
-                             device=device)
-            precond = None
-            if args.solve == "pcg":
-                # Jacobi from the host diagonal (packed strategy formats
-                # have no CSR view to take it from)
-                inv = safe_dinv(host_mat.diagonal().astype(np.float64),
-                                dtype=dtype, device=device)
-                precond = lambda r: inv * r
-            t0 = time.perf_counter()
-            res = cg(solve_plan, b, tol=args.tol, maxiter=10_000,
-                     precond=precond)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            wall = time.perf_counter() - t0
-            rel = float(res.residual_norm / torch.linalg.norm(b))
-            line = {"solver": args.solve, "strategy": solve_plan.strategy,
-                    "iterations": res.iterations, "rel_residual": rel,
-                    "converged": bool(res.converged),
-                    "wall_s": round(wall, 3)}
-            msg = (f"    {args.solve.upper()} ({solve_plan.strategy}): "
-                   f"{res.iterations} iters, rel residual {rel:.2e}, "
-                   f"converged={line['converged']} ({line['wall_s']}s)")
+            line, msg = _solve(args, solve_plan, host_mat, dtype, device)
         if args.json:
             results.append(line)
         else:

@@ -30,6 +30,16 @@
 // runs over the diagonals in their stored (ascending offset) order in one
 // thread: no atomics, bitwise reproducible.
 //
+// K1 on bf16 data (the TPU kernel with pack_sdia(data_dtype=bfloat16),
+// tpu_spmv/kernels/dia_stream.py:167-205 and :269, which writes
+// result_type(data, x)): the same kernel with the coefficients stored as
+// __nv_bfloat16 against a float32 xpad,
+//     ypad[k] = sum_d float(data_bf16[d, k]) * xpad_f32[k + off_d],
+// each coefficient widened with __bfloat162float (exact), then one fma per
+// diagonal in stored order from zero, in float32.  It moves
+// (2 * ndiags + 8) * npad bytes against the float32 K1's (4 * ndiags + 8)
+// * npad.
+//
 // K2 streams only x and y, so where x is read from decides it: it runs the
 // walks of psdia_walk.cuh on the padded row space, K8b's design without the
 // ring (the window source is xpad, zero outside [0, npad); the row mask
@@ -104,6 +114,7 @@
 // are written as exact zeros; one writer per output and no atomics, so
 // results are bitwise reproducible.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -122,8 +133,17 @@ inline int grid_for(int64_t npad) {
   return blocks < 1 ? 1 : static_cast<int>(blocks);
 }
 
-template <typename T>
-__global__ void sdia_spmv(const T* __restrict__ data,
+// a stored coefficient in the type of the sums: bf16 widens exactly
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+
+// T: the type of x, y and the sums; C: the stored coefficients' (T, or
+// __nv_bfloat16 against a float T)
+template <typename T, typename C = T>
+__global__ void sdia_spmv(const C* __restrict__ data,
                           const int* __restrict__ offsets, int ndiags,
                           const T* __restrict__ xpad, T* __restrict__ ypad,
                           int64_t npad) {
@@ -136,7 +156,8 @@ __global__ void sdia_spmv(const T* __restrict__ data,
     T acc = T(0);
     for (int d = 0; d < ndiags; ++d) {
       const int64_t j = k + s_off[d];
-      if (j >= 0 && j < npad) acc += data[d * npad + k] * xpad[j];
+      if (j >= 0 && j < npad)
+        acc = fma(widen(data[d * npad + k]), xpad[j], acc);
     }
     ypad[k] = acc;
   }
@@ -545,12 +566,12 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<0>();
 }
 
-template <typename T>
+template <typename T, typename C = T>
 int launch_sdia(const void* data, const void* offsets, int ndiags,
                 const void* xpad, void* ypad, int64_t npad, void* stream) {
-  sdia_spmv<T><<<grid_for(npad), kThreads, ndiags * sizeof(int),
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(data), static_cast<const int*>(offsets), ndiags,
+  sdia_spmv<T, C><<<grid_for(npad), kThreads, ndiags * sizeof(int),
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const C*>(data), static_cast<const int*>(offsets), ndiags,
       static_cast<const T*>(xpad), static_cast<T*>(ypad), npad);
   return static_cast<int>(cudaGetLastError());
 }
@@ -681,6 +702,14 @@ int tsp_sdia_spmv_f64(const void* data, const void* offsets, int ndiags,
                       const void* xpad, void* ypad, int64_t npad,
                       void* stream) {
   return launch_sdia<double>(data, offsets, ndiags, xpad, ypad, npad, stream);
+}
+
+// K1 on bf16 data: bf16 coefficients, float32 x, y and sums
+int tsp_sdia_spmv_bf16f32(const void* data, const void* offsets, int ndiags,
+                          const void* xpad, void* ypad, int64_t npad,
+                          void* stream) {
+  return launch_sdia<float, __nv_bfloat16>(data, offsets, ndiags, xpad, ypad,
+                                           npad, stream);
 }
 
 int tsp_psdia_spmv_f32(const void* pattern, const void* args,

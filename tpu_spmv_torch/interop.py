@@ -3,7 +3,8 @@
 In this system the "weights" are the packed operators.  The port keeps the
 reference's dataclass fields for COO, CSR, CSC, ELL, DIA, BSR, BDIA, SDIA
 and PSDIA, so an operator carries over field by field: array leaves through numpy, static
-fields as they are.  A reference ``PackedELL`` carries over through the
+fields as they are (a bfloat16 leaf, the reference's bf16 SDIA data or
+PSDIA pattern, bit for bit as ``torch.bfloat16``).  A reference ``PackedELL`` carries over through the
 logical matrix its tiles hold (the arithmetic of ``PackedELL.to_coo``),
 repacked as the port's sliced ELL.  A reference ``GPCSR`` or
 ``GPCSRChunked`` holds only routed values, so it does not carry over:
@@ -62,7 +63,13 @@ _STRATEGIES = ("pdia_stream", "dia_stream", "dia", "bdia", "csr",
 
 
 def _leaf(value, device, dtype) -> torch.Tensor:
-    t = torch.from_numpy(np.array(value))
+    arr = np.array(value)
+    if arr.dtype.name == "bfloat16":
+        # an ml_dtypes bfloat16 array, which torch.from_numpy refuses:
+        # carried bit for bit through its 16-bit words
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
     if t.is_floating_point():
         return t.to(device=device, dtype=dtype or t.dtype)
     if t.dtype == torch.bool:            # ELL's slot mask

@@ -47,6 +47,7 @@ _U32 = ctypes.c_uint32
 _SIGNATURES = {
     "tsp_sdia_spmv_f32": [_P, _P, _I, _P, _P, _I64, _P],
     "tsp_sdia_spmv_f64": [_P, _P, _I, _P, _P, _I64, _P],
+    "tsp_sdia_spmv_bf16f32": [_P, _P, _I, _P, _P, _I64, _P],
     "tsp_psdia_spmv_f32": [_P] * 4 + [_I64] * 3 + [_P],
     "tsp_psdia_spmv_f64": [_P] * 4 + [_I64] * 3 + [_P],
     "tsp_gpr_spmv_f32": [_P] * 6 + [_I64] * 5 + [_P],

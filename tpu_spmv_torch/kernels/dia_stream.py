@@ -55,6 +55,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+import weakref
 
 import numpy as np
 import torch
@@ -84,7 +85,8 @@ _DATA_BLOCK_BUDGET = 3 << 20
 _RHS_PANEL_BUDGET = 8 << 20
 #: kernel launches by the wrappers on CUDA tensors (plain-version calls on
 #: CPU tensors are not counted)
-LAUNCHES = {"sdia": 0, "psdia": 0, "sdia_spmm": 0, "psdia_spmm": 0}
+LAUNCHES = {"sdia": 0, "sdia_bf16": 0, "psdia": 0, "sdia_spmm": 0,
+            "psdia_spmm": 0}
 #: the kernels keep the offsets in 48 KB of shared memory
 _MAX_DIAGS = 12288
 #: K3a and K3b (the same constants in ``csrc/dia_stream.cu``):
@@ -203,16 +205,25 @@ def supports_sdia(offsets, shape, rb: int | None = None, *,
     return max(abs(int(o)) for o in offsets) <= rb
 
 
+def _coef_dtype(dia: DIA, data_dtype) -> torch.dtype:
+    return dia.data.dtype if data_dtype is None else data_dtype
+
+
 def pack_sdia(dia: DIA, rb: int | None = None, *, nrhs: int = 1,
-              device=None) -> SDIA:
+              device=None, data_dtype=None) -> SDIA:
     """Lay a DIA matrix out in padded row space on ``device`` (default:
     the DIA's device); ``rb=None`` picks the tile with :func:`_auto_rb`,
     for the ``nrhs`` the pack will mostly serve (the reference's rule, so
-    the pack equals the reference's for the same arguments)."""
+    the pack equals the reference's for the same arguments).
+
+    ``data_dtype`` (``torch.bfloat16``) stores the diagonals in a narrower
+    type, its itemsize picking the tile as in the reference; the products
+    keep x, y and the sums in x's type (K1's bf16-data form)."""
     nrow, _ = dia.shape
+    dtype = _coef_dtype(dia, data_dtype)
     if rb is None:
         rb = _auto_rb(dia.ndiags, dia.offsets, nrow, nrhs=nrhs,
-                      itemsize=dia.data.element_size())
+                      itemsize=dtype.itemsize)
     if rb is None or not supports_sdia(dia.offsets, dia.shape, rb):
         raise ValueError(
             f"sdia needs a square matrix with a feasible row tile "
@@ -223,7 +234,8 @@ def pack_sdia(dia: DIA, rb: int | None = None, *, nrhs: int = 1,
     L = _roundup(lo, rb) if lo else 0
     U = _roundup(hi, rb) if hi else 0
     npad = L + _roundup(nrow, rb) + U
-    data = F.pad(dia.data.to(device), (L, npad - L - nrow)).contiguous()
+    data = F.pad(dia.data.to(device=device, dtype=dtype),
+                 (L, npad - L - nrow)).contiguous()
     return SDIA(data=data, offsets=tuple(dia.offsets), shape=dia.shape,
                 nnz=dia.nnz, L=L, rb=rb)
 
@@ -239,7 +251,8 @@ def detect_period(dia: DIA) -> int | None:
     its offsets."""
     if dia.data.device.type != "cpu":
         return None
-    data = dia.data.numpy()
+    data = (dia.data.float() if dia.data.dtype == torch.bfloat16
+            else dia.data).numpy()         # bf16 widens exactly
     nrow = dia.shape[0]
     cands = [1] + sorted({abs(int(o)) for o in dia.offsets} - {0, 1})
     for P in cands:
@@ -275,10 +288,13 @@ def _periodic(data: torch.Tensor, pat: torch.Tensor, offsets,
 
 
 def pack_psdia(dia: DIA, period: int | None = None, *, rb: int | None = None,
-               nrhs: int = 1, verify: bool = True, device=None) -> PSDIA:
+               nrhs: int = 1, verify: bool = True, device=None,
+               data_dtype=None) -> PSDIA:
     """Build the periodic streaming operator on ``device`` (default: the
     DIA's device).  ``rb=None`` picks the reference's tile for ``nrhs``
-    right-hand sides.
+    right-hand sides; ``data_dtype`` (``torch.bfloat16``) stores the
+    pattern in a narrower type, whose itemsize picks the tile as in the
+    reference.
 
     ``period=None`` detects it on host data (:func:`detect_period`).  With
     ``verify=True`` the claim is checked against every in-range entry, on
@@ -305,7 +321,7 @@ def pack_psdia(dia: DIA, period: int | None = None, *, rb: int | None = None,
         unit = P * 1024 // math.gcd(P, 1024)
         if unit > RB_MAX:
             raise ValueError("period too large for any feasible row tile")
-        isz = dia.data.element_size()
+        isz = _coef_dtype(dia, data_dtype).itemsize
         cap = min(RB_MAX, max(_pattern_budget(nd) // (isz * nd), 1))
         if nrhs > 1:
             cap = min(cap, max(_RHS_PANEL_BUDGET // (4 * nrhs), 1))
@@ -326,7 +342,8 @@ def pack_psdia(dia: DIA, period: int | None = None, *, rb: int | None = None,
     pat = dia.data[:, k0 * P:(k0 + 1) * P]
     if verify and not _periodic(dia.data, pat, offsets, nrow):
         raise ValueError(f"diagonals are not periodic with period {P}")
-    pattern = pat.to(device).repeat(1, rb // P).contiguous()
+    pattern = pat.to(device=device, dtype=_coef_dtype(dia, data_dtype)
+                     ).repeat(1, rb // P).contiguous()
     L = _roundup(lo, rb) if lo else 0
     return PSDIA(pattern=pattern, offsets=offsets, shape=dia.shape,
                  nnz=dia.nnz, L=L, period=P, rb=rb)
@@ -360,23 +377,32 @@ def _shift(xpad: torch.Tensor, off: int) -> torch.Tensor:
     return out
 
 
+def _in_type_of(coef: torch.Tensor, xpad: torch.Tensor) -> torch.Tensor:
+    """The coefficients in x's type: bf16 data widen exactly to float32."""
+    return coef if coef.dtype == xpad.dtype else coef.to(xpad.dtype)
+
+
 def spmv_sdia_padded_ref(A: SDIA, xpad: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K1: per-diagonal zero-filled shifts of
-    ``xpad`` times the diagonal data, summed in ascending offset order.
-    A leading axis of ``xpad`` (the SpMM's RHS axis) broadcasts."""
-    acc = A.data[0] * _shift(xpad, A.offsets[0])
+    ``xpad`` times the diagonal data (bf16 data widened to x's type),
+    summed in ascending offset order.  A leading axis of ``xpad`` (the
+    SpMM's RHS axis) broadcasts."""
+    data = _in_type_of(A.data, xpad)
+    acc = data[0] * _shift(xpad, A.offsets[0])
     for d, off in enumerate(A.offsets[1:], start=1):
-        acc = acc + A.data[d] * _shift(xpad, off)
+        acc = acc + data[d] * _shift(xpad, off)
     return acc
 
 
 def spmv_psdia_padded_ref(A: PSDIA, xpad: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K2: the same sum with the pattern tiled
-    over the row tiles, then the row-validity mask."""
+    """Plain PyTorch version of K2: the same sum with the pattern (a bf16
+    pattern widened to x's type) tiled over the row tiles, then the
+    row-validity mask."""
     reps = A.npad // A.rb
-    acc = A.pattern[0].repeat(reps) * _shift(xpad, A.offsets[0])
+    pattern = _in_type_of(A.pattern, xpad)
+    acc = pattern[0].repeat(reps) * _shift(xpad, A.offsets[0])
     for d, off in enumerate(A.offsets[1:], start=1):
-        acc = acc + A.pattern[d].repeat(reps) * _shift(xpad, off)
+        acc = acc + pattern[d].repeat(reps) * _shift(xpad, off)
     rows = torch.arange(A.npad, device=xpad.device)
     valid = (rows >= A.L) & (rows < A.L + A.shape[0])
     return torch.where(valid, acc, torch.zeros_like(acc))
@@ -405,13 +431,17 @@ def _offsets_on(offsets: tuple[int, ...], device: torch.device):
 
 
 def _check(name: str, coef: torch.Tensor, A, xpad: torch.Tensor,
-           width: int, rhs_axis: bool = False) -> None:
+           width: int, rhs_axis: bool = False, bf16_data: bool = False
+           ) -> None:
     """Raise on anything the kernels do not take: ``xpad`` is ``[npad]``,
-    or ``[nrhs, npad]`` with ``rhs_axis``."""
+    or ``[nrhs, npad]`` with ``rhs_axis``; the coefficients are in x's
+    type, or (``bf16_data``: the SpMVs K1 and K2) bfloat16 against a
+    float32 x."""
     if xpad.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: x must be float32 or float64, "
                         f"got {xpad.dtype}")
-    if coef.dtype != xpad.dtype:
+    mixed = coef.dtype == torch.bfloat16 and xpad.dtype == torch.float32
+    if coef.dtype != xpad.dtype and not (bf16_data and mixed):
         raise TypeError(f"{name}: matrix is {coef.dtype} but x is "
                         f"{xpad.dtype}")
     if coef.device != xpad.device:
@@ -435,17 +465,21 @@ def spmv_sdia_padded(A: SDIA, xpad: torch.Tensor) -> torch.Tensor:
     """``ypad = A @ xpad`` in padded row space (``[npad] -> [npad]``,
     chainable: the pads stay zero because the pad rows hold zero data).
 
-    CUDA tensor: launches K1 (``sdia_spmv`` in ``csrc/dia_stream.cu``);
-    CPU tensor: :func:`spmv_sdia_padded_ref`."""
-    _check("spmv_sdia_padded", A.data, A, xpad, A.npad)
+    CUDA tensor: launches K1 (``sdia_spmv`` in ``csrc/dia_stream.cu``; on
+    bfloat16 data against a float32 x its bf16-data form, instantiated
+    ``<float, __nv_bfloat16>``, counted apart); CPU tensor:
+    :func:`spmv_sdia_padded_ref`."""
+    _check("spmv_sdia_padded", A.data, A, xpad, A.npad, bf16_data=True)
     if xpad.is_cpu:
         return spmv_sdia_padded_ref(A, xpad)
+    bf16 = A.data.dtype == torch.bfloat16
     y = torch.empty_like(xpad)
     offs = _offsets_on(A.offsets, xpad.device)
-    _build.launcher("sdia_spmv", xpad.dtype)(
-        xpad, A.data.data_ptr(), offs.data_ptr(), A.ndiags, xpad.data_ptr(),
-        y.data_ptr(), A.npad)
-    LAUNCHES["sdia"] += 1
+    launch = (_build.launcher("sdia_spmv_bf16f32") if bf16
+              else _build.launcher("sdia_spmv", xpad.dtype))
+    launch(xpad, A.data.data_ptr(), offs.data_ptr(), A.ndiags,
+           xpad.data_ptr(), y.data_ptr(), A.npad)
+    LAUNCHES["sdia_bf16" if bf16 else "sdia"] += 1
     return y
 
 
@@ -458,8 +492,11 @@ def spmv_psdia_padded(A: PSDIA, xpad: torch.Tensor) -> torch.Tensor:
     ``csrc/dia_stream.cu``) along the walk :func:`psdia_walk_plan` picks for
     the pack's offsets, period and value type, or, on few tiles
     (:func:`_direct_tiles`), one thread a row (``psdia_walk_direct``); CPU
-    tensor: :func:`spmv_psdia_padded_ref`."""
-    _check("spmv_psdia_padded", A.pattern, A, xpad, A.rb)
+    tensor: :func:`spmv_psdia_padded_ref`.  A bfloat16 pattern against a
+    float32 x runs the float32 kernel on the pattern widened once
+    (:func:`_widened`): the widening is exact, so the products are those
+    of bf16 coefficients summed in float32."""
+    _check("spmv_psdia_padded", A.pattern, A, xpad, A.rb, bf16_data=True)
     if xpad.is_cpu:
         return spmv_psdia_padded_ref(A, xpad)
     _, args = _walk_launch(A.offsets, A.period, A.rb, xpad.element_size(),
@@ -472,10 +509,30 @@ def _psdia_launch(A: PSDIA, xpad: torch.Tensor, args: int) -> torch.Tensor:
     (:func:`_walk_args`) on checked CUDA operands and count it."""
     y = torch.empty_like(xpad)
     _build.launcher("psdia_spmv", xpad.dtype)(
-        xpad, A.pattern.data_ptr(), args, xpad.data_ptr(), y.data_ptr(),
-        A.npad, A.L, A.shape[0])
+        xpad, _widened(A.pattern).data_ptr(), args, xpad.data_ptr(),
+        y.data_ptr(), A.npad, A.L, A.shape[0])
     LAUNCHES["psdia"] += 1
     return y
+
+
+#: id(pattern) -> (weak reference to it, its version, the float32 copy)
+_WIDE: dict[int, tuple] = {}
+
+
+def _widened(pattern: torch.Tensor) -> torch.Tensor:
+    """A bfloat16 pattern as float32, made once per pattern tensor (and
+    again only after an in-place change); other patterns as they are.  The
+    pattern is ``ndiags x rb`` values, so the copy is a few MB at most."""
+    if pattern.dtype != torch.bfloat16:
+        return pattern
+    key = id(pattern)
+    hit = _WIDE.get(key)
+    if hit is not None and hit[0]() is pattern and hit[1] == pattern._version:
+        return hit[2]
+    wide = pattern.float()
+    _WIDE[key] = (weakref.ref(pattern, lambda _, k=key: _WIDE.pop(k, None)),
+                  pattern._version, wide)
+    return wide
 
 
 def _spmv_psdia_launch(A: PSDIA, xpad: torch.Tensor,

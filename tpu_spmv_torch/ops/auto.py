@@ -247,17 +247,39 @@ def general_strategy(row_counts: np.ndarray, nnz: int, itemsize: int) -> str:
             else "gpr")
 
 
+def _no_bf16(strategy: str) -> ValueError:
+    return ValueError(
+        f"plan_spmv(dtype=bfloat16): the planner picks the {strategy!r} "
+        f"arm, which has no bfloat16-coefficient kernel in the port (only "
+        f"the streaming-DIA arms, pdia_stream and dia_stream, take bf16 "
+        f"data); plan in float32")
+
+
 def plan_spmv(mat, *, dtype=None, device="cuda") -> SpmvPlan:
     """Analyze ``mat`` (scipy or a port format) on the host and return the
     best-strategy plan with its operator on ``device`` (default: the
     card).
 
     ``dtype=None`` keeps the matrix's own value type.  Float64 runs
-    natively through the kernels."""
-    hc = _host_coo(mat, dtype)
+    natively through the kernels.  ``dtype=torch.bfloat16`` stores the
+    coefficients in bf16 (the values rounded first, as the reference
+    casts its host COO) for float32 vectors: the streaming arms take it
+    (K1's bf16-data form, K2 on its pattern widened once), with the tile
+    picked for 2-byte coefficients; the planner's other arms raise a
+    ``ValueError`` that names the arm.  Duplicate entries are summed
+    after the rounding, exactly, then rounded again (the reference sums
+    them in bf16)."""
+    bf16 = dtype in (torch.bfloat16, "bfloat16")
+    hc = _host_coo(mat, None if bf16 else dtype)
+    if bf16:
+        hc = dataclasses.replace(
+            hc, data=hc.data.to(torch.bfloat16).to(torch.float32))
     stats = _stats(hc)
     device = torch.device(device)
+    data_dtype = torch.bfloat16 if bf16 else None
     if stats.nnz == 0:
+        if bf16:
+            raise _no_bf16("csr")
         return plan_from_matrix(CSR.from_coo(hc).to(device), "csr", stats)
     dia_storage = stats.ndiags * stats.nrow
     bdia_storage = stats.nblockdiags_8 * (-(-stats.nrow // 8)) * 64
@@ -273,23 +295,34 @@ def plan_spmv(mat, *, dtype=None, device="cuda") -> SpmvPlan:
                 # detect_period already proved periodicity on this data
                 return plan_from_matrix(
                     dia_stream.pack_psdia(hdia, period=period, verify=False,
-                                          device=device),
+                                          device=device,
+                                          data_dtype=data_dtype),
                     "pdia_stream", stats)
             except ValueError:
                 pass
-        if dia_stream.supports_sdia(hoffs, hc.shape,
-                                    itemsize=hdata.dtype.itemsize):
-            return plan_from_matrix(dia_stream.pack_sdia(hdia, device=device),
-                                    "dia_stream", stats)
+        itemsize = 2 if bf16 else hdata.dtype.itemsize
+        if dia_stream.supports_sdia(hoffs, hc.shape, itemsize=itemsize):
+            return plan_from_matrix(
+                dia_stream.pack_sdia(hdia, device=device,
+                                     data_dtype=data_dtype),
+                "dia_stream", stats)
+        if bf16:
+            raise _no_bf16("dia")
         return plan_from_matrix(hdia.to(device), "dia", stats)
     if bdia_storage <= 4 * stats.nnz:
+        if bf16:
+            raise _no_bf16("bdia")
         # block-banded: the gather-free block-diagonal contraction
         return plan_from_matrix(BDIA.from_coo(hc, block_size=8).to(device),
                                 "bdia", stats)
     if not gpr.supports(hc.shape, stats.nnz):
+        if bf16:
+            raise _no_bf16("csr")
         return plan_from_matrix(CSR.from_coo(hc).to(device), "csr", stats)
     counts = np.bincount(hc.row.numpy(), minlength=stats.nrow)
     strategy = general_strategy(counts, stats.nnz, hc.dtype.itemsize)
+    if bf16:
+        raise _no_bf16(strategy)
     host = mat if hasattr(mat, "tocsr") else hc.to_scipy()
     pack = gpr.pack_gpr if strategy == "gpr" else ell_packed.pack_ell
     return plan_from_matrix(pack(host, dtype=hc.dtype, device=device),

@@ -2,8 +2,8 @@
 
 Counterpart of ``tpu_spmv/solvers/cg.py``: :func:`cg` (with the
 true-residual restart mode), the fixed-iteration :func:`cg_runner` /
-:func:`cg_runner_k` for timing and serving loops, and the Jacobi
-preconditioner.  Loops are Python loops over tensors.  Plans with a padded
+:func:`cg_runner_k` for timing and serving loops, the Jacobi
+preconditioner and :func:`power_iteration`.  Loops are Python loops over tensors.  Plans with a padded
 row space (the streaming-DIA strategies) iterate in it through
 ``SpmvPlan.solver_space``: encode once, loop, decode once.
 """
@@ -19,7 +19,8 @@ from ..formats import CSR, convert
 from ..ops.spmv import spmv
 
 __all__ = ["CGResult", "cg", "cg_runner", "cg_runner_k",
-           "jacobi_preconditioner", "safe_dinv", "safe_dinv_host"]
+           "jacobi_preconditioner", "power_iteration", "safe_dinv",
+           "safe_dinv_host"]
 
 
 class CGResult(NamedTuple):
@@ -45,6 +46,45 @@ def _solver_space(A):
     if hasattr(A, "solver_space"):
         return A.solver_space()
     return _identity, _as_matvec(A), _identity
+
+
+def _size(A, n: int | None, who: str) -> int:
+    """The operator's row count: its ``shape``, its plan's matrix's, or
+    ``n`` (needed for a matvec closure)."""
+    for obj in (A, getattr(A, "matrix", None)):
+        if obj is not None and hasattr(obj, "shape"):
+            return int(obj.shape[0])
+    if n is None:
+        raise ValueError(f"{who} needs n= for matvec closures")
+    return int(n)
+
+
+def _vector_type(A, dtype, device) -> tuple[torch.dtype, torch.device]:
+    """The type and device of the vectors an operator takes: the given
+    ones, else its values' (float32 for bfloat16 coefficients) and its
+    tensors' device; a matvec closure gets float32 on the card."""
+    M = getattr(A, "matrix", A)
+    if dtype is None:
+        dtype = getattr(M, "dtype", None)
+        if dtype not in (torch.float32, torch.float64):
+            dtype = torch.float32
+    if device is None:
+        try:
+            device = M.device
+        except (AttributeError, TypeError):
+            device = "cuda"
+    return dtype, torch.device(device)
+
+
+def _draw(n: int, generator, dtype, device) -> torch.Tensor:
+    """``n`` uniform values in [0, 1) from ``generator``, drawn on its
+    device and moved to ``device``.  The default, a CPU generator seeded
+    0, draws on the host, so its values do not depend on the device; a
+    generator on the card draws there."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return torch.rand(n, generator=generator, dtype=dtype,
+                      device=generator.device).to(device)
 
 
 def _spaces(A, precond):
@@ -215,3 +255,26 @@ def cg_runner_k(A, *, precond: Callable | None = None,
                             bnorm, min=1e-300))
 
     return run
+
+
+def power_iteration(A, *, generator: torch.Generator | None = None,
+                    iters: int = 50, n: int | None = None, dtype=None,
+                    device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dominant eigenvalue and eigenvector of ``A`` by ``iters`` power
+    steps from a uniform random start: ``(lam, v)`` with the Rayleigh
+    quotient ``lam = v . A v``.
+
+    ``generator`` (a ``torch.Generator``; default a CPU one seeded 0)
+    takes the place of the reference's ``key``; ``n`` is needed for matvec closures, whose
+    vectors are float32 on the card unless ``dtype`` / ``device`` say
+    otherwise.  Plans iterate in their padded space.  No host
+    synchronisation inside the loop."""
+    enc, matvec, dec = _solver_space(A)
+    n = _size(A, n, "power_iteration")
+    dtype, device = _vector_type(A, dtype, device)
+    v = enc(_draw(n, generator, dtype, device))
+    v = v / _norm(v)
+    for _ in range(iters):
+        w = matvec(v)
+        v = w / torch.clamp(_norm(w), min=1e-300)
+    return torch.dot(v, matvec(v)), dec(v)

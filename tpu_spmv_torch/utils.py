@@ -27,21 +27,30 @@ __all__ = ["laplacian_2d", "laplacian_3d", "random_sparse", "banded",
 
 @functools.cache
 def ensure_native_built() -> bool:
-    """Build ``native/`` (the C++ MatrixMarket parser) on first use when
-    its library is missing.  Best-effort: a failure leaves the pure-Python
-    parser in place."""
+    """Build ``native/`` (the C++ MatrixMarket parser and the router
+    library whose greedy colouring the relaxation solvers use) on first
+    use when a library is missing.  Where the compiler cannot link
+    OpenMP (a g++ without libgomp), the router alone is built without
+    it: it calls no OpenMP function, so its pragmas just run serially.
+    Best-effort: a failure leaves the pure-Python parser and colouring in
+    place."""
     root = os.path.join(os.path.dirname(__file__), "..", "native")
-    target = os.path.join(root, "libmmio_fast.so")
+    targets = [os.path.join(root, name)
+               for name in ("libmmio_fast.so", "libpermute_router.so")]
     if not os.path.exists(os.path.join(root, "Makefile")):
         return False
-    if os.path.exists(target):
+    if all(map(os.path.exists, targets)):
         return True
-    try:
-        subprocess.run(["make", "-C", root], check=True, timeout=120,
-                       stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
-    except (OSError, subprocess.SubprocessError):
-        return False
-    return os.path.exists(target)
+    for args in ([], ["CXXFLAGS=-O3 -march=native -fPIC",
+                      "libpermute_router.so"]):
+        try:
+            subprocess.run(["make", "-C", root, *args], check=True,
+                           timeout=120, stdout=subprocess.DEVNULL,
+                           stderr=subprocess.DEVNULL)
+            break
+        except (OSError, subprocess.SubprocessError):
+            continue
+    return all(map(os.path.exists, targets))
 
 
 def laplacian_2d(nx: int, ny: int | None = None, dtype=np.float64) -> sp.csr_matrix:
