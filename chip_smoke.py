@@ -148,6 +148,32 @@ Phases, in order; any failure raises and the script exits non-zero:
       random-valued ``banded(1000000, 5)``, against its plain version (2e-5
       relative) and scipy float64 of the f32 matrix (printed as the
       reference's ``bf16_data_rel_err``);
+   h. bf16 coefficients on the general arm, refinement, SpGEMM and
+      checkpoints: ``plan_spmv(dtype=torch.bfloat16)`` of 4b's
+      ``random_sparse(2000000, 2000000, 8e-6)`` (``gpr``) and shuffled
+      2048x2048 Poisson (``pallas_ell``), and ``pack_ell(dtype=bfloat16)``
+      of the Poisson in its natural order, each product within 2e-5 of
+      scipy float64 on the bf16-rounded matrix and within 2e-2 of the
+      unrounded one (``bf16_data_rel_err``); ``ir_solve`` with a float32
+      plan outside and a bf16 plan inside (32 inner steps) on 4b's
+      P + P^T + diag (GPR) and on the shuffled Poisson screened, A + I
+      (sliced ELL), each to a true residual <= 1e-5 by scipy float64;
+      ``spgemm(A, A)`` of 4a's Poisson as DIA (13 diagonals), packed with
+      ``pack_sdia`` and run by K1 against K2(K2(x)) within 2e-5; then, the
+      counters read, ``gpr_spmv`` and ``ell_spmv`` on bf16 data
+      (``tsp_gpr_spmv_bf16f32``, ``tsp_ell_spmv_bf16f32``) bitwise their
+      plain versions and reproducible, timed (CUDA events, median) beside
+      the f32 kernel of the same matrix, their bounds, plain versions and
+      cuSPARSE ``torch.mv`` on bf16 data where torch has it;
+      ``spgemm_csr`` on ``random_sparse(100000, 100000, 7e-5)`` squared
+      (f32) and ``bus420.mtx`` squared (f64) against scipy (2e-5, 1e-12,
+      the pattern equal), run twice for the bits, the host symbolic
+      seconds beside the device numeric ms; ``save_matrix`` /
+      ``load_matrix`` of 4b's power-law GPR plan and 4a's PSDIA plan, each
+      reloaded product bitwise the original's, pack, save and load
+      seconds; the CLI twice as a subprocess, ``--synthetic
+      powerlaw:400000,13 --auto --dtype bfloat16 --cache DIR`` (the second
+      run reloads the pack and writes a ``--profile`` trace);
 5. the probe path first (``run_probes``: ``copy_scale`` and torch's
    ``copy_`` over 256 MiB, whose higher rate is the roofline's peak, the
    launch probe once and four in a row, ``segsum8`` and every
@@ -218,6 +244,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -332,11 +359,13 @@ def ptxas_usage(sources: dict) -> list[str]:
                     # the template arguments follow the name in the mangling
                     # (I ... E; a type letter, or Li<n>E for an int)
                     seg = entry.split(f"{name}I", 1)[1]
-                    toks = re.findall(r"Li(-?\d+)E|Lb([01])E|([fdhtjmil])",
+                    toks = re.findall(r"(\d+__nv_bfloat16)|Li(-?\d+)E|"
+                                      r"Lb([01])E|([fdhtjmil])",
                                       seg[:seg.index("EEv")])
                     args = ", ".join(
-                        _MANGLED.get(t, n) if not b
-                        else ("false", "true")[int(b)] for n, b, t in toks)
+                        "bf16" if h else _MANGLED.get(t, n) if not b
+                        else ("false", "true")[int(b)]
+                        for h, n, b, t in toks)
                     lines.append(f"{name}<{args}>: "
                                  f"{' '.join(line.split(':', 1)[-1].split())}")
     return lines
@@ -590,6 +619,7 @@ def main() -> int:
                                                spmm_bytes, spmv_bytes,
                                                tile_permute_bytes)
     from tpu_spmv_torch.formats import COO, DIA, convert
+    from tpu_spmv_torch.io.checkpoint import load_matrix, save_matrix
     from tpu_spmv_torch.kernels import _build
     from tpu_spmv_torch.kernels import dia_stream as ds
     from tpu_spmv_torch.kernels import dist_stream as dst
@@ -600,6 +630,8 @@ def main() -> int:
                                          plan_spmv)
     from tpu_spmv_torch.ops import spmm, spmv
     from tpu_spmv_torch.ops.shift import shift_diagonal
+    from tpu_spmv_torch.ops.spgemm import (_numeric, _symbolic, spgemm,
+                                           spgemm_csr)
     from tpu_spmv_torch.ops.spmm import spmm_coo
     from tpu_spmv_torch.reorder import rcm_permutation, reorder_plan
     from tpu_spmv_torch.solvers import (bicgstab, cg, cg_multi,
@@ -975,6 +1007,7 @@ def main() -> int:
     torch.cuda.synchronize()
     plan_s = time.perf_counter() - t0
     P = plan.matrix
+    pack_s = {"4096^2 PSDIA": plan_s}
     print(f"plan_spmv: strategy={plan.strategy} rb={P.rb} "
           f"period={getattr(P, 'period', None)} npad={P.npad} "
           f"(host planning {plan_s:.2f} s)")
@@ -1095,6 +1128,7 @@ def main() -> int:
               f"{counts.max()} -> {p.strategy} ({shape}); plan(x) vs scipy "
               f"f64 rel err {relg:.2e} (host planning {plan_s:.2f} s)")
         gplans[name], gx[name] = p, xg
+        pack_s[name] = plan_s
 
     plan_spd = plan_spmv(spd, dtype=torch.float32, device=dev)
     require(plan_spd.strategy in ("gpr", "pallas_ell"),
@@ -2025,6 +2059,273 @@ def main() -> int:
     for k in ("psdia", "sdia", "sdia_bf16"):
         require(g_launches.get(k, 0) > 0, f"{k} never launched in 4g")
 
+    # -- 4h. bf16 general plans, refinement, SpGEMM and checkpoints ---------
+    print(f"== 4h. bf16 coefficients on the general arm, mixed-precision "
+          f"refinement on general matrices, SpGEMM and checkpoints "
+          f"(counters zeroed; {card})")
+    t4h = time.perf_counter()
+
+    def bf16_rounded(m):
+        """scipy CSR of ``m``'s values rounded to bf16 as the planner
+        rounds them (held as float64)."""
+        r = m.tocsr().astype(np.float64)
+        r.data = torch.from_numpy(r.data).to(torch.bfloat16).double().numpy()
+        return r
+
+    lap_n = utils.laplacian_2d(2048)
+    zero(*counters)
+    # the main path: plan_spmv(dtype=bfloat16) -> plan(x) on the general
+    # operands (the natural-order Poisson with sliced ELL forced, as phase
+    # 5's K4), then ir_solve with a bf16 low plan, then A^2 by spgemm
+    h16 = {}
+    for name, m, want in (
+            ("random_sparse(2000000,8e-6)",
+             general["random_sparse(2000000,8e-6)"], "gpr"),
+            ("shuffled laplacian_2d(2048)",
+             general["shuffled laplacian_2d(2048)"], "pallas_ell"),
+            ("natural laplacian_2d(2048) (forced)", lap_n, "pallas_ell")):
+        t0 = time.perf_counter()
+        if name.startswith("natural"):
+            p16 = plan_from_matrix(ell.pack_ell(
+                m, dtype=torch.bfloat16, device=dev), "pallas_ell")
+        else:
+            p16 = plan_spmv(m, dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        ps = time.perf_counter() - t0
+        require(p16.strategy == want, f"bf16 {name} planned to "
+                f"{p16.strategy}, not {want}")
+        A16 = p16.matrix
+        require(A16.dtype == torch.bfloat16, f"bf16 {name}: {A16.dtype}")
+        xh = gx.get(name)
+        if xh is None:
+            xh = torch.tensor(rng.random(m.shape[1]), dtype=torch.float32,
+                              device=dev)
+        y16 = p16(xh)
+        r16 = bf16_rounded(m)
+        rel_r = verify_against_oracle(A16, xh, y16, oracle=r16, rounded=True)
+        rel_u = verify_against_oracle(A16, xh, y16, oracle=m)
+        print(f"  plan_spmv(dtype=bfloat16) {name}: {want}, y "
+              f"{y16.dtype} | vs scipy f64 of the bf16-rounded matrix "
+              f"{rel_r:.2e} (gate 2e-5) | bf16_data_rel_err (unrounded) "
+              f"{rel_u:.3e} (gate 2e-2) | host planning {ps:.2f} s")
+        h16[name] = (m, A16, xh)
+        del y16, r16
+
+    # mixed-precision refinement on general matrices: a float32 plan's
+    # true residual, a bf16 plan inside
+    def ir_general(label, m, want):
+        hi = plan_spmv(m, dtype=torch.float32, device=dev)
+        lo = plan_spmv(m, dtype=torch.bfloat16, device=dev)
+        require(hi.strategy == lo.strategy == want,
+                f"{label}: plans {hi.strategy}/{lo.strategy}")
+        b64 = m @ rng.random(m.shape[0])
+        bt = torch.tensor(b64, dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ires = ir_solve(hi, bt, low=lo, inner_iters=32, maxiter=60,
+                        tol=1e-6)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        tr = float(np.linalg.norm(b64 - m @ ires.x.cpu().double().numpy())
+                   / np.linalg.norm(b64))
+        print(f"  ir_solve on {label} (hi {hi.strategy} f32, low "
+              f"{lo.strategy} bf16, 32 inner steps): "
+              f"{ires.outer_iterations} outer iterations, "
+              f"{1e3 * secs / max(ires.outer_iterations, 1):.4f} ms an "
+              f"outer cycle (host clock), converged="
+              f"{bool(ires.converged)}, true rel residual (scipy f64) "
+              f"{tr:.3e}")
+        require(tr <= 1e-5, f"ir_solve on {label}: true residual {tr:.3e}")
+
+    ir_general("P + P^T + diag (power law, 4b)", spd, "gpr")
+    shs = (general["shuffled laplacian_2d(2048)"]
+           + sp.identity(lap_n.shape[0], format="csr")).tocsr()
+    ir_general("the shuffled 2048^2 Poisson, screened (A + I)", shs,
+               "pallas_ell")
+    del shs
+
+    # A^2 of the 4096^2 Poisson by the DIA assembly, packed for K1, against
+    # two K2 products on 4a's PSDIA pack
+    t0 = time.perf_counter()
+    mc = mat.tocoo()
+    D = DIA.from_coo(COO.from_arrays(mc.row, mc.col, mc.data, mat.shape,
+                                     dtype=torch.float32, sort=False)).to(dev)
+    del mc
+    torch.cuda.synchronize()
+    dia_s = time.perf_counter() - t0
+    start.record()
+    D2 = spgemm(D, D)
+    end.record()
+    end.synchronize()
+    spgemm_ms = start.elapsed_time(end)
+    require(len(D2.offsets) == 13, f"spgemm(A, A): {len(D2.offsets)} "
+            f"diagonals")
+    S2 = ds.pack_sdia(D2)
+    y_sq = ds.spmv_sdia(S2, x)
+    y_kk = plan(plan(x))
+    torch.cuda.synchronize()
+    rel_sq = float((y_sq - y_kk).abs().max() / y_kk.abs().max())
+    print(f"  spgemm(A, A), 4096^2 Poisson DIA ({D.ndiags} diagonals, "
+          f"host DIA {dia_s:.2f} s): {len(D2.offsets)} diagonals, nnz "
+          f"{D2.nnz}, {spgemm_ms:.4f} ms on the card | pack_sdia rb={S2.rb}; "
+          f"K1 on A^2 vs K2(K2(x)) rel {rel_sq:.2e} (limit 2e-5)")
+    require(rel_sq <= 2e-5, f"spgemm(A, A) vs two K2 {rel_sq:.2e}")
+    del D, D2, S2, y_sq, y_kk
+
+    torch.cuda.synchronize()
+    h_launches = {k: v for c in counters for k, v in c.items() if v}
+    print(f"launch counts on the 4h path: {h_launches}")
+    for k in ("gpr_bf16", "ell_bf16", "sdia", "psdia"):
+        require(h_launches.get(k, 0) > 0, f"{k} never launched in 4h")
+
+    # each bf16 kernel bitwise its plain version, timed beside the f32
+    # kernel of the same matrix (CUDA events, median), its bound and one
+    # cuSPARSE call on bf16 data and a bf16 x where torch has one
+    bf16_records = []
+    for kname, name, f32_pack, kern, plain, src_line in (
+            ("gpr_spmv_bf16", "random_sparse(2000000,8e-6)",
+             lambda m: gplans["random_sparse(2000000,8e-6)"].matrix,
+             gpr.spmv_gpr_rows, gpr.spmv_gpr_ref,
+             "tpu_spmv/kernels/gpr.py:712"),
+            ("ell_spmv_bf16", "shuffled laplacian_2d(2048)",
+             lambda m: gplans["shuffled laplacian_2d(2048)"].matrix,
+             ell.spmv_ell_main, ell.spmv_ell_packed_ref,
+             "tpu_spmv/kernels/ell_pallas.py:375"),
+            ("ell_spmv_bf16", "natural laplacian_2d(2048) (forced)",
+             lambda m: ell.pack_ell(m, dtype=torch.float32, device=dev),
+             ell.spmv_ell_main, ell.spmv_ell_packed_ref,
+             "tpu_spmv/kernels/ell_pallas.py:375")):
+        m, A16, xh = h16[name]
+        yk, yk2, yp = kern(A16, xh), kern(A16, xh), plain(A16, xh)
+        torch.cuda.synchronize()
+        err = float((yk - yp).abs().max())
+        same = torch.equal(yk, yp)
+        require(same and torch.equal(yk, yk2), f"{kname} {name}: not "
+                f"bitwise its plain version (max abs err {err:.3e})")
+        del yk, yk2, yp
+        A32 = f32_pack(m)
+        ms = time_fn(kern, A16, xh, iters=50).median_s * 1e3
+        ms32 = time_fn(kern, A32, xh, iters=50).median_s * 1e3
+        plain_ms = time_fn(plain, A16, xh, iters=3).median_s * 1e3
+        nbytes = spmv_bytes(A16, torch.float32)
+        bound_ms, bound_by = bound(nbytes, 2 * A16.nnz)
+        bound32 = bound(spmv_bytes(A32, torch.float32), 2 * A32.nnz)[0]
+        try:
+            lib_ms = library_ms(m, xh.to(torch.bfloat16))
+            lib_txt = f"cuSPARSE bf16 torch.mv {lib_ms:.4f} ms"
+        except RuntimeError as e:
+            lib_ms = None
+            lib_txt = (f"library: none (torch.mv on a bf16 sparse CSR "
+                       f"tensor refused: {str(e).splitlines()[0][:120]})")
+        print(f"{kname} {name}: {ms:.4f} ms | bound {bound_ms:.4f} ms "
+              f"({bound_by}, {100 * bound_ms / ms:.1f}%; {nbytes} B) | f32 "
+              f"kernel {ms32:.4f} ms (bound {bound32:.4f}, "
+              f"{100 * bound32 / ms32:.1f}%; bf16/f32 {ms / ms32:.3f}) | "
+              f"plain {plain_ms:.4f} ms | {lib_txt} | bitwise plain "
+              f"{same} | launches in 4h "
+              f"{h_launches.get(kname.replace('_spmv', ''), 0)} ({card})")
+        if name.startswith("natural"):
+            continue                   # a side line, not the kernel's record
+        bf16_records.append({
+            "name": kname, "route": "cuda",
+            "source": "tpu_spmv_torch/csrc/general.cu",
+            "replaces": src_line,
+            "launches": h_launches.get(kname.replace("_spmv", ""), 0),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms})
+        del A32
+    del h16
+
+    # spgemm_csr: the host symbolic phase, then the device numeric phase
+    # (timed alone), twice for the bits, against scipy A @ A
+    for label, m, dt, tol in (
+            ("random_sparse(100000,7e-5)^2",
+             general["random_sparse(100000,7e-5)"], torch.float32, 2e-5),
+            ("bus420.mtx^2", bus, torch.float64, 1e-12)):
+        As = m.tocsr()
+        As.sort_indices()
+        t0 = time.perf_counter()
+        pa, pb, seg, _, _, _ = _symbolic(As, As, 200_000_000)
+        sym_s = time.perf_counter() - t0
+        args_n = (torch.tensor(As.data, dtype=dt, device=dev),) * 2 + tuple(
+            torch.from_numpy(a).to(dev) for a in (pa, pb, seg))
+        num_ms = time_fn(_numeric, *args_n, iters=20).median_s * 1e3
+        C1 = spgemm_csr(m, m, dtype=dt, device=dev)
+        C2 = spgemm_csr(m, m, dtype=dt, device=dev)
+        ref = (As @ As).tocsr()
+        ref.sort_indices()
+        same_pat = (np.array_equal(C1.indptr.cpu().numpy(), ref.indptr)
+                    and np.array_equal(C1.indices.cpu().numpy(),
+                                       ref.indices))
+        rel_c = rel_err(C1.data.cpu(), ref.data)
+        print(f"  spgemm_csr {label} {str(dt)[6:]}: {len(pa)} pairs -> "
+              f"{C1.nnz} entries; host symbolic {sym_s:.3f} s, device "
+              f"numeric {num_ms:.4f} ms | pattern equal scipy {same_pat} | "
+              f"rel err vs scipy {rel_c:.2e} (limit {tol:.0e}) | bitwise "
+              f"twice {torch.equal(C1.data, C2.data)}")
+        require(same_pat and rel_c <= tol and torch.equal(C1.data, C2.data),
+                f"spgemm_csr {label}")
+        del C1, C2, args_n
+
+    # checkpoints: the power-law GPR plan of 4b and 4a's PSDIA plan, saved
+    # and reloaded; each reloaded product bitwise the original's
+    ckdir = ROOT / "build" / "chip_smoke_checkpoints"
+    ckdir.mkdir(parents=True, exist_ok=True)
+    for label, pl, xk in (
+            ("power_law(400000,13)", gplans["power_law(400000,13)"],
+             gx["power_law(400000,13)"]),
+            ("4096^2 PSDIA", plan, x)):
+        f = ckdir / f"{pl.strategy}.npz"
+        t0 = time.perf_counter()
+        save_matrix(f, pl.matrix, extra={"strategy": pl.strategy})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        A_l, extra = load_matrix(f, with_extra=True, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        pl2 = plan_from_matrix(A_l, extra["strategy"])
+        same = torch.equal(pl(xk), pl2(xk))
+        print(f"  checkpoint {label} ({pl.strategy}, "
+              f"{f.stat().st_size / 2**20:.1f} MiB): pack "
+              f"{pack_s[label]:.2f} s "
+              f"| save {save_s:.3f} s | cache_load_s {load_s:.3f} | "
+              f"reloaded product bitwise {same}")
+        require(same, f"reloaded {label} differs")
+        f.unlink()
+        del A_l, pl2
+
+    # the CLI on the user path of this slice: --auto --dtype bfloat16
+    # --cache twice (the second run reloads, and writes a profile)
+    cli = [sys.executable, "-m", "tpu_spmv_torch", "--synthetic",
+           "powerlaw:400000,13", "--auto", "--dtype", "bfloat16", "--cache",
+           str(ckdir), "--iters", "10"]
+    for f in ckdir.glob("plan_*.npz"):
+        f.unlink()
+    prof_dir = ckdir / "profile"
+    outs = []
+    for k, extra in enumerate(([], ["--profile", str(prof_dir)])):
+        t0 = time.perf_counter()
+        out = subprocess.run(cli + extra, cwd=ROOT, capture_output=True,
+                             text=True)
+        lines = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith(("planner:", "###", "    GPR",
+                                   "profile:"))]
+        print(f"  CLI run {k + 1} ({time.perf_counter() - t0:.1f} s, exit "
+              f"{out.returncode}): " + " | ".join(ln.strip() for ln in lines))
+        require(out.returncode == 0, f"CLI run {k + 1} failed:\n"
+                f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+        outs.append(out.stdout)
+    require("cached pack to" in outs[0] and "reloaded gpr pack" in outs[1],
+            "the second --cache run did not reload the pack")
+    trace = prof_dir / "trace.json"
+    require(trace.exists() and trace.stat().st_size > 0,
+            "--profile wrote no trace")
+    print(f"  --profile: {trace.relative_to(ROOT)} "
+          f"{trace.stat().st_size / 2**20:.1f} MiB")
+    shutil.rmtree(ckdir)
+    print(f"  (phase 4h {time.perf_counter() - t4h:.1f} s)")
+
     # -- 5. kernels vs plain at the main paths' shapes, timed ---------------
     print("== 5. kernels vs plain versions at the main paths' shapes")
     # the probe path first (its bandwidth probes set the roofline's peak),
@@ -2847,8 +3148,8 @@ def main() -> int:
           f"laplacian_2d(256) {cg256_ms:.4f} ms/iteration")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": records + spmm_records + dist_records
-                      + perm_records + probe_records}))
+    print(json.dumps({"kernels": records + bf16_records + spmm_records
+                      + dist_records + perm_records + probe_records}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1075,6 +1075,67 @@ def _dyadic(rng, k, bits):
             * np.exp2(rng.integers(-20, 21, k)))
 
 
+def _bf16_rounded(m):
+    """``m`` with its values rounded to bf16 as the packs round them."""
+    r = m.tocsr().astype(np.float64)
+    r.data = torch.from_numpy(r.data).to(torch.bfloat16).double().numpy()
+    return r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["every width", "two classes",
+                                  "powerlaw800.mtx"])
+def test_gpr_spmv_bf16_bitwise_plain_on_card(card, name):
+    """``gpr_spmv`` on bf16 data (``tsp_gpr_spmv_bf16f32``) bitwise its
+    plain version, on the card and on the CPU, over every width class,
+    empty classes and rows and hub rows; reproducible, one launch each,
+    counted apart; the folded product within 2e-5 of scipy on the
+    bf16-rounded matrix."""
+    m = _gpr_operand(name)
+    A = tgpr.pack_gpr(m, dtype=torch.bfloat16, device=card)
+    assert A.data.dtype == torch.bfloat16
+    x64 = np.random.default_rng(5).standard_normal(m.shape[1])
+    x = torch.tensor(x64, dtype=torch.float32, device=card)
+    before = dict(tgpr.LAUNCHES)
+    y1, y2 = tgpr.spmv_gpr_rows(A, x), tgpr.spmv_gpr_rows(A, x)
+    assert tgpr.LAUNCHES["gpr_bf16"] == before["gpr_bf16"] + 2
+    assert tgpr.LAUNCHES["gpr"] == before["gpr"]
+    assert torch.equal(y1, y2)
+    assert torch.equal(y1, tgpr.spmv_gpr_ref(A, x))
+    assert torch.equal(y1.cpu(), tgpr.spmv_gpr_ref(A.to("cpu"), x.cpu()))
+    ref = _bf16_rounded(m) @ x.cpu().double().numpy()
+    y = tgpr.spmv_gpr(A, x).cpu().double().numpy()
+    assert np.max(np.abs(y - ref)) <= 2e-5 * np.max(np.abs(ref))
+
+
+@pytest.mark.cuda
+def test_ell_spmv_bf16_bitwise_plain_on_card(card):
+    """``ell_spmv`` on bf16 data (``tsp_ell_spmv_bf16f32``) bitwise its
+    plain version, on the card and on the CPU: slices 0 to 128 slots wide
+    (every remainder of the slot batch), an empty slice, a ragged last
+    slice and a side COO; reproducible, counted apart; the full product
+    within 2e-5 of scipy on the bf16-rounded matrix."""
+    rng = np.random.default_rng(13)
+    m = _ell_widths(rng)
+    m.data = rng.standard_normal(m.nnz)
+    A = tell.pack_ell(m, dtype=torch.bfloat16, device=card)
+    assert A.vals.dtype == A.side.data.dtype == torch.bfloat16
+    assert A.side.nnz > 0
+    x = torch.tensor(rng.standard_normal(m.shape[1]), dtype=torch.float32,
+                     device=card)
+    before = dict(tell.LAUNCHES)
+    y1, y2 = tell.spmv_ell_main(A, x), tell.spmv_ell_main(A, x)
+    assert tell.LAUNCHES["ell_bf16"] == before["ell_bf16"] + 2
+    assert tell.LAUNCHES["ell"] == before["ell"]
+    assert torch.equal(y1, y2)
+    assert torch.equal(y1, tell.spmv_ell_packed_ref(A, x))
+    assert torch.equal(y1.cpu(), tell.spmv_ell_packed_ref(A.to("cpu"),
+                                                          x.cpu()))
+    ref = _bf16_rounded(m) @ x.cpu().double().numpy()
+    full = tell.spmv_ell_packed(A, x).cpu().double().numpy()
+    assert np.max(np.abs(full - ref)) <= 2e-5 * np.max(np.abs(ref))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_ell_spmv_sums_its_slots_in_order_on_card(card, dtype):

@@ -22,6 +22,7 @@ from tpu_spmv.kernels import dia_stream as jds
 from tpu_spmv_torch import solvers as T
 from tpu_spmv_torch.interop import from_reference
 from tpu_spmv_torch.kernels import dia_stream as tds
+from tpu_spmv_torch.kernels import ell_packed as tell
 from tpu_spmv_torch.ops.auto import plan_spmv
 from tpu_spmv_torch.solvers.ir import _paired_spaces
 
@@ -137,12 +138,30 @@ def test_ir_solve_matches_reference(case, name):
 
 
 def test_bf16_plan_refuses_the_other_arms():
-    with pytest.raises(ValueError, match="'gpr' arm"):
-        plan_spmv(utils.power_law(3000, 3000, 8), dtype=torch.bfloat16,
-                  device="cpu")
-    with pytest.raises(ValueError, match="'bdia' arm"):
-        plan_spmv(utils.block_laplacian(6, bs=8), dtype=torch.bfloat16,
-                  device="cpu")
+    """The other arms now take bf16 data (the general kernels' bf16-data
+    forms, BDIA as torch code with float32 sums); what they still refuse
+    is a bf16 SpMM, whose kernels have no bf16-data form yet: plan.spmm
+    raises a TypeError that names the kernel."""
+    X = torch.zeros(3000, 2)
+    for m, strategy, kernel in (
+            (utils.power_law(3000, 3000, 8), "gpr", "spmm_gpr"),
+            (utils.block_laplacian(6, bs=8), "bdia", None)):
+        plan = plan_spmv(m, dtype=torch.bfloat16, device="cpu")
+        assert plan.strategy == strategy
+        assert plan.matrix.dtype == torch.bfloat16
+        y = plan(torch.ones(m.shape[1]))
+        assert y.dtype == torch.float32
+        if kernel:
+            with pytest.raises(TypeError, match=f"{kernel}: no kernel for "
+                               f"bfloat16 data"):
+                plan.spmm(X)
+        else:        # torch code: bf16 data times a float32 X
+            assert plan.spmm(torch.ones(m.shape[1], 2)).dtype == \
+                torch.float32
+    E = tell.pack_ell(utils.power_law(3000, 3000, 8), dtype=torch.bfloat16,
+                      device="cpu")
+    with pytest.raises(TypeError, match="spmm_ell: no kernel for bfloat16"):
+        tell.spmm_ell_packed(E, X)
 
 
 def test_bf16_kernels_take_float32_x_only():

@@ -14,12 +14,24 @@ plan's residual outside), BiCGSTAB, GMRES, multicolor Gauss-Seidel, power
 iteration or Lanczos.  MODE is ``GPU`` on the card and ``CPU`` on the CPU,
 with ``-AUTO`` for the planner's pick.
 
+``--dtype bfloat16`` stores the matrix's values and x in bf16, as the
+reference does; the port's kernels take float32 vectors, so each product
+widens x once (exactly), sums in float32 and rounds the result to bf16,
+the reference's result type.  ``--cache DIR`` (with ``--auto``) saves the
+planned pack (:mod:`.io.checkpoint`) and reloads it on the next run on the
+same source and dtype; ``--profile DIR`` writes a ``torch.profiler`` trace
+of the run (CUDA activity included on the card) to ``DIR/trace.json``.
+
 Usage::
 
     python -m tpu_spmv_torch matrix.mtx                   # sweep formats
     python -m tpu_spmv_torch --synthetic laplacian:4096 --auto --solve cg
     python -m tpu_spmv_torch --synthetic banded:20000,40 --device cpu
     python -m tpu_spmv_torch --synthetic powerlaw:400000,13 --auto   # GPR
+    python -m tpu_spmv_torch --synthetic powerlaw:400000,13 --auto \
+        --dtype bfloat16 --cache plans/      # bf16 GPR, packed once
+    python -m tpu_spmv_torch --synthetic laplacian:1024 --auto \
+        --profile traces/                   # torch.profiler trace
     python -m tpu_spmv_torch --synthetic laplacian:4096 --auto --spmm 32
     python -m tpu_spmv_torch --synthetic laplacian:256 --auto --solve cg \
         --solve-nrhs 8
@@ -91,7 +103,8 @@ def _grid_shape(spec: str | None) -> tuple[int, ...]:
 
 def _solve(args, solve_plan, host_mat, dtype, device):
     """Run ``--solve`` (one right-hand side) on ``solve_plan``: the result
-    line (a dict) and its text form."""
+    line (a dict) and its text form.  ``dtype`` is the vectors' type
+    (float32 for a plan of bf16 coefficients)."""
     import torch
 
     from .ops.auto import plan_spmv
@@ -142,11 +155,14 @@ def _solve(args, solve_plan, host_mat, dtype, device):
     elif args.solve == "ir":
         # the bf16-data plan of the same matrix inside, a float32 plan's
         # true residual outside (the bf16 kernels take float32 vectors)
+        bf16_plan = getattr(solve_plan.matrix, "dtype",
+                            None) == torch.bfloat16
         hi = solve_plan
-        if dtype != torch.float32:
+        if dtype != torch.float32 or bf16_plan:
             hi = plan_spmv(host_mat, dtype=torch.float32, device=device)
             b = b.float()
-        low = plan_spmv(host_mat, dtype=torch.bfloat16, device=device)
+        low = (solve_plan if bf16_plan
+               else plan_spmv(host_mat, dtype=torch.bfloat16, device=device))
         ires = solvers.ir_solve(hi, b, low=low,
                                 inner_iters=args.inner_iters, maxiter=400,
                                 tol=args.tol)
@@ -181,7 +197,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma-separated format list (coo, csr, csc, ell, "
                         "dia, bsr, bdia)")
     p.add_argument("--dtype", default="float32",
-                   choices=["float32", "float64"], help="compute dtype")
+                   choices=["float32", "float64", "bfloat16"],
+                   help="compute dtype (bfloat16: bf16 matrix values and "
+                        "x; each product widens x to float32 once, sums in "
+                        "float32 and rounds the result to bf16)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
     p.add_argument("--iters", type=int, default=50,
@@ -224,6 +243,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--inner-iters", type=int, default=100,
                    help="with --solve ir: bf16 inner-CG steps per "
                         "refinement cycle")
+    p.add_argument("--cache", metavar="DIR", default=None,
+                   help="with --auto: keep the planned pack in DIR, so a "
+                        "second run on the same input and dtype skips "
+                        "analysis and packing")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="write a torch.profiler trace of the run (CUDA "
+                        "activity included on the card) to DIR/trace.json")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the numpy generator of x and b")
     p.add_argument("--json", action="store_true",
@@ -262,13 +288,169 @@ def _drop_explosive_formats(formats, host_mat, itemsize):
     return keep
 
 
+def _widened(fn):
+    """``fn(A, x)`` for a bf16 ``x``: x widened to float32 once (exact),
+    the float32 product rounded to bf16 (the reference's result type)."""
+    import torch
+
+    return lambda A, v: fn(A, v.float()).to(torch.bfloat16)
+
+
+def _cache_file(args) -> str:
+    """The pack's file under ``--cache``: the reference's key (the source,
+    with a file's mtime, and the dtype) and name."""
+    import hashlib
+    import os
+
+    src = args.synthetic or os.path.abspath(args.matrix)
+    if args.matrix:
+        src += f":{os.path.getmtime(args.matrix)}"
+    key = hashlib.sha1(f"{src}|{args.dtype}".encode()).hexdigest()[:16]
+    os.makedirs(args.cache, exist_ok=True)
+    return os.path.join(args.cache, f"plan_{key}.npz")
+
+
+def _auto_plan(args, host_mat, dtype, device):
+    """The planner's pick, reloaded from ``--cache`` where a good pack is
+    there, else planned (and then cached)."""
+    import os
+    import zipfile
+
+    from .io.checkpoint import load_matrix, save_matrix
+    from .ops.auto import plan_from_matrix, plan_spmv
+
+    cache_file = _cache_file(args) if args.cache else None
+    if cache_file and os.path.exists(cache_file):
+        try:
+            A, extra = load_matrix(cache_file, with_extra=True,
+                                   device=device)
+            plan = plan_from_matrix(A, extra["strategy"])
+            if not args.json:
+                print(f"planner: reloaded {extra['strategy']} pack from "
+                      f"{cache_file} (no re-analysis)")
+            return plan
+        except (ValueError, KeyError, TypeError, OSError, EOFError,
+                zipfile.BadZipFile) as e:
+            # stale or damaged: plan again and overwrite
+            if not args.json:
+                print(f"planner: cache stale ({e}); re-packing")
+    plan = plan_spmv(host_mat, dtype=dtype, device=device)
+    if cache_file:
+        save_matrix(cache_file, plan.matrix,
+                    extra={"strategy": plan.strategy})
+        if not args.json:
+            print(f"planner: cached pack to {cache_file}")
+    return plan
+
+
+def _run(args, host_mat, x, formats, mode, dtype, device, rng):
+    """The benchmarks and the solve: the result lines, or None for a
+    refused ``--solve``."""
+    import torch
+
+    from .bench import bench_format_sweep, bench_spmm, bench_spmv
+    from .formats import COO
+    from .ops.auto import plan_spmv
+    from .ops.spmv import spmv
+
+    bf16 = dtype == torch.bfloat16
+    plan = None
+    coo = None
+    if not args.auto or args.spmm > 0:
+        coo = COO.from_arrays(host_mat.row, host_mat.col, host_mat.data,
+                              host_mat.shape, dtype=dtype, device=device)
+        formats = _drop_explosive_formats(formats, host_mat,
+                                          dtype.itemsize)
+    if args.auto:
+        plan = _auto_plan(args, host_mat, dtype, device)
+        if not args.json:
+            print(f"planner: strategy={plan.strategy}")
+        kern = _widened(plan._kernel) if bf16 else plan._kernel
+        results = [bench_spmv(plan.matrix, x, mode=f"{mode}-AUTO",
+                              iters=args.iters, check=not args.no_check,
+                              quiet=args.json, spmv_fn=kern,
+                              oracle=host_mat)]
+    else:
+        results = bench_format_sweep(coo, x, formats=formats, mode=mode,
+                                     iters=args.iters,
+                                     check=not args.no_check,
+                                     quiet=args.json,
+                                     spmv_fn=_widened(spmv) if bf16
+                                     else None)
+
+    if args.spmm > 0:
+        from .formats import convert
+
+        X = torch.tensor(rng.random((host_mat.shape[1], args.spmm)),
+                         dtype=dtype, device=device)
+        kw = dict(iters=max(args.iters // 5, 3), check=not args.no_check,
+                  quiet=args.json)
+        if plan is not None:
+            # the planner's SpMM kernel (streaming DIA, GPR or sliced ELL)
+            results.append(bench_spmm(plan.matrix, X,
+                                      spmm_fn=lambda A_, V: plan.spmm(V),
+                                      oracle=host_mat, **kw))
+        results += [bench_spmm(convert(coo, name), X, oracle=host_mat, **kw)
+                    for name in formats]
+
+    if args.dist > 0:
+        from .dist import bench_dist_spmv, make_mesh
+
+        try:
+            mesh = make_mesh(args.dist, device=device)
+        except ValueError as e:
+            raise SystemExit(f"tpu_spmv_torch: --dist {args.dist}: {e}")
+        results.append(bench_dist_spmv(
+            host_mat, mesh, dtype=dtype, iters=args.iters,
+            check=not args.no_check, quiet=args.json,
+            strategy=args.dist_strategy))
+
+    if args.solve is not None:
+        if host_mat.shape[0] != host_mat.shape[1]:
+            print("error: --solve needs a square matrix", file=sys.stderr)
+            return None
+        from .solvers import cg_multi
+
+        solve_plan = plan or plan_spmv(host_mat, dtype=dtype, device=device)
+        rng_b = np.random.default_rng(args.seed + 1)
+        nrhs = args.solve_nrhs if args.solve == "cg" else 0
+        if nrhs > 1:
+            B = torch.tensor(rng_b.random((host_mat.shape[0], nrhs)),
+                             dtype=dtype, device=device)
+            t0 = time.perf_counter()
+            mres = cg_multi(solve_plan, B, tol=args.tol, maxiter=10_000)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            rels = mres.residual_norm / torch.linalg.norm(B, dim=0)
+            line = {"solver": "cg", "strategy": solve_plan.strategy,
+                    "nrhs": nrhs, "iterations": mres.iterations,
+                    "rel_residual_max": float(rels.max()),
+                    "converged": bool(mres.converged.all()),
+                    "wall_s": round(wall, 3)}
+            msg = (f"    CG x{nrhs} ({solve_plan.strategy}): "
+                   f"{mres.iterations} iters, max rel residual "
+                   f"{line['rel_residual_max']:.2e}, "
+                   f"converged={line['converged']} ({line['wall_s']}s)")
+        else:
+            # the vectors of a bf16-coefficient plan are float32
+            line, msg = _solve(args, solve_plan, host_mat,
+                               torch.float32 if bf16 else dtype, device)
+        if args.json:
+            results.append(line)
+        else:
+            print(msg)
+
+    return results
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     import scipy.sparse as sp
     import torch
 
-    from .formats import COO, FORMATS
+    from .formats import FORMATS
 
     try:
         device = torch.device(args.device)
@@ -302,95 +484,39 @@ def main(argv=None) -> int:
     src = f"synthetic {args.synthetic}" if args.synthetic else args.matrix
     print(f"{src}: shape={host_mat.shape} nnz={host_mat.nnz}")
 
+    bf16 = dtype == torch.bfloat16
+    if bf16 and (args.spmm > 0 or args.dist > 0 or args.solve_nrhs > 1):
+        raise SystemExit("tpu_spmv_torch: --dtype bfloat16 takes no --spmm, "
+                         "--dist or --solve-nrhs (the SpMMs and the "
+                         "distributed kernels have no bf16-data form yet)")
     rng = np.random.default_rng(args.seed)
     x = torch.tensor(rng.random(host_mat.shape[1]), dtype=dtype,
                      device=device)
+    if bf16 and not args.json:
+        print("dtype bfloat16: bf16 matrix values and x; each product "
+              "widens x to float32 once (exact), sums in float32 and "
+              "rounds the result to bf16")
     mode = "GPU" if device.type == "cuda" else "CPU"
-
-    from .bench import bench_format_sweep, bench_spmm, bench_spmv
-    from .ops.auto import plan_spmv
-
-    plan = None
-    coo = None
-    if not args.auto or args.spmm > 0:
-        coo = COO.from_arrays(host_mat.row, host_mat.col, host_mat.data,
-                              host_mat.shape, dtype=dtype, device=device)
-        formats = _drop_explosive_formats(formats, host_mat,
-                                          dtype.itemsize)
-    if args.auto:
-        plan = plan_spmv(host_mat, dtype=dtype, device=device)
-        if not args.json:
-            print(f"planner: strategy={plan.strategy}")
-        results = [bench_spmv(plan.matrix, x, mode=f"{mode}-AUTO",
-                              iters=args.iters, check=not args.no_check,
-                              quiet=args.json, spmv_fn=plan._kernel,
-                              oracle=host_mat)]
+    if not args.profile:
+        results = _run(args, host_mat, x, formats, mode, dtype, device, rng)
     else:
-        results = bench_format_sweep(coo, x, formats=formats, mode=mode,
-                                     iters=args.iters,
-                                     check=not args.no_check,
-                                     quiet=args.json)
+        import os
 
-    if args.spmm > 0:
-        from .formats import convert
+        from torch.profiler import ProfilerActivity, profile
 
-        X = torch.tensor(rng.random((host_mat.shape[1], args.spmm)),
-                         dtype=dtype, device=device)
-        kw = dict(iters=max(args.iters // 5, 3), check=not args.no_check,
-                  quiet=args.json)
-        if plan is not None:
-            # the planner's SpMM kernel (streaming DIA, GPR or sliced ELL)
-            results.append(bench_spmm(plan.matrix, X,
-                                      spmm_fn=lambda A_, V: plan.spmm(V),
-                                      oracle=host_mat, **kw))
-        results += [bench_spmm(convert(coo, name), X, oracle=host_mat, **kw)
-                    for name in formats]
-
-    if args.dist > 0:
-        from .dist import bench_dist_spmv, make_mesh
-
-        try:
-            mesh = make_mesh(args.dist, device=device)
-        except ValueError as e:
-            raise SystemExit(f"tpu_spmv_torch: --dist {args.dist}: {e}")
-        results.append(bench_dist_spmv(
-            host_mat, mesh, dtype=dtype, iters=args.iters,
-            check=not args.no_check, quiet=args.json,
-            strategy=args.dist_strategy))
-
-    if args.solve is not None:
-        if host_mat.shape[0] != host_mat.shape[1]:
-            print("error: --solve needs a square matrix", file=sys.stderr)
-            return 2
-        from .solvers import cg_multi
-
-        solve_plan = plan or plan_spmv(host_mat, dtype=dtype, device=device)
-        rng_b = np.random.default_rng(args.seed + 1)
-        nrhs = args.solve_nrhs if args.solve == "cg" else 0
-        if nrhs > 1:
-            B = torch.tensor(rng_b.random((host_mat.shape[0], nrhs)),
-                             dtype=dtype, device=device)
-            t0 = time.perf_counter()
-            mres = cg_multi(solve_plan, B, tol=args.tol, maxiter=10_000)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            wall = time.perf_counter() - t0
-            rels = mres.residual_norm / torch.linalg.norm(B, dim=0)
-            line = {"solver": "cg", "strategy": solve_plan.strategy,
-                    "nrhs": nrhs, "iterations": mres.iterations,
-                    "rel_residual_max": float(rels.max()),
-                    "converged": bool(mres.converged.all()),
-                    "wall_s": round(wall, 3)}
-            msg = (f"    CG x{nrhs} ({solve_plan.strategy}): "
-                   f"{mres.iterations} iters, max rel residual "
-                   f"{line['rel_residual_max']:.2e}, "
-                   f"converged={line['converged']} ({line['wall_s']}s)")
-        else:
-            line, msg = _solve(args, solve_plan, host_mat, dtype, device)
-        if args.json:
-            results.append(line)
-        else:
-            print(msg)
+        acts = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            results = _run(args, host_mat, x, formats, mode, dtype, device,
+                           rng)
+        os.makedirs(args.profile, exist_ok=True)
+        trace = os.path.join(args.profile, "trace.json")
+        prof.export_chrome_trace(trace)
+        if not args.json:
+            print(f"profile: trace written to {trace}")
+    if results is None:
+        return 2
 
     if args.json:
         for r in results:

@@ -22,6 +22,20 @@
 // slice (slot j of row i of slice s at slice_ptr[s] + 32 j + i); pad slots
 // hold value 0 and column 0.
 //
+// Both SpMVs also take bf16 data (the reference's packs with
+// dtype=bfloat16 run K4 and K5a-K5d on bf16 coefficients): one more
+// template parameter C, the stored coefficients' type, on the same bodies
+// (gpr_spmv<float, __nv_bfloat16>, ell_spmv<float, __nv_bfloat16>;
+// tsp_gpr_spmv_bf16f32, tsp_ell_spmv_bf16f32).  Each value is loaded as
+// its 2 bytes, widened by __bfloat162float (exact) and summed in float32
+// in the same lane order and butterfly (GPR) or slot order (ELL); x, y and
+// the sums are float32.  Where the float and double forms contract
+// a * b + c to one fma, the bf16 form rounds the product, then the sum
+// (__fmul_rn, __fadd_rn), so its plain version (kernels/gpr.py,
+// kernels/ell_packed.py), which sums the float32 products in the kernel's
+// order, gives the same bits.  The byte bound falls from 8 to 6 bytes an
+// entry; the scattered x gathers stay as they are.
+//
 // What bounds them on this card: device-memory bytes where the x gathers
 // are local, and the L2's rate for scattered requests where they are not.
 // Per entry both read a value and an int32 column (8 B in f32) and gather
@@ -117,12 +131,31 @@
 // with fma, as the former kernel and ell_spmv did, so every column equals
 // ell_spmv's and results are bitwise the former kernel's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 namespace {
+
+// a stored coefficient in the type of the sums: bf16 widens exactly
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// acc + v * x on bf16 data: the product rounded, then the sum (the plain
+// version's arithmetic, step for step; no contraction to fma)
+__device__ __forceinline__ float madd(__nv_bfloat16 v, float x, float acc) {
+  return __fadd_rn(acc, __fmul_rn(widen(v), x));
+}
+// ... and one fma where the coefficient is in the type of the sums
+__device__ __forceinline__ float madd(float v, float x, float acc) {
+  return fma(v, x, acc);
+}
+__device__ __forceinline__ double madd(double v, double x, double acc) {
+  return fma(v, x, acc);
+}
 
 constexpr int kThreads = 256;
 constexpr int kClasses = 5;
@@ -137,10 +170,10 @@ struct ClassLayout {
   int64_t first_block[kClasses + 1];
 };
 
-template <typename T, int TPR>
+template <typename T, typename C, int TPR>
 __device__ __forceinline__ void gpr_rows(
     const int* __restrict__ rows, const int64_t* __restrict__ indptr,
-    const int* __restrict__ indices, const T* __restrict__ data,
+    const int* __restrict__ indices, const C* __restrict__ data,
     const T* __restrict__ x, T* __restrict__ y, int64_t first_row,
     int64_t nrows, int64_t block) {
   constexpr int kRowsPerWarp = 32 / TPR;
@@ -169,12 +202,12 @@ __device__ __forceinline__ void gpr_rows(
   // with every value and column load issued before the first x gather
   for (int64_t j0 = begin + l; j0 < end; j0 += kPerLane * TPR) {
     int col[kPerLane];
-    T v[kPerLane];
+    C v[kPerLane];
 #pragma unroll
     for (int e = 0; e < kPerLane; ++e) {
       const int64_t j = j0 + e * TPR;
       col[e] = j < end ? __ldcs(indices + j) : 0;
-      v[e] = j < end ? __ldcs(data + j) : T(0);
+      v[e] = j < end ? __ldcs(data + j) : C(0.0f);
     }
     T xv[kPerLane];
 #pragma unroll
@@ -182,7 +215,7 @@ __device__ __forceinline__ void gpr_rows(
       xv[e] = j0 + e * TPR < end ? __ldg(x + col[e]) : T(0);
 #pragma unroll
     for (int e = 0; e < kPerLane; ++e)
-      if (j0 + e * TPR < end) acc = fma(v[e], xv[e], acc);
+      if (j0 + e * TPR < end) acc = madd(v[e], xv[e], acc);
   }
   // every lane of the warp takes part in the butterfly (TPR divides 32)
 #pragma unroll
@@ -191,10 +224,11 @@ __device__ __forceinline__ void gpr_rows(
   if (sub < nw && l == 0) y[row] = acc;
 }
 
-template <typename T>
+// C: the stored coefficients' type (T, or __nv_bfloat16 against a float T)
+template <typename T, typename C = T>
 __global__ void __launch_bounds__(kThreads)
     gpr_spmv(const int* __restrict__ rows, const int64_t* __restrict__ indptr,
-             const int* __restrict__ indices, const T* __restrict__ data,
+             const int* __restrict__ indices, const C* __restrict__ data,
              const T* __restrict__ x, T* __restrict__ y, ClassLayout layout) {
   // the block's class: the last one that starts at or before it (an empty
   // class starts where the next one does).  The unrolled loop indexes the
@@ -213,19 +247,19 @@ __global__ void __launch_bounds__(kThreads)
   }
   switch (class_lanes(c)) {
     case 2:
-      gpr_rows<T, 2>(rows, indptr, indices, data, x, y, first, n, block);
+      gpr_rows<T, C, 2>(rows, indptr, indices, data, x, y, first, n, block);
       break;
     case 4:
-      gpr_rows<T, 4>(rows, indptr, indices, data, x, y, first, n, block);
+      gpr_rows<T, C, 4>(rows, indptr, indices, data, x, y, first, n, block);
       break;
     case 8:
-      gpr_rows<T, 8>(rows, indptr, indices, data, x, y, first, n, block);
+      gpr_rows<T, C, 8>(rows, indptr, indices, data, x, y, first, n, block);
       break;
     case 16:
-      gpr_rows<T, 16>(rows, indptr, indices, data, x, y, first, n, block);
+      gpr_rows<T, C, 16>(rows, indptr, indices, data, x, y, first, n, block);
       break;
     default:
-      gpr_rows<T, 32>(rows, indptr, indices, data, x, y, first, n, block);
+      gpr_rows<T, C, 32>(rows, indptr, indices, data, x, y, first, n, block);
   }
 }
 
@@ -233,16 +267,27 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kEllBatch = 4;
 
 // one slot's column and value, read once: streamed (evict first)
-template <typename T>
-__device__ __forceinline__ void ell_slot(const int* c, const T* v, int& col,
-                                         T& val) {
+template <typename C>
+__device__ __forceinline__ void ell_slot(const int* c, const C* v, int& col,
+                                         C& val) {
   col = __ldcs(c);
   val = __ldcs(v);
 }
 
-template <typename T>
+// ell_spmv's step: acc += v * x, which nvcc contracts to one fma where the
+// coefficient is in the type of the sums (the f32 and f64 code as it was);
+// madd's rounded product, then sum, on bf16 data
+template <typename T, typename C>
+__device__ __forceinline__ T ell_madd(C v, T x, T acc) {
+  if constexpr (std::is_same_v<T, C>)
+    return acc + v * x;
+  else
+    return madd(v, x, acc);
+}
+
+template <typename T, typename C = T>
 __global__ void __launch_bounds__(kThreads)
-    ell_spmv(const T* __restrict__ vals, const int* __restrict__ cols,
+    ell_spmv(const C* __restrict__ vals, const int* __restrict__ cols,
              const int64_t* __restrict__ slice_ptr, const T* __restrict__ x,
              T* __restrict__ y, int64_t nrow) {
   constexpr int kWarps = kThreads / 32;
@@ -254,25 +299,27 @@ __global__ void __launch_bounds__(kThreads)
        s < nslices; s += warps) {
     const int64_t begin = slice_ptr[s];
     const int width = static_cast<int>((slice_ptr[s + 1] - begin) >> 5);
-    const T* __restrict__ v = vals + begin + lane;
+    const C* __restrict__ v = vals + begin + lane;
     const int* __restrict__ c = cols + begin + lane;
     T acc = T(0);
     int j = 0;
     for (; j + kEllBatch <= width; j += kEllBatch) {
       int col[kEllBatch];
-      T val[kEllBatch], xv[kEllBatch];
+      C val[kEllBatch];
+      T xv[kEllBatch];
 #pragma unroll
       for (int i = 0; i < kEllBatch; ++i)
         ell_slot(c + 32 * (j + i), v + 32 * (j + i), col[i], val[i]);
 #pragma unroll
       for (int i = 0; i < kEllBatch; ++i) xv[i] = __ldg(x + col[i]);
 #pragma unroll
-      for (int i = 0; i < kEllBatch; ++i) acc += val[i] * xv[i];
+      for (int i = 0; i < kEllBatch; ++i) acc = ell_madd(val[i], xv[i], acc);
     }
     if (j < width) {
       // the last width - j < kEllBatch slots, the same three steps
       int col[kEllBatch];
-      T val[kEllBatch], xv[kEllBatch];
+      C val[kEllBatch];
+      T xv[kEllBatch];
 #pragma unroll
       for (int i = 0; i < kEllBatch; ++i)
         if (j + i < width)
@@ -282,7 +329,7 @@ __global__ void __launch_bounds__(kThreads)
         if (j + i < width) xv[i] = __ldg(x + col[i]);
 #pragma unroll
       for (int i = 0; i < kEllBatch; ++i)
-        if (j + i < width) acc += val[i] * xv[i];
+        if (j + i < width) acc = ell_madd(val[i], xv[i], acc);
     }
     const int64_t row = (s << 5) + lane;
     if (row < nrow) y[row] = acc;
@@ -434,7 +481,7 @@ __global__ void __launch_bounds__(kThreads)
                         nrhs);
 }
 
-template <typename T>
+template <typename T, typename C = T>
 int launch_gpr(const void* rows, const void* indptr, const void* indices,
                const void* data, const void* x, void* y,
                const int64_t* class_rows, void* stream) {
@@ -451,24 +498,24 @@ int launch_gpr(const void* rows, const void* indptr, const void* indices,
   layout.first_block[kClasses] = blocks;
   if (blocks == 0) return 0;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  gpr_spmv<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
+  gpr_spmv<T, C><<<static_cast<unsigned>(blocks), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(rows), static_cast<const int64_t*>(indptr),
-      static_cast<const int*>(indices), static_cast<const T*>(data),
+      static_cast<const int*>(indices), static_cast<const C*>(data),
       static_cast<const T*>(x), static_cast<T*>(y), layout);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename C = T>
 int launch_ell(const void* vals, const void* cols, const void* slice_ptr,
                const void* x, void* y, int64_t nrow, void* stream) {
   if (nrow == 0) return 0;
   // one warp a slice of 32 rows, every slice's warp launched at once
   int64_t blocks = (nrow + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffff) blocks = 0x7fffffff;
-  ell_spmv<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(vals), static_cast<const int*>(cols),
+  ell_spmv<T, C><<<static_cast<unsigned>(blocks), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const C*>(vals), static_cast<const int*>(cols),
       static_cast<const int64_t*>(slice_ptr), static_cast<const T*>(x),
       static_cast<T*>(y), nrow);
   return static_cast<int>(cudaGetLastError());
@@ -579,6 +626,24 @@ int tsp_ell_spmv_f32(const void* vals, const void* cols, const void* slice_ptr,
 int tsp_ell_spmv_f64(const void* vals, const void* cols, const void* slice_ptr,
                      const void* x, void* y, int64_t nrow, void* stream) {
   return launch_ell<double>(vals, cols, slice_ptr, x, y, nrow, stream);
+}
+
+// K5a-K5d and K4 on bf16 data: bf16 coefficients, float32 x, y and sums
+int tsp_gpr_spmv_bf16f32(const void* rows, const void* indptr,
+                         const void* indices, const void* data,
+                         const void* x, void* y, int64_t n8, int64_t n16,
+                         int64_t n32, int64_t n64, int64_t n128,
+                         void* stream) {
+  const int64_t class_rows[kClasses] = {n8, n16, n32, n64, n128};
+  return launch_gpr<float, __nv_bfloat16>(rows, indptr, indices, data, x, y,
+                                          class_rows, stream);
+}
+
+int tsp_ell_spmv_bf16f32(const void* vals, const void* cols,
+                         const void* slice_ptr, const void* x, void* y,
+                         int64_t nrow, void* stream) {
+  return launch_ell<float, __nv_bfloat16>(vals, cols, slice_ptr, x, y, nrow,
+                                          stream);
 }
 
 int tsp_gpr_spmm_f32(const void* rows, const void* indptr,

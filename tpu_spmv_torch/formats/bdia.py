@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import as_values, sparse_dataclass
+from .base import as_values, host_values, sparse_dataclass
 from .bsr import _slot_values
 from .coo import COO
 
@@ -53,7 +53,7 @@ class BDIA:
             raise ValueError("block_size must be >= 1")
         row = coo.row.cpu().numpy().astype(np.int64)
         col = coo.col.cpu().numpy().astype(np.int64)
-        vals = coo.data.cpu().numpy()
+        vals = host_values(coo.data)
         nrow, ncol = coo.shape
         nbrow = max(-(-nrow // bs), 1)
         nbcol = max(-(-ncol // bs), 1)
@@ -69,8 +69,8 @@ class BDIA:
         nd = len(offsets)
         slots = ((diag_idx * nbrow + brow) * bs + row % bs) * bs + col % bs
         data = _slot_values(slots, vals, nd * nbrow * bs * bs, vals.dtype)
-        return BDIA(data=torch.from_numpy(data.reshape(nd, nbrow, bs, bs)).to(
-                        coo.device),
+        return BDIA(data=as_values(data.reshape(nd, nbrow, bs, bs),
+                                   coo.dtype, coo.device),
                     offsets=tuple(int(o) for o in offsets),
                     shape=(int(nrow), int(ncol)), block_size=bs,
                     nnz=int(row.size))
@@ -101,7 +101,7 @@ class BDIA:
 
     def to_coo(self) -> COO:
         bs = self.block_size
-        data = self.data.cpu().numpy()
+        data = host_values(self.data)
         d, b, i, j = np.nonzero(data)
         rows = b * bs + i
         cols = (b + np.asarray(self.offsets, dtype=np.int64)[d]) * bs + j

@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import as_index, as_values, sparse_dataclass
+from .base import as_index, as_values, host_values, sparse_dataclass
 from .coo import COO
 
 __all__ = ["BSR"]
@@ -61,7 +61,7 @@ class BSR:
             raise ValueError("block_size must be >= 1")
         row = coo.row.cpu().numpy().astype(np.int64)
         col = coo.col.cpu().numpy().astype(np.int64)
-        vals = coo.data.cpu().numpy()
+        vals = host_values(coo.data)
         nrow, ncol = coo.shape
         nbrow = -(-nrow // bs) if nrow else 0
         nbcol = -(-ncol // bs) if ncol else 0
@@ -87,8 +87,8 @@ class BSR:
         indptr = np.zeros(max(nbrow, 1) + 1, dtype=np.int64)
         np.cumsum(counts, out=indptr[1:])
         dev = coo.device
-        return BSR(data=torch.from_numpy(data.reshape(nblocks, bs, bs)).to(
-                       dev),
+        return BSR(data=as_values(data.reshape(nblocks, bs, bs), coo.dtype,
+                                  dev),
                    indices=as_index(ub_col, dev), indptr=as_index(indptr, dev),
                    block_row_ids=as_index(ub_row, dev),
                    shape=(int(nrow), int(ncol)), block_size=bs,
@@ -120,7 +120,7 @@ class BSR:
 
     def to_coo(self) -> COO:
         bs = self.block_size
-        data = self.data.cpu().numpy()
+        data = host_values(self.data)
         brow = self.block_row_ids.cpu().numpy().astype(np.int64)
         bcol = self.indices.cpu().numpy().astype(np.int64)
         b, i, j = np.nonzero(data)

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import as_index, as_values, sparse_dataclass
+from .base import as_index, as_values, host_values, sparse_dataclass
 
 __all__ = ["COO"]
 
@@ -61,6 +61,14 @@ class COO:
                    shape=(int(nrow), int(ncol)), rows_sorted=sorted_flag)
 
     @staticmethod
+    def from_dense(dense, *, dtype=None, device=None) -> "COO":
+        """The nonzeros of a dense host array, sorted by (row, col)."""
+        dense = np.asarray(dense)
+        row, col = np.nonzero(dense)
+        return COO.from_arrays(row, col, dense[row, col], dense.shape,
+                               dtype=dtype, device=device)
+
+    @staticmethod
     def from_scipy(mat, *, dtype=None, device=None) -> "COO":
         m = mat.tocoo()
         return COO.from_arrays(m.row, m.col, m.data, m.shape, dtype=dtype,
@@ -69,6 +77,14 @@ class COO:
     @property
     def nnz(self) -> int:
         return int(self.data.shape[0])
+
+    @property
+    def nrow(self) -> int:
+        return self.shape[0]
+
+    @property
+    def ncol(self) -> int:
+        return self.shape[1]
 
     @property
     def dtype(self) -> torch.dtype:
@@ -81,10 +97,12 @@ class COO:
                               accumulate=True)
 
     def to_scipy(self):
+        """A scipy ``coo_matrix`` (bfloat16 values widened to float32:
+        scipy has no bf16)."""
         import scipy.sparse as sp
 
         return sp.coo_matrix(
-            (self.data.cpu().numpy(),
+            (host_values(self.data),
              (self.row.cpu().numpy(), self.col.cpu().numpy())),
             shape=self.shape)
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import as_index, sparse_dataclass
+from .base import as_index, as_values, host_values, sparse_dataclass
 from .coo import COO
 
 __all__ = ["CSC"]
@@ -61,7 +61,7 @@ class CSC:
         """COO → CSC on the host; the result lives on ``coo``'s device."""
         row = coo.row.cpu().numpy()
         col = coo.col.cpu().numpy()
-        data = coo.data.cpu().numpy()
+        data = host_values(coo.data)
         nrow, ncol = coo.shape
         order = np.lexsort((row, col))
         row, col, data = row[order], col[order], data[order]
@@ -69,13 +69,44 @@ class CSC:
         indptr = np.zeros(ncol + 1, dtype=np.int64)
         np.cumsum(counts, out=indptr[1:])
         dev = coo.device
-        return CSC(data=torch.from_numpy(np.ascontiguousarray(data)).to(dev),
+        return CSC(data=as_values(data, coo.dtype, dev),
                    indices=as_index(row, dev), indptr=as_index(indptr, dev),
                    col_ids=as_index(col, dev), shape=(int(nrow), int(ncol)))
+
+    @staticmethod
+    def from_arrays(data, indices, indptr, shape, *, dtype=None,
+                    device=None) -> "CSC":
+        """Build from a CSC triplet of host arrays (e.g. scipy's)."""
+        indptr_np = np.asarray(indptr, dtype=np.int64)
+        nrow, ncol = shape
+        if indptr_np.shape != (ncol + 1,):
+            raise ValueError(f"indptr must have shape ({ncol + 1},)")
+        col_ids = np.repeat(np.arange(ncol, dtype=np.int64),
+                            np.diff(indptr_np))
+        return CSC(data=as_values(data, dtype, device),
+                   indices=as_index(indices, device),
+                   indptr=as_index(indptr_np, device),
+                   col_ids=as_index(col_ids, device),
+                   shape=(int(nrow), int(ncol)))
+
+    @staticmethod
+    def from_scipy(mat, *, dtype=None, device=None) -> "CSC":
+        m = mat.tocsc()
+        m.sort_indices()
+        return CSC.from_arrays(m.data, m.indices, m.indptr, m.shape,
+                               dtype=dtype, device=device)
 
     @property
     def nnz(self) -> int:
         return int(self.data.shape[0])
+
+    @property
+    def nrow(self) -> int:
+        return self.shape[0]
+
+    @property
+    def ncol(self) -> int:
+        return self.shape[1]
 
     @property
     def dtype(self) -> torch.dtype:
@@ -85,9 +116,18 @@ class CSC:
         return COO(row=self.indices, col=self.col_ids, data=self.data,
                    shape=self.shape, rows_sorted=False)
 
+    def todense(self) -> torch.Tensor:
+        return self.to_coo().todense()
+
     def to_scipy(self):
         import scipy.sparse as sp
 
         return sp.csc_matrix(
-            (self.data.cpu().numpy(), self.indices.cpu().numpy(),
+            (host_values(self.data), self.indices.cpu().numpy(),
              self.indptr.cpu().numpy()), shape=self.shape)
+
+    def astype(self, dtype) -> "CSC":
+        return CSC(data=as_values(self.data, dtype), indices=self.indices,
+                   indptr=self.indptr, col_ids=self.col_ids,
+                   shape=self.shape, row_order=self.row_order,
+                   row_ptr=self.row_ptr)

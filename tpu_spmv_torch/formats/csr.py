@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import as_index, as_values, sparse_dataclass
+from .base import as_index, as_values, host_values, sparse_dataclass
 from .coo import COO
 
 __all__ = ["CSR"]
@@ -39,7 +39,7 @@ class CSR:
         """COO → CSR on the host; the result lives on ``coo``'s device."""
         row = coo.row.cpu().numpy()
         col = coo.col.cpu().numpy()
-        data = coo.data.cpu().numpy()
+        data = host_values(coo.data)
         nrow, ncol = coo.shape
         if not coo.rows_sorted:
             order = np.lexsort((col, row))
@@ -48,7 +48,7 @@ class CSR:
         indptr = np.zeros(nrow + 1, dtype=np.int64)
         np.cumsum(counts, out=indptr[1:])
         dev = coo.device
-        return CSR(data=torch.from_numpy(np.ascontiguousarray(data)).to(dev),
+        return CSR(data=as_values(data, coo.dtype, dev),
                    indices=as_index(col, dev), indptr=as_index(indptr, dev),
                    row_ids=as_index(row, dev), shape=(int(nrow), int(ncol)))
 
@@ -80,8 +80,20 @@ class CSR:
         return int(self.data.shape[0])
 
     @property
+    def nrow(self) -> int:
+        return self.shape[0]
+
+    @property
+    def ncol(self) -> int:
+        return self.shape[1]
+
+    @property
     def dtype(self) -> torch.dtype:
         return self.data.dtype
+
+    def row_lengths(self) -> np.ndarray:
+        """Entries per row, on the host."""
+        return np.diff(self.indptr.cpu().numpy())
 
     def diagonal(self) -> torch.Tensor:
         """Row-aligned main diagonal, zero where a row has none.
@@ -105,7 +117,7 @@ class CSR:
         import scipy.sparse as sp
 
         return sp.csr_matrix(
-            (self.data.cpu().numpy(), self.indices.cpu().numpy(),
+            (host_values(self.data), self.indices.cpu().numpy(),
              self.indptr.cpu().numpy()), shape=self.shape)
 
     def astype(self, dtype) -> "CSR":

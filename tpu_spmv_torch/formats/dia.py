@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import sparse_dataclass
+from .base import as_values, host_values, sparse_dataclass
 from .coo import COO
 
 __all__ = ["DIA"]
@@ -43,7 +43,7 @@ class DIA:
         ``np.add.at``, in one pass)."""
         row = coo.row.cpu().numpy()
         col = coo.col.cpu().numpy()
-        vals = coo.data.cpu().numpy()
+        vals = host_values(coo.data)
         nrow, ncol = coo.shape
         if row.size == 0:
             return np.zeros((1, nrow), dtype=vals.dtype), (0,)
@@ -66,7 +66,7 @@ class DIA:
     def from_coo(coo: COO) -> "DIA":
         """COO → DIA; the result lives on ``coo``'s device."""
         data, offs = DIA.host_arrays(coo)
-        return DIA(data=torch.from_numpy(data).to(coo.device), offsets=offs,
+        return DIA(data=as_values(data, coo.dtype, coo.device), offsets=offs,
                    shape=(int(coo.shape[0]), int(coo.shape[1])),
                    nnz=coo.nnz)
 
@@ -75,12 +75,20 @@ class DIA:
         return int(self.data.shape[0])
 
     @property
+    def nrow(self) -> int:
+        return self.shape[0]
+
+    @property
+    def ncol(self) -> int:
+        return self.shape[1]
+
+    @property
     def dtype(self) -> torch.dtype:
         return self.data.dtype
 
     def to_coo(self) -> COO:
         nrow, ncol = self.shape
-        data = self.data.cpu().numpy()
+        data = host_values(self.data)
         rows, cols, vals = [], [], []
         i = np.arange(nrow, dtype=np.int64)
         for d, off in enumerate(self.offsets):
@@ -95,3 +103,7 @@ class DIA:
 
     def todense(self) -> torch.Tensor:
         return self.to_coo().todense()
+
+    def astype(self, dtype) -> "DIA":
+        return DIA(data=as_values(self.data, dtype), offsets=self.offsets,
+                   shape=self.shape, nnz=self.nnz)

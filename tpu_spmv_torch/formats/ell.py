@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import as_index, as_values, sparse_dataclass
+from .base import as_index, as_values, host_values, sparse_dataclass
 from .coo import COO
 
 __all__ = ["ELL"]
@@ -44,7 +44,7 @@ class ELL:
         device."""
         row = coo.row.cpu().numpy().astype(np.int64)
         col = coo.col.cpu().numpy().astype(np.int64)
-        data = coo.data.cpu().numpy()
+        data = host_values(coo.data)
         nrow, ncol = coo.shape
         if not coo.rows_sorted:
             order = np.lexsort((col, row))
@@ -66,7 +66,7 @@ class ELL:
         cols[row, slot] = col
         mask[row, slot] = True
         dev = coo.device
-        return ELL(data=torch.from_numpy(vals).to(dev),
+        return ELL(data=as_values(vals, coo.dtype, dev),
                    cols=as_index(cols, dev),
                    valid=torch.from_numpy(mask).to(dev),
                    shape=(int(nrow), int(ncol)), nnz=int(row.size))
@@ -91,7 +91,7 @@ class ELL:
         mask = self.valid.cpu().numpy()
         row, slot = np.nonzero(mask)
         return COO.from_arrays(row, self.cols.cpu().numpy()[row, slot],
-                               self.data.cpu().numpy()[row, slot], self.shape,
+                               host_values(self.data)[row, slot], self.shape,
                                dtype=self.dtype, device=self.device)
 
     def todense(self) -> torch.Tensor:

@@ -16,6 +16,7 @@ import os
 import gzip
 import numpy as np
 
+from ..formats.base import host_values
 from ..formats.coo import COO
 
 __all__ = [
@@ -24,6 +25,8 @@ __all__ = [
     "read_mtx_arrays",
     "read_matrix",
     "write_matrix",
+    "read_dense",
+    "write_dense",
 ]
 
 _FIELDS = {"real", "integer", "pattern", "complex"}
@@ -223,10 +226,13 @@ def read_mtx_arrays(path_or_file, *, use_native: bool | None = None):
             f.close()
 
 
-def read_matrix(path_or_file, *, dtype=None, device=None) -> COO:
-    """.mtx → :class:`COO` (sorted by row, then column) on ``device``."""
+def read_matrix(path_or_file, *, dtype=None, device=None,
+                sort: bool = True) -> COO:
+    """.mtx → :class:`COO` on ``device``, sorted by row, then column
+    (``sort=False`` keeps the file's order)."""
     row, col, val, shape = read_mtx_arrays(path_or_file)
-    return COO.from_arrays(row, col, val, shape, dtype=dtype, device=device)
+    return COO.from_arrays(row, col, val, shape, dtype=dtype, device=device,
+                           sort=sort)
 
 
 def write_matrix(path_or_file, mat, *, comment: str | None = None) -> None:
@@ -237,7 +243,7 @@ def write_matrix(path_or_file, mat, *, comment: str | None = None) -> None:
     coo = to_coo(mat)
     row = coo.row.cpu().numpy().astype(np.int64) + 1
     col = coo.col.cpu().numpy().astype(np.int64) + 1
-    val = coo.data.cpu().numpy().astype(np.float64)
+    val = host_values(coo.data).astype(np.float64)
     f, should_close = _open(path_or_file, "wt")
     try:
         f.write("%%MatrixMarket matrix coordinate real general\n")
@@ -248,6 +254,45 @@ def write_matrix(path_or_file, mat, *, comment: str | None = None) -> None:
         buf = _io.StringIO()
         np.savetxt(buf, np.column_stack([row, col, val]), fmt="%d %d %.17g")
         f.write(buf.getvalue())
+    finally:
+        if should_close:
+            f.close()
+
+
+def read_dense(path_or_file) -> np.ndarray:
+    """A dense vector or matrix from array-format .mtx, or from the plain
+    vector format (the first line the length, then one value a line)."""
+    f, should_close = _open(path_or_file, "rt")
+    try:
+        first = f.readline()
+        if first.startswith("%%MatrixMarket"):
+            f.seek(0)
+            row, col, val, shape = read_mtx_arrays(f)
+            dense = np.zeros(shape)
+            dense[row, col] = val
+            return dense if shape[1] > 1 else dense[:, 0]
+        n = int(first.split()[0])
+        vals = np.array(f.read().split(), dtype=np.float64)
+        if vals.size != n:
+            raise ValueError(f"vector file declares {n} values, has "
+                             f"{vals.size}")
+        return vals
+    finally:
+        if should_close:
+            f.close()
+
+
+def write_dense(path_or_file, vec) -> None:
+    """Write a vector (numpy or a tensor, flattened) in the plain vector
+    format :func:`read_dense` reads."""
+    if hasattr(vec, "detach"):
+        vec = host_values(vec)
+    arr = np.asarray(vec).ravel()
+    f, should_close = _open(path_or_file, "wt")
+    try:
+        f.write(f"{arr.size}\n")
+        for v in arr:
+            f.write(f"{v:.17g}\n")
     finally:
         if should_close:
             f.close()

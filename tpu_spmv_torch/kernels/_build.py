@@ -54,6 +54,8 @@ _SIGNATURES = {
     "tsp_gpr_spmv_f64": [_P] * 6 + [_I64] * 5 + [_P],
     "tsp_ell_spmv_f32": [_P] * 5 + [_I64, _P],
     "tsp_ell_spmv_f64": [_P] * 5 + [_I64, _P],
+    "tsp_gpr_spmv_bf16f32": [_P] * 6 + [_I64] * 5 + [_P],
+    "tsp_ell_spmv_bf16f32": [_P] * 5 + [_I64, _P],
     "tsp_sdia_spmm_f32": [_P, _P, _I, _P] + [_I] * 6 + [_I64, _P, _P,
                                                           _I64, _I64, _I64,
                                                           _I, _P],

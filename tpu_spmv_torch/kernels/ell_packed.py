@@ -26,6 +26,13 @@ Every output sums its row's slots in order, so each column of
 ``ell_spmm`` is bitwise ``ell_spmv``'s.
 On a CPU tensor they run the plain versions :func:`spmv_ell_packed_ref` and
 :func:`spmm_ell_packed_ref`.  Nothing falls back from one to the other.
+
+``pack_ell(dtype=torch.bfloat16)`` stores the slots' values (and the side
+COO's) in bf16, rounded once, for a float32 x: the SpMV runs the kernel's
+bf16-data form (``ell_spmv<float, __nv_bfloat16>``), whose plain version
+adds the float32 products of a row's slots one at a time in slot order, as
+the kernel does, so the two agree bit for bit.  The SpMM takes no bf16
+data yet and raises.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import numpy as np
 import torch
 
 from ..formats import COO
-from ..formats.base import sparse_dataclass
+from ..formats.base import as_values, sparse_dataclass
 from . import _build
 from .gpr import _check, _host_csr, _value_dtype
 
@@ -47,9 +54,10 @@ __all__ = ["PackedELL", "SLICE", "MAX_WIDTH", "LAUNCHES", "pack_ell",
 SLICE = 32
 #: slots per row at most; the rest of a row goes to the side COO
 MAX_WIDTH = 128
-#: kernel launches by :func:`spmv_ell_main` and :func:`spmm_ell_main` on
-#: CUDA tensors (plain-version calls on CPU tensors are not counted)
-LAUNCHES = {"ell": 0, "ell_spmm": 0}
+#: kernel launches by :func:`spmv_ell_main` (``"ell_bf16"``: its bf16-data
+#: form) and :func:`spmm_ell_main` on CUDA tensors (plain-version calls on
+#: CPU tensors are not counted)
+LAUNCHES = {"ell": 0, "ell_bf16": 0, "ell_spmm": 0}
 
 
 @sparse_dataclass
@@ -90,7 +98,9 @@ def slice_slots(counts: np.ndarray) -> tuple[np.ndarray, int]:
 def pack_ell(mat, *, dtype=None, device="cuda") -> PackedELL:
     """Pack a scipy matrix or a port format (host numpy) into a
     :class:`PackedELL` on ``device``.  ``dtype=None`` keeps the matrix's
-    own value type (float32, else float64)."""
+    own value type (float32, else float64); ``torch.bfloat16`` stores the
+    values rounded to bf16 once, in the same slots as the float32 pack of
+    the rounded matrix."""
     dtype = _value_dtype(mat, dtype)
     indptr, cols, data, (nrow, ncol) = _host_csr(mat, dtype)
     if ncol > 2**31 - 1:
@@ -111,7 +121,8 @@ def pack_ell(mat, *, dtype=None, device="cuda") -> PackedELL:
     side = COO.from_arrays(row_ids[~main], cols[~main], data[~main],
                            (nrow, ncol), dtype=dtype, device=device)
     up = lambda a: torch.from_numpy(a).to(device)
-    return PackedELL(vals=up(vals), cols=up(scol), slice_ptr=up(slice_ptr),
+    return PackedELL(vals=as_values(vals, dtype, device), cols=up(scol),
+                     slice_ptr=up(slice_ptr),
                      side=side, shape=(int(nrow), int(ncol)),
                      nnz=int(len(cols)))
 
@@ -134,10 +145,18 @@ def spmv_ell_packed_ref(A: PackedELL, x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel: each row's slots gathered into
     a ``[nrow, width]`` block (pad slots and slots past the slice's width
     add 0) and summed over the slots (``[ncol] -> [nrow]``, without the
-    side COO)."""
+    side COO).  On bf16 data the kernel's bf16-data arithmetic: each
+    product rounded to x's type (bf16 widens exactly), then added to the
+    row's sum from zero one slot at a time, slots of the slice's width in
+    order."""
     idx, valid = _slot_index(A, x.device)
-    g = (A.vals * x[A.cols])[idx]
-    return torch.where(valid, g, torch.zeros_like(g)).sum(dim=1)
+    g = (A.vals.to(x.dtype) * x[A.cols])[idx]
+    if A.vals.dtype != torch.bfloat16:
+        return torch.where(valid, g, torch.zeros_like(g)).sum(dim=1)
+    acc = torch.zeros(A.shape[0], dtype=x.dtype, device=x.device)
+    for j in range(g.shape[1]):
+        acc = torch.where(valid[:, j], acc + g[:, j], acc)
+    return acc
 
 
 def spmm_ell_packed_ref(A: PackedELL, X: torch.Tensor) -> torch.Tensor:
@@ -160,16 +179,19 @@ def spmv_ell_main(A: PackedELL, x: torch.Tensor) -> torch.Tensor:
     """The sliced-ELL part of ``A @ x`` (``[ncol] -> [nrow]``, without the
     side COO).
 
-    CUDA tensor: launches ``ell_spmv`` (``csrc/general.cu``); CPU tensor:
-    :func:`spmv_ell_packed_ref`."""
+    CUDA tensor: launches ``ell_spmv`` (``csrc/general.cu``; on bfloat16
+    data against a float32 x its bf16-data form, counted apart); CPU
+    tensor: :func:`spmv_ell_packed_ref`."""
     _check_ell("spmv_ell", A, x)
     if x.is_cpu:
         return spmv_ell_packed_ref(A, x)
+    bf16 = A.vals.dtype == torch.bfloat16
     y = x.new_empty(A.shape[0])
-    _build.launcher("ell_spmv", x.dtype)(
-        x, A.vals.data_ptr(), A.cols.data_ptr(), A.slice_ptr.data_ptr(),
-        x.data_ptr(), y.data_ptr(), A.shape[0])
-    LAUNCHES["ell"] += 1
+    launch = (_build.launcher("ell_spmv_bf16f32") if bf16
+              else _build.launcher("ell_spmv", x.dtype))
+    launch(x, A.vals.data_ptr(), A.cols.data_ptr(), A.slice_ptr.data_ptr(),
+           x.data_ptr(), y.data_ptr(), A.shape[0])
+    LAUNCHES["ell_bf16" if bf16 else "ell"] += 1
     return y
 
 

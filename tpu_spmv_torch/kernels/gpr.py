@@ -41,6 +41,13 @@ their kernels (built at first use, :mod:`._build`) and count the launch in
 :data:`LAUNCHES`; on a CPU tensor they run the plain versions
 :func:`spmv_gpr_ref` and :func:`spmm_gpr_ref`.  Nothing falls back
 from one to the other.
+
+``pack_gpr(dtype=torch.bfloat16)`` stores the coefficients in bf16 (the
+values rounded once) for a float32 x: the SpMV then runs the kernel's
+bf16-data form (``gpr_spmv<float, __nv_bfloat16>``), whose plain version
+sums the float32 products in the kernel's own order (lanes, then the
+butterfly; :func:`gpr_rows_ordered`), so the two agree bit for bit.  The
+SpMM takes no bf16 data yet and raises.
 """
 
 from __future__ import annotations
@@ -49,19 +56,25 @@ import numpy as np
 import torch
 
 from ..formats import to_coo
-from ..formats.base import sparse_dataclass, torch_dtype
+from ..formats.base import (as_values, host_values, sparse_dataclass,
+                           torch_dtype)
 from . import _build
 
 __all__ = ["GPCSR", "CLASS_W", "LANES", "LAUNCHES", "pack_gpr", "supports",
-           "spmv_gpr_rows", "spmv_gpr_ref", "fold_hub_rows", "spmv_gpr",
-           "spmm_gpr_rows", "spmm_gpr_ref", "spmm_gpr"]
+           "spmv_gpr_rows", "spmv_gpr_ref", "gpr_rows_ordered",
+           "fold_hub_rows", "spmv_gpr", "spmm_gpr_rows", "spmm_gpr_ref",
+           "spmm_gpr"]
 
 LANES = 128
 #: width-class budgets: a row of n entries goes to the first W >= n
 CLASS_W = (8, 16, 32, 64, 128)
-#: kernel launches by :func:`spmv_gpr_rows` and :func:`spmm_gpr_rows` on
-#: CUDA tensors (plain-version calls on CPU tensors are not counted)
-LAUNCHES = {"gpr": 0, "gpr_spmm": 0}
+#: lanes a row of each width class (a quarter of the class width), as the
+#: kernel gives them
+CLASS_LANES = tuple(w // 4 for w in CLASS_W)
+#: kernel launches by :func:`spmv_gpr_rows` (``"gpr_bf16"``: its bf16-data
+#: form) and :func:`spmm_gpr_rows` on CUDA tensors (plain-version calls on
+#: CPU tensors are not counted)
+LAUNCHES = {"gpr": 0, "gpr_bf16": 0, "gpr_spmm": 0}
 #: the kernel's column indices are int32
 _MAX_NCOL = 2**31 - 1
 
@@ -107,15 +120,21 @@ def supports(shape, nnz) -> bool:
 
 def _host_csr(mat, dtype):
     """``(indptr int64, cols int64, data, shape)`` of a scipy matrix or a
-    port format, columns sorted within each row."""
+    port format, columns sorted within each row; bfloat16 ``dtype``: the
+    values rounded to bf16 once, held as float32 (numpy has no bf16)."""
     if not hasattr(mat, "tocsr"):
         mat = to_coo(mat).to_scipy()
     csr = mat.tocsr()
     csr.sort_indices()
-    np_dtype = np.float32 if torch_dtype(dtype) == torch.float32 else np.float64
+    dtype = torch_dtype(dtype)
+    data = np.asarray(csr.data)
+    if dtype == torch.bfloat16:
+        data = host_values(as_values(data, dtype))
+    else:
+        data = data.astype(np.float32 if dtype == torch.float32
+                           else np.float64)
     return (np.asarray(csr.indptr, dtype=np.int64),
-            np.asarray(csr.indices, dtype=np.int64),
-            np.asarray(csr.data).astype(np_dtype), csr.shape)
+            np.asarray(csr.indices, dtype=np.int64), data, csr.shape)
 
 
 def _value_dtype(mat, dtype):
@@ -134,7 +153,8 @@ def pack_gpr(mat, *, dtype=None, device="cuda") -> GPCSR:
     reference's pattern rules) into a :class:`GPCSR` on ``device``.
 
     ``dtype=None`` keeps the matrix's own value type (float32, else
-    float64)."""
+    float64); ``torch.bfloat16`` stores the values rounded to bf16 once,
+    in the same places as the float32 pack of the rounded matrix."""
     dtype = _value_dtype(mat, dtype)
     indptr, cols, data, (nrow, ncol) = _host_csr(mat, dtype)
     if not supports((nrow, ncol), len(cols)):
@@ -180,7 +200,8 @@ def pack_gpr(mat, *, dtype=None, device="cuda") -> GPCSR:
     hub_ptr = np.append(starts, len(hub_owner)).astype(np.int64)
     up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return GPCSR(rows=up(row_order.astype(np.int32)), indptr=up(s_indptr),
-                 indices=up(cols[src].astype(np.int32)), data=up(data[src]),
+                 indices=up(cols[src].astype(np.int32)),
+                 data=as_values(data[src], dtype, device),
                  hub_owner=up(hub_owner),
                  hub_rows=up(hub_owner[starts].astype(np.int64)),
                  hub_ptr=up(hub_ptr), shape=(int(nrow_logical), int(ncol)),
@@ -191,11 +212,46 @@ def pack_gpr(mat, *, dtype=None, device="cuda") -> GPCSR:
 def spmv_gpr_ref(A: GPCSR, x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the kernel: ``y_int[rows[r]] = Σ data·x[
     indices]`` over sorted row ``r``'s entries, a row-owned segment sum
-    (``[ncol] -> [nrow + nv]``, internal row space)."""
+    (``[ncol] -> [nrow + nv]``, internal row space).  On bf16 data: the
+    bf16-data form's exact arithmetic, :func:`gpr_rows_ordered`."""
+    if A.data.dtype == torch.bfloat16:
+        return gpr_rows_ordered(A, x)
     sums = torch.segment_reduce(A.data * x[A.indices], "sum",
                                 offsets=A.indptr, axis=0)
     y = torch.empty(A.nrow_internal, dtype=x.dtype, device=x.device)
     y[A.rows.long()] = sums            # a permutation: one writer per row
+    return y
+
+
+def gpr_rows_ordered(A: GPCSR, x: torch.Tensor) -> torch.Tensor:
+    """Every internal row's sum in the bf16-data kernel's own order
+    (``[ncol] -> [nrow + nv]``): each product ``data·x`` rounded to x's
+    type (bf16 widens exactly), lane ``l`` of a class's ``T`` lanes
+    summing the row's entries ``l, l + T, l + 2T, ...`` in turn from
+    zero, then the lanes combined as the kernel's butterfly does (lane
+    ``l`` plus lane ``l + h``, ``h = T/2, T/4, ..., 1``).  Bit for bit the
+    kernel's result."""
+    prod = A.data.to(x.dtype) * x[A.indices]
+    y = torch.empty(A.nrow_internal, dtype=x.dtype, device=x.device)
+    first = 0
+    for lanes, n in zip(CLASS_LANES, A.class_rows):
+        if not n:
+            continue
+        ptr = A.indptr[first:first + n + 1]
+        begin, count = ptr[:-1], ptr[1:] - ptr[:-1]
+        steps = -(-int(count.max()) // lanes)
+        k = torch.arange(steps * lanes, device=x.device)
+        valid = k[None, :] < count[:, None]
+        idx = torch.where(valid, begin[:, None] + k[None, :], 0)
+        g, valid = (t.reshape(n, steps, lanes) for t in (prod[idx], valid))
+        acc = torch.zeros(n, lanes, dtype=x.dtype, device=x.device)
+        for e in range(steps):
+            acc = torch.where(valid[:, e], acc + g[:, e], acc)
+        while acc.shape[1] > 1:
+            h = acc.shape[1] // 2
+            acc = acc[:, :h] + acc[:, h:]
+        y[A.rows[first:first + n].long()] = acc[:, 0]
+        first += n
     return y
 
 
@@ -214,15 +270,22 @@ def _check(name: str, A, x: torch.Tensor, ndim: int = 1, *,
            values: torch.Tensor | None = None, arrays=None) -> None:
     """Raise on anything the kernels do not take: ``x`` is ``[ncol]``, or
     ``[ncol, nrhs]`` with ``ndim=2``, and matches the matrix ``values``
-    (default: a :class:`GPCSR`'s data) in type and device; ``arrays`` (by
-    default the GPCSR's) must be contiguous."""
+    (default: a :class:`GPCSR`'s data) in type and device, bfloat16
+    values pairing with a float32 x, and only where there is one vector
+    (the SpMVs' bf16-data forms); ``arrays`` (by default the GPCSR's) must
+    be contiguous."""
     values = A.data if values is None else values
     if arrays is None:
         arrays = (A.rows, A.indptr, A.indices, A.data)
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: x must be float32 or float64, "
                         f"got {x.dtype}")
-    if values.dtype != x.dtype:
+    if values.dtype == torch.bfloat16 and ndim != 1:
+        raise TypeError(f"{name}: no kernel for bfloat16 data (the SpMM's "
+                        f"bf16-data form is not ported yet); pack in "
+                        f"float32")
+    mixed = values.dtype == torch.bfloat16 and x.dtype == torch.float32
+    if values.dtype != x.dtype and not mixed:
         raise TypeError(f"{name}: matrix is {values.dtype} but x is "
                         f"{x.dtype}")
     if values.device != x.device:
@@ -241,15 +304,18 @@ def spmv_gpr_rows(A: GPCSR, x: torch.Tensor) -> torch.Tensor:
     [nrow + nv]``), before the virtual-row fold.
 
     CUDA tensor: launches ``gpr_spmv`` (``csrc/general.cu``), one launch
-    for all classes; CPU tensor: :func:`spmv_gpr_ref`."""
+    for all classes (on bfloat16 data against a float32 x its bf16-data
+    form, counted apart); CPU tensor: :func:`spmv_gpr_ref`."""
     _check("spmv_gpr", A, x)
     if x.is_cpu:
         return spmv_gpr_ref(A, x)
+    bf16 = A.data.dtype == torch.bfloat16
     y = x.new_empty(A.nrow_internal)
-    _build.launcher("gpr_spmv", x.dtype)(
-        x, A.rows.data_ptr(), A.indptr.data_ptr(), A.indices.data_ptr(),
-        A.data.data_ptr(), x.data_ptr(), y.data_ptr(), *A.class_rows)
-    LAUNCHES["gpr"] += 1
+    launch = (_build.launcher("gpr_spmv_bf16f32") if bf16
+              else _build.launcher("gpr_spmv", x.dtype))
+    launch(x, A.rows.data_ptr(), A.indptr.data_ptr(), A.indices.data_ptr(),
+           A.data.data_ptr(), x.data_ptr(), y.data_ptr(), *A.class_rows)
+    LAUNCHES["gpr_bf16" if bf16 else "gpr"] += 1
     return y
 
 
