@@ -11,12 +11,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build — ``nvcc`` compiles ``tpu_spmv_torch/csrc/dia_stream.cu``,
    ``general.cu``, ``dist_stream.cu``, ``permute.cu`` and ``probes.cu``
    for ``sm_90a`` (one process each, started together) into one library
-   under ``build/tpu_spmv_torch/``; then ``nvcc -Xptxas -v`` of
-   ``general.cu``, ``permute.cu``, ``dia_stream.cu`` and ``probes.cu``
-   prints the registers, spills and static shared memory of every
-   instantiation of ``gpr_spmv``, ``ell_spmv``, ``gpr_spmm`` and
+   under ``build/tpu_spmv_torch/``; at the same time ``nvcc -Xptxas -v``
+   of ``general.cu``, ``permute.cu``, ``dia_stream.cu``,
+   ``dist_stream.cu`` and ``probes.cu``, which prints the registers,
+   spills and static shared memory of every instantiation (the bf16-data
+   forms too) of ``gpr_spmv``, ``ell_spmv``, ``gpr_spmm`` and
    ``ell_spmm`` (``gpr_spmm_lanes``, ``ell_spmm_lanes`` on 2 or 4 lanes of
-   one RHS), the gathers ``permute_gather``, ``permute_pass1``,
+   one RHS), ``sdia_ring`` (K8a), the gathers ``permute_gather``, ``permute_pass1``,
    ``permute_pass2`` and their forms on rows ``permute_gather_batched``
    and ``permute_rows_two_pass``, the two walks of K3a and K3b
    (``dia_spmm_stride``,
@@ -174,6 +175,31 @@ Phases, in order; any failure raises and the script exits non-zero:
       seconds; the CLI twice as a subprocess, ``--synthetic
       powerlaw:400000,13 --auto --dtype bfloat16 --cache DIR`` (the second
       run reloads the pack and writes a ``--profile`` trace);
+   i. bf16 data on the SpMMs and the distributed path: ``plan_spmv(dtype=
+      torch.bfloat16)`` of 4a's 4096x4096 Poisson and ``plan.spmm`` with
+      32 right-hand sides (K3b on the widened pattern, bitwise the f32
+      plan's on these exact values), the same matrix's 32-RHS SDIA pack of
+      4c at bf16 through ``plan.spmm`` (K3a bf16), the bf16 plans of 4b's
+      ``random_sparse(2000000, 2000000, 8e-6)`` (``gpr_spmm`` bf16) and
+      shuffled 2048x2048 Poisson (``ell_spmm`` bf16; also in its natural
+      order, sliced ELL forced), each within 2e-5 of scipy on the
+      bf16-rounded matrix and 2e-2 of the unrounded one;
+      ``cg_multi_runner`` with 8 right-hand sides on the bf16 plan of the
+      screened Poisson to a true residual <= 1e-5; ``plan_dist_spmv(dtype=
+      torch.bfloat16)`` at 4 shards on the card of the Poisson (K8b on the
+      widened pattern), the Poisson forced to ``dia_stream`` (K8a bf16)
+      and the 2M-row matrix (``ShardedGPR`` bf16), each through
+      ``bench_dist_spmv``'s bf16 gate, beside the single-card bf16 plan's
+      chain (parity; the streaming products bitwise it); ``spmm_allgather``,
+      ``spmm_halo`` and ``spmm_neighbor`` at 4 shards with 8 right-hand
+      sides on the shuffled Poisson against scipy; then, the counters
+      read, the four bf16-data forms (K3a ``sdia_spmm_bf16``,
+      ``gpr_spmm_bf16``, ``ell_spmm_bf16``, K8a ``sdia_ring_bf16`` at one
+      shard) bitwise their plain versions at those shapes, timed beside
+      the f32 kernel of the same matrix, their bounds, plain versions and
+      cuSPARSE on bf16 data where torch has the call; the CLI as a
+      subprocess with ``--dtype bfloat16 --spmm 32 --dist 4 --solve cg
+      --solve-nrhs 8`` (all shards on the card);
 5. the probe path first (``run_probes``: ``copy_scale`` and torch's
    ``copy_`` over 256 MiB, whose higher rate is the roofline's peak, the
    launch probe once and four in a row, ``segsum8`` and every
@@ -326,11 +352,12 @@ _MANGLED = {"f": "float", "d": "double", "h": "uint8", "t": "uint16",
             "j": "uint32", "m": "uint64", "i": "int32", "l": "int64"}
 
 
-def ptxas_usage(sources: dict) -> list[str]:
+def ptxas_usage(sources: dict, during=None) -> list[str]:
     """Registers, spills and static shared memory of kernels, as
     ``nvcc -Xptxas -v`` reports them: ``sources`` maps a ``csrc`` file to
     the kernel names to report (one nvcc per file, all started together,
-    into a temporary directory)."""
+    into a temporary directory); ``during()``, if given, runs while they
+    compile (the library's own build, on the same cores)."""
     import re
     import tempfile
 
@@ -343,6 +370,14 @@ def ptxas_usage(sources: dict) -> list[str]:
              f"{tmp}/{src}.o", str(ROOT / "tpu_spmv_torch" / "csrc" / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src in sources}
+        if during is not None:
+            try:
+                during()
+            except BaseException:
+                for proc in procs.values():     # stop what this started
+                    proc.kill()
+                    proc.wait()
+                raise
         for src, proc in procs.items():
             out = proc.communicate()[0]
             require(proc.returncode == 0, f"nvcc -Xptxas -v {src}:\n{out}")
@@ -659,40 +694,50 @@ def main() -> int:
 
     # -- 2. build -----------------------------------------------------------
     print("== 2. build")
+    # the library's build and `nvcc -Xptxas -v` of the sources it reports
+    # run at the same time: what ptxas gives each instantiation of the
+    # kernels redesigned last (gpr_spmv<value type, stored type>; gpr_spmm
+    # and ell_spmm<value type, stored type, lanes a row, RHS a lane> (one
+    # body) and, on 2 or 4 lanes of one RHS, gpr_spmm_lanes and
+    # ell_spmm_lanes<value type, stored type, lanes a row>; the two walks
+    # of K3a and K3b, dia_spmm_stride and dia_spmm_clusters<value type,
+    # stored type, threads along the RHS, elements per copy, the SDIA data
+    # rows as the coefficients (K3a)>; K8a's sdia_ring<value type, stored
+    # type>; the stored type is bf16 in the bf16-data forms; the walks of
+    # K2 and K8b, psdia_walk_bulk<value type> and psdia_walk_stride and
+    # psdia_walk_clusters<value type, elements per copy>;
+    # tile_permute<sums of eight>; the walks' dynamic shared memory is the
+    # host plan's, which phase 5 prints)
     t0 = time.perf_counter()
-    _build.load()
+    build_s = []
+
+    def build():
+        tb = time.perf_counter()
+        _build.load()
+        build_s.append(time.perf_counter() - tb)
+
+    lines = ptxas_usage({"general.cu": ("gpr_spmv", "gpr_spmm",
+                                        "gpr_spmm_lanes", "ell_spmv",
+                                        "ell_spmm", "ell_spmm_lanes"),
+                         "permute.cu": ("permute_gather", "permute_pass1",
+                                        "permute_pass2",
+                                        "permute_gather_batched",
+                                        "permute_rows_two_pass"),
+                         "dia_stream.cu": ("dia_spmm_stride",
+                                           "dia_spmm_clusters",
+                                           "psdia_walk_bulk",
+                                           "psdia_walk_stride",
+                                           "psdia_walk_clusters"),
+                         "dist_stream.cu": ("sdia_ring",),
+                         "probes.cu": ("tile_permute",)}, during=build)
     print(f"nvcc {' '.join(_build.NVCC_FLAGS)} -c, one process per source "
           f"of tpu_spmv_torch/csrc/{{{','.join(_build._SOURCES)}}}, then "
           f"-shared -> {_build.library_path().relative_to(ROOT)} "
-          f"in {time.perf_counter() - t0:.2f} s")
-    # the kernels redesigned last: what ptxas gives each instantiation
-    # (gpr_spmv<value type>; gpr_spmm and ell_spmm<value type, lanes a
-    # row, RHS a lane> (one body) and, on 2 or 4 lanes of one RHS,
-    # gpr_spmm_lanes and ell_spmm_lanes<value type, lanes a row>;
-    # the two walks of K3a and K3b, dia_spmm_stride and
-    # dia_spmm_clusters<value type, threads along the RHS, elements per
-    # copy, the SDIA data rows as the coefficients (K3a)>; the walks of K2
-    # and K8b, psdia_walk_bulk<value type> and psdia_walk_stride and
-    # psdia_walk_clusters<value type, elements per copy>; tile_permute<sums
-    # of eight>; the walks' dynamic shared memory is the host plan's, which
-    # phase 5 prints)
-    t0 = time.perf_counter()
-    for line in ptxas_usage({"general.cu": ("gpr_spmv", "gpr_spmm",
-                                            "gpr_spmm_lanes", "ell_spmv",
-                                            "ell_spmm", "ell_spmm_lanes"),
-                             "permute.cu": ("permute_gather", "permute_pass1",
-                                            "permute_pass2",
-                                            "permute_gather_batched",
-                                            "permute_rows_two_pass"),
-                             "dia_stream.cu": ("dia_spmm_stride",
-                                               "dia_spmm_clusters",
-                                               "psdia_walk_bulk",
-                                               "psdia_walk_stride",
-                                               "psdia_walk_clusters"),
-                             "probes.cu": ("tile_permute",)}):
+          f"in {build_s[0]:.2f} s (beside nvcc -Xptxas -v of general.cu, "
+          f"permute.cu, dia_stream.cu, dist_stream.cu and probes.cu; both "
+          f"{time.perf_counter() - t0:.2f} s)")
+    for line in lines:
         print(f"ptxas {line}")
-    print(f"(nvcc -Xptxas -v of general.cu, permute.cu, dia_stream.cu and "
-          f"probes.cu: {time.perf_counter() - t0:.2f} s)")
 
     # -- 3. kernels against plain versions, small operands ------------------
     print("== 3. kernels vs plain versions (small operands)")
@@ -1959,6 +2004,9 @@ def main() -> int:
         print(f"    converged={bool(res.converged)}, true rel residual "
               f"(scipy f64) {tr:.3e}")
         require(tr <= 1e-5, f"{label} true residual {tr:.3e}")
+        # GMRES restarts while its true residual is above tol and falls
+        require(bool(res.converged) or not label.startswith("gmres"),
+                f"{label}: its own flag is False at {tr:.3e}")
     del res, color, cheb
 
     # MG-PCG on the unscreened operator beside plain CG (b = A x_true)
@@ -2326,6 +2374,315 @@ def main() -> int:
     shutil.rmtree(ckdir)
     print(f"  (phase 4h {time.perf_counter() - t4h:.1f} s)")
 
+    # -- 4i. bf16 data on the SpMMs and the distributed path ---------------
+    print(f"== 4i. bf16 data on the SpMMs, cg_multi and the distributed "
+          f"planner, the distributed SpMMs, the CLI (counters zeroed; "
+          f"{card})")
+    t4i = time.perf_counter()
+    lap_name, big = "shuffled laplacian_2d(2048)", "random_sparse(2000000,8e-6)"
+    zero(*counters)
+    # the main path: plan_spmv(dtype=bfloat16) -> plan.spmm(X) on every
+    # arm with a kernel (K3b on the widened pattern, K3a bf16, gpr_spmm
+    # bf16, ell_spmm bf16), cg_multi_runner on a bf16 plan,
+    # plan_dist_spmv(dtype=bfloat16) at 4 shards, the distributed SpMMs
+    t0 = time.perf_counter()
+    plan16 = plan_spmv(mat, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    p16_s = time.perf_counter() - t0
+    require(plan16.strategy == "pdia_stream"
+            and plan16.matrix.pattern.dtype == torch.bfloat16
+            and plan16.matrix.rb == P.rb, "the bf16 plan of the Poisson")
+    # the 32-RHS SDIA pack of 4c at bf16: pack_sdia(data_dtype=bfloat16,
+    # nrhs=32)'s pack at the same tile (its data are the f32 pack's, cast)
+    require(ds._auto_rb(S32.ndiags, S32.offsets, n, nrhs=NRHS, itemsize=2)
+            == S32.rb, "the bf16 SDIA tile for 32 RHS differs from f32's")
+    S16 = dataclasses.replace(S32, data=S32.data.to(torch.bfloat16))
+    sdia16 = plan_from_matrix(S16, "dia_stream")
+    ys = {"K3b (pdia_stream, widened pattern)": plan16.spmm(X),
+          "K3a bf16 (dia_stream forced)": sdia16.spmm(X)}
+    t0 = time.perf_counter()
+    gp16 = {name: plan_spmv(general[name], dtype=torch.bfloat16, device=dev)
+            for name in (big, lap_name)}
+    gp16["natural laplacian_2d(2048) (forced)"] = plan_from_matrix(
+        ell.pack_ell(lap_n, dtype=torch.bfloat16, device=dev), "pallas_ell")
+    torch.cuda.synchronize()
+    g16_s = time.perf_counter() - t0
+    Xn = torch.rand(lap_n.shape[1], NRHS, generator=gen, device=dev)
+    gX16 = {big: gX[big], lap_name: gX[lap_name],
+            "natural laplacian_2d(2048) (forced)": Xn}
+    for name, p in gp16.items():
+        require(p.strategy == ("gpr" if name == big else "pallas_ell")
+                and p.matrix.dtype == torch.bfloat16, f"bf16 {name}")
+        ys[name] = p.spmm(gX16[name])
+    # cg_multi_runner with 8 RHS on the bf16 plan of the screened Poisson
+    # (4e's shift_diagonal on the bf16 pattern: 5 is exact in bf16)
+    scr16 = plan_from_matrix(shift_diagonal(plan16.matrix, 1.0),
+                             "pdia_stream")
+    scr32 = plan_from_matrix(shift_diagonal(P, 1.0), "pdia_stream")
+    B8 = torch.rand(n, 8, generator=gen, device=dev)
+    run = cg_multi_runner(scr16, iters=40, report_tol=1e-5)
+    run(B8)                                  # warm-up
+    start.record()
+    res8 = run(B8)
+    end.record()
+    end.synchronize()
+    cgm16_ms = start.elapsed_time(end) / 40
+    r40 = float((torch.linalg.norm(B8 - scr32.spmm(res8.x), dim=0)
+                 / torch.linalg.norm(B8, dim=0)).max())
+    # plan_dist_spmv(dtype=bfloat16) at 4 shards on the one card
+    t0 = time.perf_counter()
+    dplans = {"pdia_stream": tdist.plan_dist_spmv(mat, meshes[4],
+                                                  dtype=torch.bfloat16),
+              "dia_stream": tdist.plan_dist_spmv(mat, meshes[4],
+                                                 dtype=torch.bfloat16,
+                                                 strategy="dia_stream"),
+              "gpr": tdist.plan_dist_spmv(general[big], meshes[4],
+                                          dtype=torch.bfloat16)}
+    torch.cuda.synchronize()
+    dp_s = time.perf_counter() - t0
+    dres = {}
+    for strategy, dplan in dplans.items():
+        require(dplan.strategy == strategy, f"bf16 dist plan picked "
+                f"{dplan.strategy}, not {strategy}")
+        host = general[big] if strategy == "gpr" else mat
+        dres[strategy] = tdist.bench_dist_spmv(
+            host, meshes[4], dtype=torch.bfloat16, plan=dplan, iters=20,
+            quiet=True)
+    # the distributed SpMMs at 4 shards, 8 RHS, on the shuffled Poisson
+    msh = general[lap_name].astype(np.float32)   # float32 values and X
+    X8h = rng.random((msh.shape[1], 8)).astype(np.float32)
+    t0 = time.perf_counter()
+    dspmm = {}
+    for strategy, cls, fn in (
+            ("csr_allgather", tdist.ShardedCSR, tdist.spmm_allgather),
+            ("csr_halo", tdist.HaloCSR, tdist.spmm_halo),
+            ("csr_neighbor", tdist.NeighborCSR, tdist.spmm_neighbor)):
+        Ad = tdist.place(cls.build(msh, 4, square=True), meshes[4])
+        Xs = tdist.place(tdist.ShardedVector.from_global(X8h, Ad.col_plan),
+                         meshes[4])
+        dspmm[strategy] = (Ad, Xs, fn, fn(meshes[4], Ad, Xs))
+    torch.cuda.synchronize()
+    dspmm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    i_launches = {k: v for c in counters for k, v in c.items() if v}
+    print(f"launch counts on the 4i path: {i_launches}")
+    for k in ("psdia_spmm", "sdia_spmm_bf16", "gpr_spmm_bf16",
+              "ell_spmm_bf16", "sdia_ring_bf16", "psdia_ring", "gpr_bf16"):
+        require(i_launches.get(k, 0) > 0, f"{k} never launched in 4i")
+    print(f"  host planning: plan_spmv(4096^2 Poisson, bfloat16) "
+          f"{p16_s:.2f} s (pattern {plan16.matrix.pattern.dtype}, rb "
+          f"{plan16.matrix.rb}); the general bf16 plans {g16_s:.2f} s; "
+          f"plan_dist_spmv(bfloat16) x 3 at 4 shards {dp_s:.2f} s; the "
+          f"three CSR containers (host builds) and SpMMs {dspmm_s:.2f} s")
+
+    # each product: against scipy float64 on the bf16-rounded matrix
+    # (2e-5) and the unrounded one (2e-2) on two columns (the Poisson's
+    # values are exact in bf16, so its two oracles are one); the
+    # streaming SpMMs also bitwise the f32 plan's on exact values
+    yf = plan.spmm(X)
+    require(torch.equal(ys["K3b (pdia_stream, widened pattern)"], yf),
+            "K3b on the bf16 plan differs from the f32 plan's product")
+    e3a = float((ys["K3a bf16 (dia_stream forced)"] - yf).abs().max()
+                / yf.abs().max())
+    require(e3a <= PLAIN_TOL["float32"], f"K3a bf16 vs K3b f32 {e3a:.2e}")
+    del yf
+    for name, Y in ys.items():
+        m = (general.get(name) if name in general else
+             lap_n if name.startswith("natural") else mat)
+        Xh = (X if name.startswith("K3") else gX16[name])
+        cols = [0, NRHS - 1]
+        Xc = Xh[:, cols].cpu().double().numpy()
+        e_r = rel_err(Y[:, cols].cpu(), bf16_rounded(m) @ Xc)
+        e_u = rel_err(Y[:, cols].cpu(), m @ Xc)
+        print(f"  plan.spmm({NRHS} RHS) on the bf16 plan, {name}: y "
+              f"{Y.dtype} | columns 0 and {NRHS - 1} vs scipy f64 of the "
+              f"bf16-rounded matrix {e_r:.2e} (gate 2e-5), of the unrounded "
+              f"one {e_u:.3e} (gate 2e-2)")
+        require(Y.dtype == torch.float32 and e_r <= 2e-5 and e_u <= 2e-2,
+                f"bf16 plan.spmm {name}: {e_r:.2e} / {e_u:.2e}")
+    del ys
+    tr8 = float(res8.residual_norm.max())
+    print(f"  cg_multi_runner(iters=40) on the bf16 plan of the screened "
+          f"4096^2 Poisson, 8 RHS (float32 B): {cgm16_ms:.4f} ms/iteration "
+          f"(4c's f32 plan of the unscreened operator: "
+          f"{cgm['laplacian_2d(4096)']:.4f}) | max true rel residual (the "
+          f"f32 plan's product) {r40:.3e} (limit 1e-5)")
+    require(np.isfinite(r40) and r40 <= 1e-5 and np.isfinite(tr8),
+            f"cg_multi on the bf16 plan: {r40:.3e}")
+    del B8, res8, run, scr16, scr32
+    # the distributed bf16 plans: the chain's product bitwise the
+    # single-card bf16 plan's, and its time beside that plan's chain
+    # (parity), each checked by bench_dist_spmv's bf16 gate
+    single = {"pdia_stream": (plan16.matrix, ds.spmv_psdia_padded),
+              "dia_stream": (dataclasses.replace(
+                  S, data=S.data.to(torch.bfloat16)), ds.spmv_sdia_padded),
+              "gpr": (gp16[big].matrix, gpr.spmv_gpr)}
+    dist_bf16_ms = {}
+    for strategy, dplan in dplans.items():
+        A1, fn1 = single[strategy]
+        host = general[big] if strategy == "gpr" else mat
+        xh = rng.random(host.shape[1]).astype(np.float32)
+        xd = torch.from_numpy(xh).to(dev)
+        x1 = ds.pad_x(A1, xd) if strategy != "gpr" else xd
+        y1 = fn1(A1, x1)
+        yd = dplan.spmv(dplan.shard_x(xh))
+        flat = torch.cat([c.to(dev) for c in yd.chunks])
+        same = torch.equal(flat[:y1.shape[0]], y1)
+        sc = 1.0 / float(abs(host).sum(axis=1).max())
+        one_ms = time_chained(lambda v: fn1(A1, v) * sc, x1,
+                              iters=20).median_s * 1e3
+        r = dres[strategy]
+        dist_bf16_ms[strategy] = (r["seconds"] * 1e3, one_ms)
+        kern = {"pdia_stream": "K8b on the widened pattern",
+                "dia_stream": "K8a bf16", "gpr": "gpr_spmv bf16"}[strategy]
+        print(f"  plan_dist_spmv(dtype=bfloat16), 4 shards on one card, "
+              f"{'4096^2 Poisson' if strategy != 'gpr' else big} -> "
+              f"{strategy} ({kern}): {r['seconds'] * 1e3:.4f} ms per SpMV | "
+              f"the single-card bf16 plan's chain {one_ms:.4f} ms -> parity "
+              f"{r['seconds'] * 1e3 / one_ms:.3f} | bitwise the single-card "
+              f"product {same} | rel err vs scipy (unrounded, gate 2e-2) "
+              f"{r['rel_err']:.3e}")
+        require(same or strategy == "gpr", f"bf16 {strategy} at 4 shards "
+                f"not bitwise the single-card product")
+        del xd, x1, y1, yd, flat
+    ref8 = msh @ X8h.astype(np.float64)
+    for strategy, (Ad, Xs, fn, Y) in dspmm.items():
+        e8 = rel_err(Y.to_global(), ref8)
+        ms8 = time_fn(lambda: fn(meshes[4], Ad, Xs).chunks[0],
+                      iters=10).median_s * 1e3
+        x0 = tdist.place(tdist.ShardedVector.from_global(
+            np.ascontiguousarray(X8h[:, 0]), Ad.col_plan), meshes[4])
+        spmv_fn = {"csr_allgather": tdist.spmv_allgather,
+                   "csr_halo": tdist.spmv_halo,
+                   "csr_neighbor": tdist.spmv_neighbor}[strategy]
+        c0 = rel_err(Y.to_global()[:, 0], spmv_fn(meshes[4], Ad,
+                                                 x0).to_global())
+        print(f"  {fn.__name__} ({strategy}), 4 shards on one card, 8 RHS, "
+              f"{lap_name} (torch code): {ms8:.4f} ms | vs scipy f64 "
+              f"{e8:.2e} | column 0 vs the SpMV {c0:.2e}")
+        require(e8 <= ORACLE_TOL["float32"] and c0 <= PLAIN_TOL["float32"],
+                f"{fn.__name__}: {e8:.2e} / {c0:.2e}")
+    del dspmm, dplans, dres, ref8
+
+    # the four bf16-data forms at the main path's shapes: bitwise their
+    # plain versions, timed beside the f32 kernel of the same matrix, the
+    # bound and cuSPARSE on bf16 data where torch has one call
+    def lib_bf16(m, v):
+        try:
+            return library_ms(m, v.to(torch.bfloat16)), "cuSPARSE bf16"
+        except RuntimeError as e:
+            return None, (f"library: none (refused: "
+                          f"{str(e).splitlines()[0][:100]})")
+
+    def plain_rows(fn, A, V, chunk):
+        """The plain version over chunks of the RHS (the bf16-data SpMMs'
+        plain versions hold float64 temporaries)."""
+        return torch.cat([fn(A, V[:, i:i + chunk]) for i in
+                          range(0, V.shape[1], chunk)], dim=1)
+
+    S1 = single["dia_stream"][0]
+    A1 = tdist.ShardedSDIA.build(S1, 1)
+    xk1 = A1.shard_xpad(ds.pad_x(S1, x)).chunks[0]
+    l1, r1 = xk1[-A1.halo:], xk1[:A1.halo]
+    F32 = dist1["dia_stream"]
+    Xe = gX16["natural laplacian_2d(2048) (forced)"]
+    bf16_spmm_records = []
+    for kname, A16, A32, kern, plain, v, m, lib_v, nrhs, key, src, line in (
+            ("sdia_spmm_bf16", S16, S32, ds.spmm_sdia_padded_t,
+             lambda A, V: torch.cat([ds.spmm_sdia_padded_t_ref(
+                 A, V[i:i + 8]) for i in range(0, V.shape[0], 8)]),
+             Xt, mat, X, NRHS, "sdia_spmm_bf16",
+             "tpu_spmv_torch/csrc/dia_stream.cu",
+             "tpu_spmv/kernels/dia_stream.py:339"),
+            ("gpr_spmm_bf16", gp16[big].matrix, gplans[big].matrix,
+             gpr.spmm_gpr_rows,
+             lambda A, V: plain_rows(gpr.spmm_gpr_ref, A, V, 8),
+             gX16[big], general[big], gX16[big], NRHS, "gpr_spmm_bf16",
+             "tpu_spmv_torch/csrc/general.cu",
+             "tpu_spmv/kernels/gpr.py:964"),
+            ("ell_spmm_bf16", gp16[lap_name].matrix, gplans[lap_name].matrix,
+             ell.spmm_ell_main,
+             lambda A, V: plain_rows(ell.spmm_ell_packed_ref, A, V, 8),
+             gX16[lap_name], general[lap_name], gX16[lap_name], NRHS,
+             "ell_spmm_bf16", "tpu_spmv_torch/csrc/general.cu",
+             "tpu_spmv/kernels/ell_pallas.py:407"),
+            ("ell_spmm_bf16", gp16["natural laplacian_2d(2048) (forced)"]
+             .matrix, ell.pack_ell(lap_n, dtype=torch.float32, device=dev),
+             ell.spmm_ell_main,
+             lambda A, V: plain_rows(ell.spmm_ell_packed_ref, A, V, 8),
+             Xe, lap_n, Xe, NRHS, None, "", "natural order"),
+            ("sdia_ring_bf16", A1, F32,
+             lambda A, v: dst.spmv_sdia_ring(A.data[0], A.offsets, v, l1,
+                                             r1),
+             lambda A, v: dst.spmv_sdia_ring_ref(A.data[0], A.offsets, v, l1,
+                                                 r1),
+             xk1, mat, x, 0, "sdia_ring_bf16",
+             "tpu_spmv_torch/csrc/dist_stream.cu",
+             "tpu_spmv/dist/planned.py:342")):
+        yk, yk2, yp = kern(A16, v), kern(A16, v), plain(A16, v)
+        torch.cuda.synchronize()
+        err = float((yk - yp).abs().max())
+        same = torch.equal(yk, yp)
+        require(same and torch.equal(yk, yk2), f"{kname} ({line}): not "
+                f"bitwise its plain version (max abs err {err:.3e})")
+        if kname == "sdia_ring_bf16":
+            k1 = ds.spmv_sdia_padded(S1, ds.pad_x(S1, x))
+            require(torch.equal(yk[:S1.npad], k1), "K8a bf16 at one shard "
+                    "not bitwise K1 bf16")
+            del k1
+        del yk, yk2, yp
+        ms = time_fn(kern, A16, v, iters=20).median_s * 1e3
+        ms32 = time_fn(kern, A32, v, iters=20).median_s * 1e3
+        plain_ms = time_fn(plain, A16, v, iters=1, warmup=1,
+                           repeats=2).median_s * 1e3
+        nbytes = (spmm_bytes(A16, nrhs, torch.float32) if nrhs
+                  else spmv_bytes(A16, torch.float32))
+        nnz = A16.nnz
+        bound_ms, bound_by = bound(nbytes, 2 * nnz * max(nrhs, 1))
+        b32 = bound(spmm_bytes(A32, nrhs, torch.float32) if nrhs
+                    else spmv_bytes(A32, torch.float32),
+                    2 * nnz * max(nrhs, 1))[0]
+        lib_ms, lib_txt = lib_bf16(m, lib_v)
+        if lib_ms is not None:
+            lib_txt = f"{lib_txt} {lib_ms:.4f} ms"
+        print(f"{kname} ({line}, {nrhs or 1} RHS): {ms:.4f} ms | bound "
+              f"{bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f}%; "
+              f"{nbytes} B) | f32 kernel {ms32:.4f} ms (bound {b32:.4f}, "
+              f"{100 * b32 / ms32:.1f}%; bf16/f32 {ms / ms32:.3f}) | plain "
+              f"{plain_ms:.4f} ms | {lib_txt} | bitwise plain {same} | "
+              f"launches in 4i {i_launches.get(key, 0) if key else '-'} "
+              f"({card})")
+        if key is None:
+            continue                   # a side line, not the kernel's record
+        bf16_spmm_records.append({
+            "name": kname, "route": "cuda", "source": src,
+            "replaces": line, "launches": i_launches.get(key, 0),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms})
+    del S16, sdia16, gp16, gX16, Xn, plan16, single, A1, xk1, l1, r1, F32
+
+    # the CLI as a subprocess at bf16: --spmm, --dist (all shards on this
+    # card) and --solve cg --solve-nrhs on a 1024^2 Poisson
+    cli16 = [sys.executable, "-m", "tpu_spmv_torch", "--synthetic",
+             "laplacian:1024", "--auto", "--dtype", "bfloat16", "--spmm",
+             str(NRHS), "--dist", "4", "--solve", "cg", "--solve-nrhs", "8",
+             "--tol", "1e-5", "--formats", "csr", "--iters", "10",
+             "--device", "cuda:0"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cli16, cwd=ROOT, capture_output=True, text=True)
+    lines = [ln.strip() for ln in out.stdout.splitlines()
+             if ln.startswith(("planner:", "###", "    DIST", "    CG x"))]
+    print(f"  CLI {' '.join(cli16[3:])} ({time.perf_counter() - t0:.1f} s, "
+          f"exit {out.returncode}): " + " | ".join(lines))
+    require(out.returncode == 0, f"the bf16 CLI failed:\n"
+            f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    for want in (f"### PSDIA SPMM{NRHS} GFLOPS", f"### CSR SPMM{NRHS} GFLOPS",
+                 "DIST4: strategy=pdia_stream", "CG x8 (pdia_stream)",
+                 "converged=True"):
+        require(want in out.stdout, f"the bf16 CLI printed no {want!r}")
+    print(f"  (phase 4i {time.perf_counter() - t4i:.1f} s)")
+
     # -- 5. kernels vs plain at the main paths' shapes, timed ---------------
     print("== 5. kernels vs plain versions at the main paths' shapes")
     # the probe path first (its bandwidth probes set the roofline's peak),
@@ -2439,7 +2796,8 @@ def main() -> int:
     torch.cuda.synchronize()
     err16 = float((yk - yp).abs().max())
     rel16 = err16 / float(yp.abs().max())
-    require(rel16 <= PLAIN_TOL["float32"], f"K1 bf16 vs plain {rel16:.2e}")
+    same16 = torch.equal(yk, yp)
+    require(same16, f"K1 bf16 not bitwise its plain version ({rel16:.2e})")
     del yk, yp
     ms16 = time_fn(ds.spmv_sdia_padded, S16, xp16, iters=50).median_s * 1e3
     plain16 = time_fn(ds.spmv_sdia_padded_ref, S16, xp16,
@@ -2447,13 +2805,20 @@ def main() -> int:
     bytes16 = (2 * S16.ndiags + 8) * S16.npad
     bound16, by16 = bound(bytes16, 2 * S16.nnz)
     k1 = next(r for r in records if r["name"] == "sdia_spmv")
+    try:
+        lib16 = library_ms(mat, x.to(torch.bfloat16))
+        lib16_txt = f"cuSPARSE bf16 torch.mv {lib16:.4f} ms"
+    except RuntimeError as e:
+        lib16, lib16_txt = None, (f"library: none (torch.mv on a bf16 "
+                                  f"sparse CSR tensor refused: "
+                                  f"{str(e).splitlines()[0][:100]})")
     print(f"sdia_spmv_bf16 (K1 on bf16 data) {mat.shape[0]} rows: "
           f"{ms16:.4f} ms ({bytes16 / ms16 / 1e6:.1f} GB/s model) | bound "
           f"{bound16:.4f} ms ({by16}, {100 * bound16 / ms16:.1f}%; "
           f"(2 ndiags + 8) npad = {bytes16} B) | plain {plain16:.4f} ms | K1 "
           f"f32 {k1['ms']:.4f} ms (bound {k1['bound_ms']:.4f}, cuSPARSE "
           f"{k1['library_ms']:.4f}; bf16/f32 {ms16 / k1['ms']:.3f}) | "
-          f"library: none | max abs err {err16:.3e} (rel {rel16:.2e}) | "
+          f"{lib16_txt} | bitwise plain {same16} | "
           f"launches in 4g {g_launches.get('sdia_bf16', 0)} ({card})")
     records.append({"name": "sdia_spmv_bf16", "route": "cuda",
                     "source": "tpu_spmv_torch/csrc/dia_stream.cu",
@@ -2461,7 +2826,7 @@ def main() -> int:
                     "launches": g_launches.get("sdia_bf16", 0),
                     "max_abs_err": err16, "ms": ms16, "plain_ms": plain16,
                     "bound_ms": bound16, "bound_by": by16,
-                    "library_ms": None})
+                    "library_ms": lib16})
     del S16, xp16
     plan_ms = time_fn(plan, x, iters=50).median_s * 1e3
     print(f"plan(x) end to end (pad + K2 + unpad): {plan_ms:.4f} ms")
@@ -3148,8 +3513,9 @@ def main() -> int:
           f"laplacian_2d(256) {cg256_ms:.4f} ms/iteration")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": records + bf16_records + spmm_records
-                      + dist_records + perm_records + probe_records}))
+    print(json.dumps({"kernels": records + bf16_records + bf16_spmm_records
+                      + spmm_records + dist_records + perm_records
+                      + probe_records}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -64,7 +64,8 @@ def test_corrupted_cache_repacks(tmp_path, capsys):
 def test_dtype_bfloat16_sweep(capsys):
     """--dtype bfloat16: every format of the sweep checked against the
     unrounded float64 oracle within the reference's 2e-2 gate (the
-    product rounded to bf16), and the planner's pick too; no SpMM."""
+    product rounded to bf16), and the planner's pick too; with --spmm the
+    planner's SpMM and the sweep's, X float32 (rounded to bf16 first)."""
     out = _run(capsys, "--synthetic", "random:600", "--dtype", "bfloat16",
                "--json")
     lines = _lines(out)
@@ -74,9 +75,13 @@ def test_dtype_bfloat16_sweep(capsys):
     auto = _lines(_run(capsys, "--synthetic", "random:600", "--dtype",
                        "bfloat16", "--auto", "--json"))
     assert auto[0]["format"] == "GPR" and auto[0]["rel_err"] <= 2e-2
-    with pytest.raises(SystemExit, match="bfloat16 takes no --spmm"):
-        cli.main(["--synthetic", "random:600", "--dtype", "bfloat16",
-                  "--spmm", "4", "--device", "cpu"])
+    spmm = [r for r in _lines(_run(capsys, "--synthetic", "random:600",
+                                   "--dtype", "bfloat16", "--auto",
+                                   "--spmm", "4", "--formats", "csr",
+                                   "--json"))
+            if r["mode"] == "SPMM4"]
+    assert [r["format"] for r in spmm] == ["GPR", "CSR"]
+    assert all(2e-5 < r["rel_err"] <= 2e-2 for r in spmm)
 
 
 def test_profile_writes_a_trace(tmp_path, capsys):

@@ -134,7 +134,8 @@ def test_streaming_shards_match_single_chip(kind, dname):
     times zero data adds exactly zero)."""
     for ndev in (1, 2, 4):
         _port_products(kind, ndev, dname)
-    assert tdst.LAUNCHES == {"sdia_ring": 0, "psdia_ring": 0}
+    assert tdst.LAUNCHES == {"sdia_ring": 0, "sdia_ring_bf16": 0,
+                            "psdia_ring": 0}
 
 
 @pytest.mark.parametrize("kind,ndev,dname", STREAM_CASES)
@@ -195,7 +196,8 @@ def test_ring_kernels_plain_versions():
     with pytest.raises(ValueError, match="multiple of the row tile"):
         tdst.spmv_psdia_ring(T(pattern[:, :5].copy()), offsets, T(x), T(left),
                              T(right), base=0, L=0, nrow=1)
-    assert tdst.LAUNCHES == {"sdia_ring": 0, "psdia_ring": 0}
+    assert tdst.LAUNCHES == {"sdia_ring": 0, "sdia_ring_bf16": 0,
+                            "psdia_ring": 0}
     assert tdst.halo_size((-32, 0, 32), 256) == 256
     assert tdst.halo_size((-3, 3), 4096) == 1024
     assert tdst.halo_size((-1500, 0), 4096) == 2048

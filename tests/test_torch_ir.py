@@ -139,9 +139,9 @@ def test_ir_solve_matches_reference(case, name):
 
 def test_bf16_plan_refuses_the_other_arms():
     """The other arms now take bf16 data (the general kernels' bf16-data
-    forms, BDIA as torch code with float32 sums); what they still refuse
-    is a bf16 SpMM, whose kernels have no bf16-data form yet: plan.spmm
-    raises a TypeError that names the kernel."""
+    forms, BDIA as torch code with float32 sums), their SpMMs too; what
+    the kernels still refuse is a bf16 matrix against a float64 X:
+    plan.spmm raises a TypeError that names the kernel."""
     X = torch.zeros(3000, 2)
     for m, strategy, kernel in (
             (utils.power_law(3000, 3000, 8), "gpr", "spmm_gpr"),
@@ -151,22 +151,21 @@ def test_bf16_plan_refuses_the_other_arms():
         assert plan.matrix.dtype == torch.bfloat16
         y = plan(torch.ones(m.shape[1]))
         assert y.dtype == torch.float32
+        assert plan.spmm(torch.ones(m.shape[1], 2)).dtype == torch.float32
         if kernel:
-            with pytest.raises(TypeError, match=f"{kernel}: no kernel for "
-                               f"bfloat16 data"):
-                plan.spmm(X)
-        else:        # torch code: bf16 data times a float32 X
-            assert plan.spmm(torch.ones(m.shape[1], 2)).dtype == \
-                torch.float32
+            with pytest.raises(TypeError, match=f"{kernel}: matrix is "
+                               f"torch.bfloat16 but x is torch.float64"):
+                plan.spmm(X.double())
     E = tell.pack_ell(utils.power_law(3000, 3000, 8), dtype=torch.bfloat16,
                       device="cpu")
-    with pytest.raises(TypeError, match="spmm_ell: no kernel for bfloat16"):
-        tell.spmm_ell_packed(E, X)
+    assert tell.spmm_ell_packed(E, X).dtype == torch.float32
+    with pytest.raises(TypeError, match="spmm_ell: matrix is torch.bfloat16"):
+        tell.spmm_ell_packed(E, X.double())
 
 
 def test_bf16_kernels_take_float32_x_only():
-    """bf16 coefficients pair with a float32 x and nothing else; the SpMMs
-    take no bf16 data; K2's widened pattern is made once per pattern and
+    """bf16 coefficients pair with a float32 x and nothing else, in the
+    SpMVs and the SpMMs; K2's widened pattern is made once per pattern and
     again after an in-place change."""
     lo = plan_spmv(screened(16), dtype=torch.bfloat16, device="cpu")
     A = lo.matrix
@@ -174,7 +173,8 @@ def test_bf16_kernels_take_float32_x_only():
     with pytest.raises(TypeError, match="bfloat16"):
         tds.spmv_psdia_padded(A, xp)
     with pytest.raises(TypeError, match="bfloat16"):
-        tds.spmm_psdia_padded_t(A, torch.zeros(2, A.npad))
+        tds.spmm_psdia_padded_t(A, torch.zeros(2, A.npad,
+                                               dtype=torch.float64))
     wide = tds._widened(A.pattern)
     assert wide.dtype == torch.float32 and wide is tds._widened(A.pattern)
     assert torch.equal(wide, A.pattern.float())

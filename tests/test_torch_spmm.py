@@ -23,6 +23,7 @@ import scipy.sparse as sp
 import torch
 
 import tpu_spmv as ts
+from _gpr_reference import spmm_block
 from tpu_spmv import ops as jops
 from tpu_spmv import utils
 from tpu_spmv.kernels import dia_stream as jds
@@ -155,12 +156,10 @@ def test_streaming_spmm_matches_interpret(name, kind, dname):
 @functools.cache
 def _gpr_reference():
     """powerlaw800 (4 rows over 128 entries: the hub split and the fold
-    engage), X [800, 3], the JAX interpret-mode SpMM."""
-    m = sio.mmread(os.path.join(FIX, "powerlaw800.mtx")).tocsr()
-    X = _X(m.shape[1], "float32", 3, seed=1)
-    A_j = jgpr.pack_gpr(m, dtype=np.float32)
-    Y_j = np.asarray(jgpr.spmm_gpr(A_j, jnp.asarray(X), interpret=True))
-    return m, X, A_j, Y_j
+    engage), X [800, 3], the JAX interpret-mode SpMM (its rows of the
+    SpMM that ``_gpr_reference.py`` shares with ``test_torch_gpr.py``)."""
+    m, X, Y_j = spmm_block()
+    return m, X, jgpr.pack_gpr(m, dtype=np.float32), Y_j
 
 
 def test_gpr_spmm_matches_reference():

@@ -108,7 +108,8 @@ def time_chained(step: Callable, v0, *, iters: int = DEFAULT_ITERS,
 
 
 def verify_against_oracle(A, x, y, rtol: float = 1e-10,
-                          oracle=None, rounded: bool = False) -> float:
+                          oracle=None, rounded: bool = False,
+                          data_dtype: torch.dtype | None = None) -> float:
     """Max relative error of ``y`` against float64 scipy ``A @ x`` (``x``
     a vector or an ``[ncol, nrhs]`` block); raises above the gate (``rtol``
     for float64 output, 2e-5 for float32).  ``oracle`` supplies the scipy
@@ -118,14 +119,16 @@ def verify_against_oracle(A, x, y, rtol: float = 1e-10,
     the reference's 2e-2 against the unrounded matrix: the rounding of the
     coefficients alone costs about 2^-9.  With ``rounded=True`` the
     oracle holds the bf16-rounded values, and the product is held to the
-    float32 gate, 2e-5."""
+    float32 gate, 2e-5.  ``data_dtype`` names the coefficients' type where
+    ``A`` does not (a sharded container)."""
     sp_mat = (oracle.tocsr() if oracle is not None
               else to_coo(A).to_scipy()).astype(np.float64)
     y_ref = sp_mat @ x.detach().cpu().double().numpy()
     y_np = y.detach().cpu().double().numpy()
     rel = float(np.max(np.abs(y_np - y_ref))) / max(
         float(np.max(np.abs(y_ref))), 1e-300)
-    bf16 = torch.bfloat16 in (y.dtype, getattr(A, "dtype", None))
+    bf16 = torch.bfloat16 in (y.dtype, data_dtype or getattr(A, "dtype",
+                                                             None))
     if y.dtype == torch.float64:
         gate = rtol
     elif bf16 and not rounded:

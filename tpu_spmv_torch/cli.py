@@ -17,7 +17,11 @@ with ``-AUTO`` for the planner's pick.
 ``--dtype bfloat16`` stores the matrix's values and x in bf16, as the
 reference does; the port's kernels take float32 vectors, so each product
 widens x once (exactly), sums in float32 and rounds the result to bf16,
-the reference's result type.  ``--cache DIR`` (with ``--auto``) saves the
+the reference's result type.  With ``--spmm`` X is rounded to bf16 as the
+reference builds it, then widened exactly to the float32 the bf16-data
+SpMMs take; ``--solve-nrhs`` solves with a float32 B and ``--dist`` plans
+bf16 coefficients for float32 vectors (the reference keeps X, B and x in
+bf16).  ``--cache DIR`` (with ``--auto``) saves the
 planned pack (:mod:`.io.checkpoint`) and reloads it on the next run on the
 same source and dtype; ``--profile DIR`` writes a ``torch.profiler`` trace
 of the run (CUDA activity included on the card) to ``DIR/trace.json``.
@@ -33,6 +37,8 @@ Usage::
     python -m tpu_spmv_torch --synthetic laplacian:1024 --auto \
         --profile traces/                   # torch.profiler trace
     python -m tpu_spmv_torch --synthetic laplacian:4096 --auto --spmm 32
+    python -m tpu_spmv_torch --synthetic laplacian:2048 --auto \
+        --dtype bfloat16 --spmm 32 --dist 4 --device cuda:0
     python -m tpu_spmv_torch --synthetic laplacian:256 --auto --solve cg \
         --solve-nrhs 8
     python -m tpu_spmv_torch --synthetic laplacian:2048 --auto --solve mgpcg
@@ -381,8 +387,12 @@ def _run(args, host_mat, x, formats, mode, dtype, device, rng):
     if args.spmm > 0:
         from .formats import convert
 
+        # bf16: X rounded to bf16 as the reference builds it, then widened
+        # exactly to the float32 the bf16-data kernels take
         X = torch.tensor(rng.random((host_mat.shape[1], args.spmm)),
                          dtype=dtype, device=device)
+        if bf16:
+            X = X.float()
         kw = dict(iters=max(args.iters // 5, 3), check=not args.no_check,
                   quiet=args.json)
         if plan is not None:
@@ -415,8 +425,10 @@ def _run(args, host_mat, x, formats, mode, dtype, device, rng):
         rng_b = np.random.default_rng(args.seed + 1)
         nrhs = args.solve_nrhs if args.solve == "cg" else 0
         if nrhs > 1:
+            # the vectors of a bf16-coefficient plan are float32
             B = torch.tensor(rng_b.random((host_mat.shape[0], nrhs)),
-                             dtype=dtype, device=device)
+                             dtype=torch.float32 if bf16 else dtype,
+                             device=device)
             t0 = time.perf_counter()
             mres = cg_multi(solve_plan, B, tol=args.tol, maxiter=10_000)
             if device.type == "cuda":
@@ -485,10 +497,6 @@ def main(argv=None) -> int:
     print(f"{src}: shape={host_mat.shape} nnz={host_mat.nnz}")
 
     bf16 = dtype == torch.bfloat16
-    if bf16 and (args.spmm > 0 or args.dist > 0 or args.solve_nrhs > 1):
-        raise SystemExit("tpu_spmv_torch: --dtype bfloat16 takes no --spmm, "
-                         "--dist or --solve-nrhs (the SpMMs and the "
-                         "distributed kernels have no bf16-data form yet)")
     rng = np.random.default_rng(args.seed)
     x = torch.tensor(rng.random(host_mat.shape[1]), dtype=dtype,
                      device=device)

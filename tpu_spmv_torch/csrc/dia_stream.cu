@@ -113,6 +113,19 @@
 // every column of K3b K2's on the same pack; rows outside [L, L + nrow)
 // are written as exact zeros; one writer per output and no atomics, so
 // results are bitwise reproducible.
+//
+// K3a on bf16 data (the TPU kernel with pack_sdia(data_dtype=bfloat16),
+// whose SpMM keeps x, y and the sums in x's type): the same walks with the
+// data rows stored as __nv_bfloat16 against a float32 Xt (dia_spmm_stride
+// and dia_spmm_clusters<float, __nv_bfloat16, ...>).  A slot keeps the
+// room of float32 coefficient rows, so the plan's slots and the windows'
+// 16-byte alignment are those of the float32 walks; the bf16 rows fill the
+// first half of it, copied V values (8 bytes) a cp.async where the data
+// are aligned, else one value a plain load (cp.async copies 4 bytes at
+// least).  Each coefficient is widened exactly and fma'd in stored order
+// from zero, K1 bf16's arithmetic, so every column of K3a bf16 is bitwise
+// K1 bf16's on the same pack.  It moves 2 * ndiags * npad bytes of data
+// against the float32 K3a's 4 * ndiags * npad.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -191,18 +204,19 @@ struct SpmmShape {
 // where a tile's coefficient rows come from: K3b's pattern, coef(d, k) =
 // p[d * ld + k mod ld] (ld = rb), or with SDIA K3a's data rows, coef(d, k)
 // = p[d * ld + k] (ld = npad), whose rows from `end` = L + nrow on are
-// never stored and are staged as zeros
-template <typename T>
+// never stored and are staged as zeros.  C: the stored coefficients' type
+// (the sums' type, or __nv_bfloat16 for K3a on bf16 data)
+template <typename C>
 struct CoefSource {
-  const T* p;
+  const C* p;
   int64_t ld;
   int64_t end;
 };
 
 // the column of a tile's first row k0 in the coefficient rows (once a
 // tile)
-template <bool SDIA, typename T>
-__device__ __forceinline__ int64_t coef_base(const CoefSource<T>& c,
+template <bool SDIA, typename C>
+__device__ __forceinline__ int64_t coef_base(const CoefSource<C>& c,
                                              int64_t k0) {
   return SDIA ? k0 : k0 % c.ld;
 }
@@ -252,10 +266,11 @@ __device__ __forceinline__ void stage_window(T* __restrict__ win,
 // copy the coefficients of diagonals d0 .. d0 + nd for the TK rows from
 // column `base` (coef_base) on to pat[dd * TK ..]: the pattern one value a
 // copy, wrapping at rb; the data rows V values a copy (p, ld and base are
-// then V-aligned: the launcher sees to it), first out of L2
-template <typename T, int TK, int V, bool SDIA>
-__device__ __forceinline__ void stage_coef(T* __restrict__ pat,
-                                           const CoefSource<T>& c, int d0,
+// then V-aligned: the launcher sees to it), first out of L2, or, where
+// that is under cp.async's 4 bytes (one bf16 value), a plain load
+template <typename C, int TK, int V, bool SDIA>
+__device__ __forceinline__ void stage_coef(C* __restrict__ pat,
+                                           const CoefSource<C>& c, int d0,
                                            int nd, int64_t base) {
   if constexpr (SDIA) {
     constexpr int nv = TK / V;
@@ -263,19 +278,25 @@ __device__ __forceinline__ void stage_coef(T* __restrict__ pat,
     for (int e = threadIdx.x; e < nd * nv; e += kThreads) {
       const int dd = e / nv, v = e % nv;
       const int64_t k = base + static_cast<int64_t>(v) * V;
-      T* const dst = pat + dd * TK + v * V;
+      C* const dst = pat + dd * TK + v * V;
+      const C* const src = c.p + (d0 + dd) * c.ld + k;
       if (k < c.end) {
-        cp_async_hint<V * sizeof(T)>(dst, c.p + (d0 + dd) * c.ld + k, pol);
+        if constexpr (V * sizeof(C) >= 4) {
+          cp_async_hint<V * sizeof(C)>(dst, src, pol);
+        } else {
+#pragma unroll
+          for (int i = 0; i < V; ++i) dst[i] = src[i];
+        }
       } else {
 #pragma unroll
-        for (int i = 0; i < V; ++i) dst[i] = T(0);
+        for (int i = 0; i < V; ++i) dst[i] = static_cast<C>(0.0f);
       }
     }
   } else {
     for (int e = threadIdx.x; e < nd * TK; e += kThreads) {
       int64_t k = base + e % TK;
       if (k >= c.ld) k %= c.ld;
-      cp_async<sizeof(T)>(pat + e, c.p + (d0 + e / TK) * c.ld + k);
+      cp_async<sizeof(C)>(pat + e, c.p + (d0 + e / TK) * c.ld + k);
     }
   }
 }
@@ -292,9 +313,9 @@ struct Stage {
   int64_t base;  // coef_base of the tile's first row k0
 };
 
-template <bool SDIA, typename T>
+template <bool SDIA, typename C>
 __device__ __forceinline__ void next_stage(Stage& st, const SpmmShape& g,
-                                           const CoefSource<T>& coef,
+                                           const CoefSource<C>& coef,
                                            int64_t dtile, int dchunk,
                                            int64_t tk) {
   if (++st.c < g.nclusters) return;
@@ -310,14 +331,17 @@ __device__ __forceinline__ void next_stage(Stage& st, const SpmmShape& g,
 
 // QT threads along the RHS, kThreads / QT along the rows; a tile is
 // TK = kSpmmRows * kThreads / QT rows of QCAP = kSpmmRhs * QT RHS.  V:
-// elements per copy of a window or a data row (16 bytes, or 1 where Xt or
-// the data rows are not 16-byte aligned).  SDIA: the coefficient source
-// (K3a's data rows, else K3b's pattern).  table: the plan's cluster starts
-// (nclusters + 1 diagonal indices), then each cluster's window start a0
-// and width w (columns k0 + a0 .. k0 + a0 + w of Xt for the tile at k0).
-template <typename T, int QT, int V, bool SDIA>
+// elements per copy of a window or a data row (16 bytes of T, or 1 where
+// Xt or the data rows are not 16-byte aligned).  C: the stored
+// coefficients' type (T, or __nv_bfloat16 on K3a's bf16 data, staged in
+// the first half of the slot's coefficient room).  SDIA: the coefficient
+// source (K3a's data rows, else K3b's pattern).  table: the plan's cluster
+// starts (nclusters + 1 diagonal indices), then each cluster's window
+// start a0 and width w (columns k0 + a0 .. k0 + a0 + w of Xt for the tile
+// at k0).
+template <typename T, typename C, int QT, int V, bool SDIA>
 __global__ void __launch_bounds__(kThreads)
-    dia_spmm_clusters(CoefSource<T> coef, const int* __restrict__ offsets,
+    dia_spmm_clusters(CoefSource<C> coef, const int* __restrict__ offsets,
                       const int* __restrict__ table, const T* __restrict__ xt,
                       T* __restrict__ yt, SpmmShape g) {
   constexpr int RT = kThreads / QT;
@@ -347,7 +371,8 @@ __global__ void __launch_bounds__(kThreads)
       const int d0 = __ldg(cstart + st.c);
       const int nd = __ldg(cstart + st.c + 1) - d0;
       T* const pat = smem + slot * g.slot;
-      stage_coef<T, TK, V, SDIA>(pat, coef, d0, nd, st.base);
+      stage_coef<C, TK, V, SDIA>(reinterpret_cast<C*>(pat), coef, d0, nd,
+                                 st.base);
       stage_window<T, V>(pat + nd * TK, xt,
                          g.L + st.tile * TK + __ldg(ca0 + st.c),
                          __ldg(cwidth + st.c), q0, min(QCAP, g.nrhs - q0),
@@ -384,14 +409,15 @@ __global__ void __launch_bounds__(kThreads)
     const int d0 = __ldg(cstart + st.c);
     const int nd = __ldg(cstart + st.c + 1) - d0;
     const int a0 = __ldg(ca0 + st.c), w = __ldg(cwidth + st.c);
-    const T* const pat = smem + slot * g.slot + ir;
+    const C* const pat =
+        reinterpret_cast<const C*>(smem + slot * g.slot) + ir;
     const T* const win = smem + slot * g.slot + nd * TK + iq * w + ir - a0;
     // diagonals in stored order, so each RHS sums in K1's and K2's order
     for (int dd = 0; dd < nd; ++dd) {
       const T* const xrow = win + __ldg(offsets + d0 + dd);
 #pragma unroll
       for (int a = 0; a < kSpmmRows; ++a) {
-        const T cf = pat[dd * TK + a * RT];
+        const T cf = widen(pat[dd * TK + a * RT]);
 #pragma unroll
         for (int b = 0; b < kSpmmRhs; ++b)
           if (iq + b * QT < nq)
@@ -452,9 +478,9 @@ __device__ __forceinline__ void walk_item(Walk& wk, int64_t item,
   }
 }
 
-template <typename T, int QT, int V, bool SDIA>
+template <typename T, typename C, int QT, int V, bool SDIA>
 __global__ void __launch_bounds__(kThreads)
-    dia_spmm_stride(CoefSource<T> coef, const int* __restrict__ offsets,
+    dia_spmm_stride(CoefSource<C> coef, const int* __restrict__ offsets,
                     const int* __restrict__ table, const T* __restrict__ xt,
                     T* __restrict__ yt, SpmmShape g) {
   constexpr int RT = kThreads / QT;
@@ -487,8 +513,8 @@ __global__ void __launch_bounds__(kThreads)
       T* const pat = smem + slot * g.slot;
       const int64_t i = wk.p - jlast;  // the tile this copy completes
       if (i >= wk.i0)
-        stage_coef<T, TK, V, SDIA>(
-            pat, coef, 0, nd,
+        stage_coef<C, TK, V, SDIA>(
+            reinterpret_cast<C*>(pat), coef, 0, nd,
             coef_base<SDIA>(coef, g.L + (wk.column + i * g.stride) * TK));
       const int q0 = wk.chunk * QCAP;
       stage_window<T, V>(pat + nd * TK, xt,
@@ -525,7 +551,8 @@ __global__ void __launch_bounds__(kThreads)
     if (i >= wk.i0) {  // tile i of the column has all its windows
       const int q0 = wk.chunk * QCAP;
       const int nq = min(QCAP, g.nrhs - q0);
-      const T* const pat = smem + slot * g.slot + ir;
+      const C* const pat =
+          reinterpret_cast<const C*>(smem + slot * g.slot) + ir;
       T acc[kSpmmRows][kSpmmRhs];
 #pragma unroll
       for (int a = 0; a < kSpmmRows; ++a)
@@ -540,7 +567,7 @@ __global__ void __launch_bounds__(kThreads)
                               (__ldg(offsets + d) - j * span - a0);
 #pragma unroll
         for (int a = 0; a < kSpmmRows; ++a) {
-          const T cf = pat[d * TK + a * RT];
+          const T cf = widen(pat[d * TK + a * RT]);
 #pragma unroll
           for (int b = 0; b < kSpmmRhs; ++b)
             if (iq + b * QT < nq)
@@ -588,12 +615,12 @@ int launch_psdia(const void* pattern, const void* args, const void* xpad,
                         ypad, 0, L, nrow, stream);
 }
 
-template <typename T, int QT, int V, bool SDIA>
-int launch_dia_spmm_t(CoefSource<T> coef, const void* offsets,
+template <typename T, typename C, int QT, int V, bool SDIA>
+int launch_dia_spmm_t(CoefSource<C> coef, const void* offsets,
                       const void* table, const void* xt, void* yt,
                       SpmmShape g, cudaStream_t stream) {
-  auto kernel = g.stride ? dia_spmm_stride<T, QT, V, SDIA>
-                         : dia_spmm_clusters<T, QT, V, SDIA>;
+  auto kernel = g.stride ? dia_spmm_stride<T, C, QT, V, SDIA>
+                         : dia_spmm_clusters<T, C, QT, V, SDIA>;
   const size_t smem = static_cast<size_t>(g.nslot) * g.slot * sizeof(T);
   int dev = 0, sms = 0, per_sm = 0;
   // above 48 KB only with the kernel's limit raised (per device)
@@ -637,7 +664,8 @@ int launch_dia_spmm_t(CoefSource<T> coef, const void* offsets,
 // 2, 4, 8}; stride 0 walks the clusters (nslot = kSpmmStages), stride M >
 // 0 walks the tiles M apart; 16-byte copies where Xt's rows (and K3a's
 // data rows) start 16-byte aligned.  A plan that does not fit is refused.
-template <typename T, bool SDIA>
+// C: the stored coefficients' type (T, or __nv_bfloat16 for K3a)
+template <typename T, bool SDIA, typename C = T>
 int launch_dia_spmm(const void* coef, const void* offsets, int ndiags,
                     const void* table, int nclusters, int stride, int qt,
                     int tk, int slot, int nslot, int64_t rb, const void* xt,
@@ -653,7 +681,7 @@ int launch_dia_spmm(const void* coef, const void* offsets, int ndiags,
   const bool aligned = reinterpret_cast<uintptr_t>(xt) % 16 == 0 &&
                        (!SDIA || reinterpret_cast<uintptr_t>(coef) % 16 == 0) &&
                        npad % V == 0 && L % V == 0;
-  const CoefSource<T> src{static_cast<const T*>(coef), SDIA ? npad : rb,
+  const CoefSource<C> src{static_cast<const C*>(coef), SDIA ? npad : rb,
                           L + nrow};
   SpmmShape g;
   g.npad = npad;
@@ -669,10 +697,11 @@ int launch_dia_spmm(const void* coef, const void* offsets, int ndiags,
   g.nslot = nslot;
   const auto st = static_cast<cudaStream_t>(stream);
 #define TSP_DIA_SPMM(QT)                                                    \
-  return aligned ? launch_dia_spmm_t<T, QT, V, SDIA>(src, offsets, table,  \
-                                                     xt, yt, g, st)        \
-                 : launch_dia_spmm_t<T, QT, 1, SDIA>(src, offsets, table,  \
-                                                     xt, yt, g, st)
+  return aligned ? launch_dia_spmm_t<T, C, QT, V, SDIA>(src, offsets,       \
+                                                        table, xt, yt, g,  \
+                                                        st)                \
+                 : launch_dia_spmm_t<T, C, QT, 1, SDIA>(src, offsets,       \
+                                                        table, xt, yt, g, st)
   switch (qt) {
     case 1:
       TSP_DIA_SPMM(1);
@@ -746,6 +775,17 @@ int tsp_sdia_spmm_f64(const void* coef, const void* offsets, int ndiags,
   return launch_dia_spmm<double, true>(coef, offsets, ndiags, table, nclusters,
                                        stride, qt, tk, slot, nslot, rb, xt, yt,
                                        npad, L, nrow, nrhs, stream);
+}
+
+// K3a on bf16 data: bf16 coefficients, float32 Xt, Yt and sums
+int tsp_sdia_spmm_bf16f32(const void* coef, const void* offsets, int ndiags,
+                          const void* table, int nclusters, int stride,
+                          int qt, int tk, int slot, int nslot, int64_t rb,
+                          const void* xt, void* yt, int64_t npad, int64_t L,
+                          int64_t nrow, int nrhs, void* stream) {
+  return launch_dia_spmm<float, true, __nv_bfloat16>(
+      coef, offsets, ndiags, table, nclusters, stride, qt, tk, slot, nslot,
+      rb, xt, yt, npad, L, nrow, nrhs, stream);
 }
 
 int tsp_psdia_spmm_f32(const void* coef, const void* offsets, int ndiags,

@@ -35,6 +35,13 @@
 // bitwise equal to K1 on the same pack, which skips reads outside the
 // padded row space instead.
 //
+// K8a on bf16 data (the reference's ring kernel on a shard of a
+// pack_sdia(data_dtype=bfloat16) pack, whose output and sums take x's
+// type): the same kernel with the data stored as __nv_bfloat16 against a
+// float32 x and slivers, sdia_ring<float, __nv_bfloat16>; each coefficient
+// widened exactly and fma'd in stored order from zero, K1 bf16's
+// arithmetic, so the sharded chain is bitwise K1 bf16 on the same pack.
+//
 // K8b runs the walks of psdia_walk.cuh, shared with K2 (dia_stream.cu):
 // windows of the ring [left | x | right] (zeros outside [-h, cp + h),
 // columns no row reads) and the pattern's rows staged in shared memory
@@ -49,8 +56,11 @@
 // the sharded chain bitwise the single-chip product; one writer per row,
 // no atomics.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "psdia_walk.cuh"
 
@@ -74,8 +84,10 @@ __device__ __forceinline__ T window(const T* __restrict__ x,
   return j < 0 ? left[h + j] : (j < cp ? x[j] : right[j - cp]);
 }
 
-template <typename T>
-__global__ void sdia_ring(const T* __restrict__ data,
+// T: the type of x, the slivers, y and the sums; C: the stored
+// coefficients' (T, or __nv_bfloat16 against a float T)
+template <typename T, typename C = T>
+__global__ void sdia_ring(const C* __restrict__ data,
                           const int* __restrict__ offsets, int ndiags,
                           const T* __restrict__ x, const T* __restrict__ left,
                           const T* __restrict__ right, T* __restrict__ y,
@@ -87,19 +99,24 @@ __global__ void sdia_ring(const T* __restrict__ data,
   for (int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        k < cp; k += stride) {
     T acc = T(0);
-    for (int d = 0; d < ndiags; ++d)
-      acc += data[d * cp + k] * window(x, left, right, k + s_off[d], cp, h);
+    for (int d = 0; d < ndiags; ++d) {
+      if constexpr (std::is_same_v<T, C>)
+        acc += data[d * cp + k] * window(x, left, right, k + s_off[d], cp, h);
+      else
+        acc = fma(__bfloat162float(data[d * cp + k]),
+                  window(x, left, right, k + s_off[d], cp, h), acc);
+    }
     y[k] = acc;
   }
 }
 
-template <typename T>
+template <typename T, typename C = T>
 int launch_sdia_ring(const void* data, const void* offsets, int ndiags,
                      const void* x, const void* left, const void* right,
                      void* y, int64_t cp, int64_t h, void* stream) {
-  sdia_ring<T><<<grid_for(cp), kThreads, ndiags * sizeof(int),
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(data), static_cast<const int*>(offsets), ndiags,
+  sdia_ring<T, C><<<grid_for(cp), kThreads, ndiags * sizeof(int),
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const C*>(data), static_cast<const int*>(offsets), ndiags,
       static_cast<const T*>(x), static_cast<const T*>(left),
       static_cast<const T*>(right), static_cast<T*>(y), cp, h);
   return static_cast<int>(cudaGetLastError());
@@ -135,6 +152,14 @@ int tsp_sdia_ring_f64(const void* data, const void* offsets, int ndiags,
                       void* y, int64_t cp, int64_t h, void* stream) {
   return launch_sdia_ring<double>(data, offsets, ndiags, x, left, right, y,
                                   cp, h, stream);
+}
+
+// K8a on bf16 data: bf16 coefficients, float32 x, slivers, y and sums
+int tsp_sdia_ring_bf16f32(const void* data, const void* offsets, int ndiags,
+                          const void* x, const void* left, const void* right,
+                          void* y, int64_t cp, int64_t h, void* stream) {
+  return launch_sdia_ring<float, __nv_bfloat16>(data, offsets, ndiags, x,
+                                                left, right, y, cp, h, stream);
 }
 
 int tsp_psdia_ring_f32(const void* pattern, const void* args, const void* x,

@@ -130,6 +130,16 @@
 // Each output sums its row's slots j = 0 .. width-1 in order from zero
 // with fma, as the former kernel and ell_spmv did, so every column equals
 // ell_spmv's and results are bitwise the former kernel's.
+//
+// gpr_spmm and ell_spmm also take bf16 data (the reference's SpMMs on
+// pack_gpr(dtype=bfloat16) and pack_ell(dtype=bfloat16)): the stored
+// coefficients' type C is one more template parameter of the same bodies
+// (tsp_gpr_spmm_bf16f32, tsp_ell_spmm_bf16f32, every lane and RHS-width
+// instantiation), X, Y and the sums float32.  Each value is loaded as its
+// 2 bytes and widened exactly; each product is rounded, then added to the
+// output's sum in entry (slot) order from zero (__fmul_rn, __fadd_rn), the
+// bf16 SpMVs' arithmetic, so every column of ell_spmm bf16 is bitwise
+// ell_spmv bf16's and the plain versions repeat the order bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -274,11 +284,12 @@ __device__ __forceinline__ void ell_slot(const int* c, const C* v, int& col,
   val = __ldcs(v);
 }
 
-// ell_spmv's step: acc += v * x, which nvcc contracts to one fma where the
-// coefficient is in the type of the sums (the f32 and f64 code as it was);
-// madd's rounded product, then sum, on bf16 data
+// the plain loops' step (ell_spmv, spmm_row_lanes): acc += v * x, which
+// nvcc contracts to one fma where the coefficient is in the type of the
+// sums (the f32 and f64 code as it was); madd's rounded product, then sum,
+// on bf16 data
 template <typename T, typename C>
-__device__ __forceinline__ T ell_madd(C v, T x, T acc) {
+__device__ __forceinline__ T loop_madd(C v, T x, T acc) {
   if constexpr (std::is_same_v<T, C>)
     return acc + v * x;
   else
@@ -313,7 +324,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < kEllBatch; ++i) xv[i] = __ldg(x + col[i]);
 #pragma unroll
-      for (int i = 0; i < kEllBatch; ++i) acc = ell_madd(val[i], xv[i], acc);
+      for (int i = 0; i < kEllBatch; ++i)
+        acc = loop_madd(val[i], xv[i], acc);
     }
     if (j < width) {
       // the last width - j < kEllBatch slots, the same three steps
@@ -329,7 +341,7 @@ __global__ void __launch_bounds__(kThreads)
         if (j + i < width) xv[i] = __ldg(x + col[i]);
 #pragma unroll
       for (int i = 0; i < kEllBatch; ++i)
-        if (j + i < width) acc = ell_madd(val[i], xv[i], acc);
+        if (j + i < width) acc = loop_madd(val[i], xv[i], acc);
     }
     const int64_t row = (s << 5) + lane;
     if (row < nrow) y[row] = acc;
@@ -356,10 +368,10 @@ __host__ __device__ constexpr int spmm_batch(int G, int V) {
 // and whose output row starts at yrow.  One RHS a lane on 2 or 4 lanes a
 // row: a plain loop unrolled by 4 (the batches, and the launch bounds, were
 // slower here)
-template <typename T, int G, int STEP>
+template <typename T, typename C, int G, int STEP>
 __device__ __forceinline__ void spmm_row_lanes(int64_t begin, int64_t end,
                                                const int* __restrict__ indices,
-                                               const T* __restrict__ data,
+                                               const C* __restrict__ data,
                                                const T* __restrict__ x,
                                                T* __restrict__ yrow,
                                                int nrhs) {
@@ -367,17 +379,19 @@ __device__ __forceinline__ void spmm_row_lanes(int64_t begin, int64_t end,
     T acc = T(0);
 #pragma unroll 4
     for (int64_t j = begin; j < end; j += STEP)
-      acc += data[j] * x[static_cast<int64_t>(indices[j]) * nrhs + q];
+      acc = loop_madd(data[j],
+                      x[static_cast<int64_t>(indices[j]) * nrhs + q], acc);
     yrow[q] = acc;
   }
 }
 
 // V RHS a lane, a batch of entries' columns and values loaded ahead of
-// their X values
-template <typename T, int G, int V, int STEP>
+// their X values; madd: one fma, or on bf16 data the rounded product,
+// then the sum
+template <typename T, typename C, int G, int V, int STEP>
 __device__ __forceinline__ void spmm_row(int64_t begin, int64_t end,
                                          const int* __restrict__ indices,
-                                         const T* __restrict__ data,
+                                         const C* __restrict__ data,
                                          const T* __restrict__ x,
                                          T* __restrict__ yrow_t, int nrhs) {
   using P = Pack<T, V>;
@@ -391,12 +405,12 @@ __device__ __forceinline__ void spmm_row(int64_t begin, int64_t end,
     for (int t = 0; t < V; ++t) acc[t] = T(0);
     for (int64_t j0 = begin; j0 < end; j0 += kBatch * STEP) {
       int col[kBatch];
-      T v[kBatch];
+      C v[kBatch];
 #pragma unroll
       for (int i = 0; i < kBatch; ++i) {
         const int64_t j = j0 + i * STEP;
         col[i] = j < end ? indices[j] : 0;
-        v[i] = j < end ? data[j] : T(0);
+        v[i] = j < end ? data[j] : static_cast<C>(0.0f);
       }
       P xv[kBatch];
 #pragma unroll
@@ -407,7 +421,8 @@ __device__ __forceinline__ void spmm_row(int64_t begin, int64_t end,
       for (int i = 0; i < kBatch; ++i)
         if (j0 + i * STEP < end) {
 #pragma unroll
-          for (int t = 0; t < V; ++t) acc[t] = fma(v[i], xv[i].v[t], acc[t]);
+          for (int t = 0; t < V; ++t)
+            acc[t] = madd(v[i], xv[i].v[t], acc[t]);
         }
     }
     P out;
@@ -418,65 +433,66 @@ __device__ __forceinline__ void spmm_row(int64_t begin, int64_t end,
 }
 
 // gpr_spmm and ell_spmm take the same arguments: rows and ptr are GPR's
-// output rows and indptr, or (ELL) unused and the slice pointers
-template <typename T, int G>
+// output rows and indptr, or (ELL) unused and the slice pointers; C the
+// stored coefficients' type
+template <typename T, typename C, int G>
 __global__ void gpr_spmm_lanes(const int* __restrict__ rows,
                                const int64_t* __restrict__ indptr,
                                const int* __restrict__ indices,
-                               const T* __restrict__ data,
+                               const C* __restrict__ data,
                                const T* __restrict__ x, T* __restrict__ y,
                                int64_t nrows, int nrhs) {
   constexpr int kRowsPerBlock = kThreads / G;
   const int64_t r =
       static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / G;
   if (r >= nrows) return;
-  spmm_row_lanes<T, G, 1>(indptr[r], indptr[r + 1], indices, data, x,
+  spmm_row_lanes<T, C, G, 1>(indptr[r], indptr[r + 1], indices, data, x,
                           y + static_cast<int64_t>(rows[r]) * nrhs, nrhs);
 }
 
-template <typename T, int G, int V>
+template <typename T, typename C, int G, int V>
 __global__ void __launch_bounds__(kThreads)
     gpr_spmm(const int* __restrict__ rows, const int64_t* __restrict__ indptr,
-             const int* __restrict__ indices, const T* __restrict__ data,
+             const int* __restrict__ indices, const C* __restrict__ data,
              const T* __restrict__ x, T* __restrict__ y, int64_t nrows,
              int nrhs) {
   constexpr int kRowsPerBlock = kThreads / G;
   const int64_t r =
       static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / G;
   if (r >= nrows) return;
-  spmm_row<T, G, V, 1>(indptr[r], indptr[r + 1], indices, data, x,
+  spmm_row<T, C, G, V, 1>(indptr[r], indptr[r + 1], indices, data, x,
                        y + static_cast<int64_t>(rows[r]) * nrhs, nrhs);
 }
 
 // sliced ELL: slot j of row r at slice_ptr[r / 32] + 32 j + r % 32
-template <typename T, int G>
+template <typename T, typename C, int G>
 __global__ void ell_spmm_lanes(const int* __restrict__ rows,
                                const int64_t* __restrict__ slice_ptr,
                                const int* __restrict__ cols,
-                               const T* __restrict__ vals,
+                               const C* __restrict__ vals,
                                const T* __restrict__ x, T* __restrict__ y,
                                int64_t nrow, int nrhs) {
   constexpr int kRowsPerBlock = kThreads / G;
   const int64_t r =
       static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / G;
   if (r >= nrow) return;
-  spmm_row_lanes<T, G, 32>(slice_ptr[r >> 5] + (r & 31),
+  spmm_row_lanes<T, C, G, 32>(slice_ptr[r >> 5] + (r & 31),
                            slice_ptr[(r >> 5) + 1], cols, vals, x,
                            y + r * nrhs, nrhs);
 }
 
-template <typename T, int G, int V>
+template <typename T, typename C, int G, int V>
 __global__ void __launch_bounds__(kThreads)
     ell_spmm(const int* __restrict__ rows,
              const int64_t* __restrict__ slice_ptr,
-             const int* __restrict__ cols, const T* __restrict__ vals,
+             const int* __restrict__ cols, const C* __restrict__ vals,
              const T* __restrict__ x, T* __restrict__ y, int64_t nrow,
              int nrhs) {
   constexpr int kRowsPerBlock = kThreads / G;
   const int64_t r =
       static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.x / G;
   if (r >= nrow) return;
-  spmm_row<T, G, V, 32>(slice_ptr[r >> 5] + (r & 31),
+  spmm_row<T, C, G, V, 32>(slice_ptr[r >> 5] + (r & 31),
                         slice_ptr[(r >> 5) + 1], cols, vals, x, y + r * nrhs,
                         nrhs);
 }
@@ -530,7 +546,7 @@ int row_blocks(int64_t nrows, unsigned* blocks) {
 }
 
 // ELL: ell_spmm (rows unused, ptr the slice pointers), else gpr_spmm
-template <typename T, int G, int V, bool ELL>
+template <typename T, typename C, int G, int V, bool ELL>
 int launch_spmm_g(int64_t nrows, int nrhs, const void* rows, const void* ptr,
                   const void* indices, const void* data, const void* x,
                   void* y, cudaStream_t stream) {
@@ -539,25 +555,25 @@ int launch_spmm_g(int64_t nrows, int nrhs, const void* rows, const void* ptr,
   const auto launch = [&](auto kernel) {
     kernel<<<blocks, kThreads, 0, stream>>>(
         static_cast<const int*>(rows), static_cast<const int64_t*>(ptr),
-        static_cast<const int*>(indices), static_cast<const T*>(data),
+        static_cast<const int*>(indices), static_cast<const C*>(data),
         static_cast<const T*>(x), static_cast<T*>(y), nrows, nrhs);
     return static_cast<int>(cudaGetLastError());
   };
   if constexpr (V == 1 && (G == 2 || G == 4))
-    return launch(ELL ? ell_spmm_lanes<T, G> : gpr_spmm_lanes<T, G>);
+    return launch(ELL ? ell_spmm_lanes<T, C, G> : gpr_spmm_lanes<T, C, G>);
   else
-    return launch(ELL ? ell_spmm<T, G, V> : gpr_spmm<T, G, V>);
+    return launch(ELL ? ell_spmm<T, C, G, V> : gpr_spmm<T, C, G, V>);
 }
 
 // V RHS a lane: G the smallest power of two of lanes that holds nrhs / V,
 // at most 32
-template <typename T, int V, bool ELL>
+template <typename T, typename C, int V, bool ELL>
 int launch_spmm_v(int64_t nrows, int nrhs, const void* rows, const void* ptr,
                   const void* indices, const void* data, const void* x,
                   void* y, cudaStream_t stream) {
   const int lanes = nrhs / V;
   const auto run = [&](auto g) {
-    return launch_spmm_g<T, decltype(g)::value, V, ELL>(
+    return launch_spmm_g<T, C, decltype(g)::value, V, ELL>(
         nrows, nrhs, rows, ptr, indices, data, x, y, stream);
   };
   if (lanes <= 1) return run(std::integral_constant<int, 1>());
@@ -571,8 +587,9 @@ int launch_spmm_v(int64_t nrows, int nrhs, const void* rows, const void* ptr,
 // the widest V (16 bytes, else 8, else one value) that divides nrhs,
 // leaves at least 4 lanes a row (nrhs / V >= 4: fewer lanes would put
 // more rows, of unequal lengths, on one warp) and whose alignment X and Y
-// have
-template <typename T, bool ELL>
+// have; C the stored coefficients' type (T, or __nv_bfloat16 against a
+// float32 X)
+template <typename T, bool ELL, typename C = T>
 int launch_spmm(int64_t nrows, int nrhs, const void* rows, const void* ptr,
                 const void* indices, const void* data, const void* x,
                 void* y, void* stream) {
@@ -586,14 +603,14 @@ int launch_spmm(int64_t nrows, int nrhs, const void* rows, const void* ptr,
   };
   if constexpr (sizeof(T) == 4) {
     if (fits(4))
-      return launch_spmm_v<T, 4, ELL>(nrows, nrhs, rows, ptr, indices, data,
-                                      x, y, st);
+      return launch_spmm_v<T, C, 4, ELL>(nrows, nrhs, rows, ptr, indices,
+                                         data, x, y, st);
   }
   if (fits(2))
-    return launch_spmm_v<T, 2, ELL>(nrows, nrhs, rows, ptr, indices, data, x,
-                                    y, st);
-  return launch_spmm_v<T, 1, ELL>(nrows, nrhs, rows, ptr, indices, data, x,
-                                  y, st);
+    return launch_spmm_v<T, C, 2, ELL>(nrows, nrhs, rows, ptr, indices, data,
+                                       x, y, st);
+  return launch_spmm_v<T, C, 1, ELL>(nrows, nrhs, rows, ptr, indices, data,
+                                     x, y, st);
 }
 
 }  // namespace
@@ -660,6 +677,16 @@ int tsp_gpr_spmm_f64(const void* rows, const void* indptr,
                                    x, y, stream);
 }
 
+// gpr_spmm on bf16 data: bf16 coefficients, float32 X, Y and sums
+int tsp_gpr_spmm_bf16f32(const void* rows, const void* indptr,
+                         const void* indices, const void* data,
+                         const void* x, void* y, int64_t nrows, int nrhs,
+                         void* stream) {
+  return launch_spmm<float, false, __nv_bfloat16>(nrows, nrhs, rows, indptr,
+                                                  indices, data, x, y,
+                                                  stream);
+}
+
 int tsp_ell_spmm_f32(const void* vals, const void* cols, const void* slice_ptr,
                      const void* x, void* y, int64_t nrow, int nrhs,
                      void* stream) {
@@ -672,6 +699,15 @@ int tsp_ell_spmm_f64(const void* vals, const void* cols, const void* slice_ptr,
                      void* stream) {
   return launch_spmm<double, true>(nrow, nrhs, nullptr, slice_ptr, cols,
                                    vals, x, y, stream);
+}
+
+// ell_spmm on bf16 data
+int tsp_ell_spmm_bf16f32(const void* vals, const void* cols,
+                         const void* slice_ptr, const void* x, void* y,
+                         int64_t nrow, int nrhs, void* stream) {
+  return launch_spmm<float, true, __nv_bfloat16>(nrow, nrhs, nullptr,
+                                                 slice_ptr, cols, vals, x, y,
+                                                 stream);
 }
 
 }  // extern "C"

@@ -27,14 +27,15 @@ from .planned import (DistPlan, ShardedBDIA, ShardedDIA, ShardedGPR,
                       spmv_gpr_sharded, spmv_psdia_sharded, spmv_sdia_sharded)
 from .sharded import (ColShardedCSR, HaloCSR, NeighborCSR, ShardedCSR,
                       ShardedVector)
-from .spmv import (place, spmv_allgather, spmv_colsplit, spmv_halo,
-                   spmv_neighbor)
+from .spmv import (place, spmm_allgather, spmm_halo, spmm_neighbor,
+                   spmv_allgather, spmv_colsplit, spmv_halo, spmv_neighbor)
 
 __all__ = [
     "RowPlan", "plan_rows", "plan_even", "plan_uniform",
     "ShardedVector", "ShardedCSR", "HaloCSR", "NeighborCSR",
     "ColShardedCSR",
     "spmv_allgather", "spmv_halo", "spmv_neighbor", "spmv_colsplit",
+    "spmm_allgather", "spmm_halo", "spmm_neighbor",
     "ShardedDIA", "ShardedBDIA", "ShardedSDIA", "ShardedPSDIA", "ShardedGPR",
     "spmv_dia_sharded", "spmv_bdia_sharded", "spmv_sdia_sharded",
     "spmv_psdia_sharded", "spmv_gpr_sharded",

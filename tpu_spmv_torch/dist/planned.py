@@ -29,6 +29,14 @@ square block-banded pattern (8x8 block-DIA storage at most 4x nnz)
 taken when forced, and ``"csr_neighbor"`` when GPR cannot pack or the
 matrix is empty.  The reference's VMEM size rule, its GPR envelope and
 ``predict_dist_costs`` (TPU constants) are not ported.
+
+``plan_dist_spmv(dtype=torch.bfloat16)`` stores the coefficients in bf16
+(rounded once, as the single-chip planner rounds them) for float32
+vectors, on every arm: the streaming packs run K8a's bf16-data form and
+K8b on the pattern widened once, ``ShardedGPR`` packs ``gpr_spmv``'s
+bf16-data form, and the sharded DIA (K8a), the block and the CSR
+strategies multiply bf16 values by a float32 x (torch code, float32 sums
+by type promotion).
 """
 
 from __future__ import annotations
@@ -363,10 +371,12 @@ class ShardedPSDIA:
     @functools.cached_property
     def ring_plan(self) -> RingWalkPlan:
         """K8b's walk over a shard (:func:`psdia_ring_plan` for the pack's
-        offsets, period and value type), planned once and kept with the
+        offsets, period and the type of its sums: a bf16 pattern runs
+        widened, against float32 vectors), planned once and kept with the
         pack."""
-        return psdia_ring_plan(self.offsets, self.period,
-                               self.pattern[0].element_size())
+        pat = self.pattern[0]
+        itemsize = 4 if pat.dtype == torch.bfloat16 else pat.element_size()
+        return psdia_ring_plan(self.offsets, self.period, itemsize)
 
     @staticmethod
     def build(psdia, ndev: int) -> "ShardedPSDIA":
@@ -520,16 +530,24 @@ def plan_dist_spmv(host_mat, mesh, *, dtype=None, strategy: str | None = None,
     for the strategy's local kernel and place it on ``mesh`` (a
     :class:`~.mesh.Mesh`, or a shard count for one shard per card).
 
-    ``dtype=None`` keeps the matrix's value type; ``strategy`` forces a
-    choice; ``sdia_rb`` sets the streaming row tile (tests use small
-    tiles).  The picks are in the module docstring."""
+    ``dtype=None`` keeps the matrix's value type; ``torch.bfloat16`` stores
+    bf16 coefficients for float32 vectors (module docstring); ``strategy``
+    forces a choice; ``sdia_rb`` sets the streaming row tile (tests use
+    small tiles).  The picks are in the module docstring."""
     if not isinstance(mesh, Mesh):
         mesh = make_mesh(mesh)
     ndev = mesh.ndev
     if strategy not in (None, *_SPMV):
         raise ValueError(f"unknown or unported distributed strategy "
                          f"{strategy!r}; valid: {', '.join(_SPMV)}")
-    coo = _host_coo(host_mat, dtype)
+    bf16 = dtype in (torch.bfloat16, "bfloat16")
+    coo = _host_coo(host_mat, None if bf16 else dtype)
+    if bf16:
+        # rounded once, held as float32 on the host (numpy has no bf16)
+        coo = dataclasses.replace(
+            coo, data=coo.data.to(torch.bfloat16).to(torch.float32))
+    data_dtype = torch.bfloat16 if bf16 else None
+    cast = _to_bf16 if bf16 else (lambda A: A)
     stats = _stats(coo)
     nrow, ncol = coo.shape
     square = nrow == ncol
@@ -541,11 +559,11 @@ def plan_dist_spmv(host_mat, mesh, *, dtype=None, strategy: str | None = None,
 
     def try_dia():
         A = ShardedDIA.build(host_dia(), ndev)       # raises if band > chunk
-        return DistPlan(A, "dia", A.x_plan, A.row_plan, mesh)
+        return DistPlan(cast(A), "dia", A.x_plan, A.row_plan, mesh)
 
     def try_sdia():
-        A = ShardedSDIA.build(dia_stream.pack_sdia(host_dia(), rb=sdia_rb),
-                              ndev)
+        A = ShardedSDIA.build(dia_stream.pack_sdia(
+            host_dia(), rb=sdia_rb, data_dtype=data_dtype), ndev)
         return DistPlan(A, "dia_stream", A.pad_plan, A.pad_plan, mesh)
 
     def try_psdia():
@@ -555,12 +573,13 @@ def plan_dist_spmv(host_mat, mesh, *, dtype=None, strategy: str | None = None,
             raise ValueError("no periodic diagonal structure")
         # detect_period proved the period on this same host data
         A = ShardedPSDIA.build(dia_stream.pack_psdia(
-            hdia, period=period, rb=sdia_rb, verify=False), ndev)
+            hdia, period=period, rb=sdia_rb, verify=False,
+            data_dtype=data_dtype), ndev)
         return DistPlan(A, "pdia_stream", A.pad_plan, A.pad_plan, mesh)
 
     def try_bdia():
         A = ShardedBDIA.build(BDIA.from_coo(coo, block_size=8), ndev)
-        return DistPlan(A, "bdia", A.x_plan, A.row_plan, mesh)
+        return DistPlan(cast(A), "bdia", A.x_plan, A.row_plan, mesh)
 
     arms = {"dia": try_dia, "dia_stream": try_sdia, "pdia_stream": try_psdia,
             "bdia": try_bdia}
@@ -584,7 +603,7 @@ def plan_dist_spmv(host_mat, mesh, *, dtype=None, strategy: str | None = None,
     sp_csr.sort_indices()
     if strategy == "gpr" or (strategy is None and stats.nnz):
         try:
-            A = ShardedGPR.build(sp_csr, ndev, dtype=coo.dtype)
+            A = ShardedGPR.build(sp_csr, ndev, dtype=data_dtype or coo.dtype)
             return _placed(DistPlan(A, "gpr", A.x_plan, A.row_plan, mesh))
         except ValueError:
             if strategy == "gpr":
@@ -593,7 +612,17 @@ def plan_dist_spmv(host_mat, mesh, *, dtype=None, strategy: str | None = None,
     cls = {"csr_neighbor": NeighborCSR, "csr_allgather": ShardedCSR,
            "csr_halo": HaloCSR}[strategy]
     A = cls.build(sp_csr, ndev, square=square)
-    return _placed(DistPlan(A, strategy, A.col_plan, A.row_plan, mesh))
+    return _placed(DistPlan(cast(A), strategy, A.col_plan, A.row_plan, mesh))
+
+
+def _to_bf16(A):
+    """A sharded container with its value arrays (``data``, or NeighborCSR's
+    ``data_int`` / ``data_bnd``) in bf16: they hold bf16-rounded values,
+    so the cast is exact."""
+    return dataclasses.replace(A, **{
+        f.name: tuple(t.to(torch.bfloat16) for t in getattr(A, f.name))
+        for f in dataclasses.fields(A)
+        if f.name in ("data", "data_int", "data_bnd")})
 
 
 def _placed(plan: DistPlan) -> DistPlan:
@@ -608,9 +637,11 @@ def bench_dist_spmv(host_mat, mesh, *, dtype=None, iters: int = 50,
     protocol ``v <- (A v) / ||A||_inf`` and print ``### CSR DIST<ndev>
     GFLOPS`` and the strategy line.
 
-    ``dtype=None`` is float32.  ``plan`` runs an already built plan on its
-    mesh (``host_mat`` is then the oracle only).  Square matrices only:
-    the chain feeds y chunks back as x chunks."""
+    ``dtype=None`` is float32; ``torch.bfloat16`` plans bf16 coefficients
+    for float32 vectors and holds the product to the oracle's bf16 gate
+    (2e-2 against the unrounded ``host_mat``).  ``plan`` runs an already
+    built plan on its mesh (``host_mat`` is then the oracle only).  Square
+    matrices only: the chain feeds y chunks back as x chunks."""
     import scipy.sparse as sp
 
     from ..bench.harness import time_chained, verify_against_oracle
@@ -625,7 +656,7 @@ def bench_dist_spmv(host_mat, mesh, *, dtype=None, iters: int = 50,
     if nrow != ncol:
         raise ValueError("bench_dist_spmv requires a square matrix")
     x = np.random.default_rng(0).random(ncol).astype(
-        np.float32 if dt == torch.float32 else np.float64)
+        np.float64 if dt == torch.float64 else np.float32)
     xs = plan.shard_x(x)
     host = (host_mat if sp.issparse(host_mat)
             else to_coo(host_mat).to_scipy()).tocsr().astype(np.float64)
@@ -634,7 +665,8 @@ def bench_dist_spmv(host_mat, mesh, *, dtype=None, iters: int = 50,
         # the harness's gate: dtype-scaled tolerance, raises on failure
         rel = verify_against_oracle(
             plan.matrix, torch.from_numpy(x),
-            torch.from_numpy(plan.y_to_global(plan.spmv(xs))), oracle=host)
+            torch.from_numpy(plan.y_to_global(plan.spmv(xs))), oracle=host,
+            data_dtype=dt)
     scale = 1.0 / max(float(abs(host).sum(axis=1).max()), 1e-300)
     sec = time_chained(lambda v: blas.scale(plan.spmv(v), scale), xs,
                        iters=iters).median_s

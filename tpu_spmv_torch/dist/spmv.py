@@ -14,7 +14,11 @@ shards and runs each shard's work on that shard's device:
   (:func:`spmv_colsplit`).
 
 Each shard's product is a gather and one ``torch.segment_reduce`` per
-bucket over the bucket's row pointer (row-owned, deterministic).
+bucket over the bucket's row pointer (row-owned, deterministic).  The
+SpMMs (:func:`spmm_allgather`, :func:`spmm_halo`, :func:`spmm_neighbor`)
+run the same strategies on a block of right-hand sides: ``X``'s chunks
+are ``[C, nrhs]``, the values ride along the trailing axis of the copies
+and of the segment sums, and the result's chunks are ``[R, nrhs]``.
 Overlapping the copies with compute is later work.
 """
 
@@ -29,7 +33,7 @@ from .sharded import (ColShardedCSR, HaloCSR, NeighborCSR, ShardedCSR,
                       ShardedVector)
 
 __all__ = ["place", "spmv_allgather", "spmv_halo", "spmv_neighbor",
-           "spmv_colsplit"]
+           "spmv_colsplit", "spmm_allgather", "spmm_halo", "spmm_neighbor"]
 
 
 def _per_shard(value, ndev: int) -> bool:
@@ -64,6 +68,12 @@ def _vector(A, chunks) -> ShardedVector:
                          length=A.shape[0])
 
 
+def _times(data: torch.Tensor, xg: torch.Tensor) -> torch.Tensor:
+    """Each entry's value times its gathered x value, or (``xg`` ``[nnz,
+    nrhs]``, a block of right-hand sides) its gathered row of X."""
+    return (data if xg.dim() == 1 else data[:, None]) * xg
+
+
 def spmv_allgather(mesh: Mesh, A: ShardedCSR,
                    x: ShardedVector) -> ShardedVector:
     """Row-sharded SpMV with x replicated: every shard gathers all chunks
@@ -72,7 +82,7 @@ def spmv_allgather(mesh: Mesh, A: ShardedCSR,
     ys = []
     for s, dev in enumerate(mesh.devices):
         xg = torch.cat([c.to(dev) for c in x.chunks])
-        ys.append(_segsum(A.data[s] * xg[A.cols[s]], A.rowptr[s]))
+        ys.append(_segsum(_times(A.data[s], xg[A.cols[s]]), A.rowptr[s]))
     return _vector(A, ys)
 
 
@@ -86,7 +96,7 @@ def spmv_halo(mesh: Mesh, A: HaloCSR, x: ShardedVector) -> ShardedVector:
     ys = [None] * n
     for t in range(n):
         for s in range(n):
-            part = _segsum(A.data[s][t] * cur[s][A.cols[s][t]],
+            part = _segsum(_times(A.data[s][t], cur[s][A.cols[s][t]]),
                            A.rowptr[s][t])
             ys[s] = part if ys[s] is None else ys[s] + part
         if t + 1 < n:
@@ -102,12 +112,12 @@ def spmv_neighbor(mesh: Mesh, A: NeighborCSR,
     bucket against the window of the received ones."""
     n, ys = A.ndev, []
     for s, dev in enumerate(mesh.devices):
-        y = _segsum(A.data_int[s] * x.chunks[s][A.cols_int[s]],
+        y = _segsum(_times(A.data_int[s], x.chunks[s][A.cols_int[s]]),
                     A.rowptr_int[s])
         if A.offsets:
             xwin = torch.cat([x.chunks[(s + d) % n].to(dev)
                               for d in A.offsets])
-            y = y + _segsum(A.data_bnd[s] * xwin[A.cols_bnd[s]],
+            y = y + _segsum(_times(A.data_bnd[s], xwin[A.cols_bnd[s]]),
                             A.rowptr_bnd[s])
         ys.append(y)
     return _vector(A, ys)
@@ -129,3 +139,33 @@ def spmv_colsplit(mesh: Mesh, A: ColShardedCSR,
             y = y + p[s * R:(s + 1) * R].to(dev)
         ys.append(y)
     return _vector(A, ys)
+
+
+def _check_rhs(X: ShardedVector) -> None:
+    if X.chunks[0].dim() != 2:
+        raise ValueError(f"X's chunks must be [C, nrhs], got "
+                         f"{tuple(X.chunks[0].shape)}")
+
+
+def spmm_allgather(mesh: Mesh, A: ShardedCSR,
+                   X: ShardedVector) -> ShardedVector:
+    """Row-sharded SpMM with X replicated (:func:`spmv_allgather` on a
+    block of right-hand sides): ``X``'s chunks are ``[C, nrhs]``, the
+    result's ``[R, nrhs]``."""
+    _check_rhs(X)
+    return spmv_allgather(mesh, A, X)
+
+
+def spmm_halo(mesh: Mesh, A: HaloCSR, X: ShardedVector) -> ShardedVector:
+    """Row-sharded SpMM with the ring (:func:`spmv_halo` on a block of
+    right-hand sides: each step ships a ``[C, nrhs]`` chunk)."""
+    _check_rhs(X)
+    return spmv_halo(mesh, A, X)
+
+
+def spmm_neighbor(mesh: Mesh, A: NeighborCSR,
+                  X: ShardedVector) -> ShardedVector:
+    """Row-sharded SpMM with a neighbour halo (:func:`spmv_neighbor` on a
+    block of right-hand sides: the touched ``[C, nrhs]`` chunks)."""
+    _check_rhs(X)
+    return spmv_neighbor(mesh, A, X)

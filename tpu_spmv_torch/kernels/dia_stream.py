@@ -72,6 +72,7 @@ __all__ = ["SDIA", "PSDIA", "LAUNCHES", "pack_sdia", "supports_sdia",
            "spmv_psdia_padded", "spmv_psdia_padded_ref", "spmv_psdia",
            "spmm_sdia_padded_t", "spmm_sdia_padded_t_ref", "spmm_sdia",
            "spmm_psdia_padded_t", "spmm_psdia_padded_t_ref", "spmm_psdia",
+           "fma_f32",
            "SpmmWindowPlan", "psdia_spmm_plan", "WALK_TILE", "WALK_STAGES",
            "BULK_AHEAD", "WalkPlan", "psdia_cluster_walk", "psdia_walk_plan",
            "check_walk"]
@@ -84,9 +85,9 @@ _DATA_BLOCK_BUDGET = 3 << 20
 #: the reference's budget for the [nrhs, rb] RHS panels of the SpMM layout
 _RHS_PANEL_BUDGET = 8 << 20
 #: kernel launches by the wrappers on CUDA tensors (plain-version calls on
-#: CPU tensors are not counted)
+#: CPU tensors are not counted; ``*_bf16``: the bf16-data forms)
 LAUNCHES = {"sdia": 0, "sdia_bf16": 0, "psdia": 0, "sdia_spmm": 0,
-            "psdia_spmm": 0}
+            "sdia_spmm_bf16": 0, "psdia_spmm": 0}
 #: the kernels keep the offsets in 48 KB of shared memory
 _MAX_DIAGS = 12288
 #: K3a and K3b (the same constants in ``csrc/dia_stream.cu``):
@@ -382,12 +383,38 @@ def _in_type_of(coef: torch.Tensor, xpad: torch.Tensor) -> torch.Tensor:
     return coef if coef.dtype == xpad.dtype else coef.to(xpad.dtype)
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32, as the card's ``fma`` does,
+    for float32 tensors (broadcasting).  The product of two float32
+    values is exact in float64 and ``TwoSum`` gives the exact error ``e``
+    of the float64 sum ``s``; rounding ``s`` to odd (its last bit set
+    where ``e`` is not zero, toward the exact value) and then to float32
+    rounds the exact ``a * b + c`` correctly, float64 having more than
+    24 + 2 bits."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bp = s - c
+    e = (p - bp) + (c - (s - bp))
+    bits = s.view(torch.int64)
+    step = torch.where((e > 0) == (s > 0), 1, -1)
+    bits = torch.where((e != 0) & (bits & 1 == 0), bits + step, bits)
+    return bits.view(torch.float64).float()
+
+
 def spmv_sdia_padded_ref(A: SDIA, xpad: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K1: per-diagonal zero-filled shifts of
-    ``xpad`` times the diagonal data (bf16 data widened to x's type),
-    summed in ascending offset order.  A leading axis of ``xpad`` (the
-    SpMM's RHS axis) broadcasts."""
+    ``xpad`` times the diagonal data, summed in ascending offset order.
+    On bf16 data the kernel's bf16-data arithmetic, bit for bit: each
+    coefficient widened exactly, one :func:`fma_f32` a diagonal from zero.
+    A leading axis of ``xpad`` (the SpMM's RHS axis) broadcasts."""
     data = _in_type_of(A.data, xpad)
+    if A.data.dtype == torch.bfloat16:
+        acc = torch.zeros_like(xpad)
+        for d, off in enumerate(A.offsets):
+            acc = fma_f32(data[d], _shift(xpad, off), acc)
+        return acc
     acc = data[0] * _shift(xpad, A.offsets[0])
     for d, off in enumerate(A.offsets[1:], start=1):
         acc = acc + data[d] * _shift(xpad, off)
@@ -410,7 +437,8 @@ def spmv_psdia_padded_ref(A: PSDIA, xpad: torch.Tensor) -> torch.Tensor:
 
 def spmm_sdia_padded_t_ref(A: SDIA, Xt_pad: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K3a: K1's plain version over the rows of
-    ``Xt_pad`` (``[nrhs, npad] -> [nrhs, npad]``)."""
+    ``Xt_pad`` (``[nrhs, npad] -> [nrhs, npad]``); on bf16 data bitwise
+    the kernel's bf16-data form."""
     return spmv_sdia_padded_ref(A, Xt_pad)
 
 
@@ -431,17 +459,15 @@ def _offsets_on(offsets: tuple[int, ...], device: torch.device):
 
 
 def _check(name: str, coef: torch.Tensor, A, xpad: torch.Tensor,
-           width: int, rhs_axis: bool = False, bf16_data: bool = False
-           ) -> None:
+           width: int, rhs_axis: bool = False) -> None:
     """Raise on anything the kernels do not take: ``xpad`` is ``[npad]``,
     or ``[nrhs, npad]`` with ``rhs_axis``; the coefficients are in x's
-    type, or (``bf16_data``: the SpMVs K1 and K2) bfloat16 against a
-    float32 x."""
+    type, or bfloat16 against a float32 x (the bf16-data forms)."""
     if xpad.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: x must be float32 or float64, "
                         f"got {xpad.dtype}")
     mixed = coef.dtype == torch.bfloat16 and xpad.dtype == torch.float32
-    if coef.dtype != xpad.dtype and not (bf16_data and mixed):
+    if coef.dtype != xpad.dtype and not mixed:
         raise TypeError(f"{name}: matrix is {coef.dtype} but x is "
                         f"{xpad.dtype}")
     if coef.device != xpad.device:
@@ -469,7 +495,7 @@ def spmv_sdia_padded(A: SDIA, xpad: torch.Tensor) -> torch.Tensor:
     bfloat16 data against a float32 x its bf16-data form, instantiated
     ``<float, __nv_bfloat16>``, counted apart); CPU tensor:
     :func:`spmv_sdia_padded_ref`."""
-    _check("spmv_sdia_padded", A.data, A, xpad, A.npad, bf16_data=True)
+    _check("spmv_sdia_padded", A.data, A, xpad, A.npad)
     if xpad.is_cpu:
         return spmv_sdia_padded_ref(A, xpad)
     bf16 = A.data.dtype == torch.bfloat16
@@ -496,7 +522,7 @@ def spmv_psdia_padded(A: PSDIA, xpad: torch.Tensor) -> torch.Tensor:
     float32 x runs the float32 kernel on the pattern widened once
     (:func:`_widened`): the widening is exact, so the products are those
     of bf16 coefficients summed in float32."""
-    _check("spmv_psdia_padded", A.pattern, A, xpad, A.rb, bf16_data=True)
+    _check("spmv_psdia_padded", A.pattern, A, xpad, A.rb)
     if xpad.is_cpu:
         return spmv_psdia_padded_ref(A, xpad)
     _, args = _walk_launch(A.offsets, A.period, A.rb, xpad.element_size(),
@@ -686,8 +712,10 @@ def spmm_sdia_padded_t(A: SDIA, Xt_pad: torch.Tensor) -> torch.Tensor:
     out zero, and every column is bitwise K1's on the same pack.
 
     CUDA tensor: launches K3a (``sdia_spmm`` in ``csrc/dia_stream.cu``:
-    K3b's walks with the data rows as the coefficients) with the tiling of
-    :func:`psdia_spmm_plan`; CPU tensor: :func:`spmm_sdia_padded_t_ref`."""
+    K3b's walks with the data rows as the coefficients; on bfloat16 data
+    against a float32 ``Xt_pad`` its bf16-data form, counted apart, every
+    column bitwise K1 bf16's) with the tiling of :func:`psdia_spmm_plan`;
+    CPU tensor: :func:`spmm_sdia_padded_t_ref`."""
     _check("spmm_sdia_padded_t", A.data, A, Xt_pad, A.npad, rhs_axis=True)
     if Xt_pad.is_cpu:
         return spmm_sdia_padded_t_ref(A, Xt_pad)
@@ -857,19 +885,26 @@ def psdia_spmm_plan(offsets: tuple[int, ...], nrhs: int,
 
 def _spmm_launch(A: SDIA | PSDIA, Xt_pad: torch.Tensor,
                  plan: SpmmWindowPlan) -> torch.Tensor:
-    """Launch K3a (an SDIA pack: its data rows are the coefficients) or
-    K3b (a PSDIA pack: its pattern) with ``plan`` on checked CUDA operands;
-    count it.  The launcher refuses a plan that does not fit."""
+    """Launch K3a (an SDIA pack: its data rows are the coefficients; bf16
+    data its bf16-data form) or K3b (a PSDIA pack: its pattern, a bf16 one
+    widened once, :func:`_widened`) with ``plan`` on checked CUDA
+    operands; count it.  The plan is made for ``Xt_pad``'s value type: a
+    slot keeps room for coefficient rows of that type, which 2-byte rows
+    half fill.  The launcher refuses a plan that does not fit."""
     sdia = isinstance(A, SDIA)
     Yt = torch.empty_like(Xt_pad)
     offs = _offsets_on(A.offsets, Xt_pad.device)
     table = _offsets_on(plan.table, Xt_pad.device)
-    name = "sdia_spmm" if sdia else "psdia_spmm"
-    _build.launcher(name, Xt_pad.dtype)(
-        Xt_pad, (A.data if sdia else A.pattern).data_ptr(), offs.data_ptr(),
-        A.ndiags, table.data_ptr(), plan.nclusters, plan.stride, plan.qt,
-        plan.tk, plan.slot, plan.nslot, A.rb, Xt_pad.data_ptr(),
-        Yt.data_ptr(), A.npad, A.L, A.shape[0], Xt_pad.shape[0])
+    if sdia and A.data.dtype == torch.bfloat16:
+        name, launch = "sdia_spmm_bf16", _build.launcher("sdia_spmm_bf16f32")
+    else:
+        name = "sdia_spmm" if sdia else "psdia_spmm"
+        launch = _build.launcher(name, Xt_pad.dtype)
+    launch(Xt_pad, (A.data if sdia else _widened(A.pattern)).data_ptr(),
+           offs.data_ptr(), A.ndiags, table.data_ptr(), plan.nclusters,
+           plan.stride, plan.qt, plan.tk, plan.slot, plan.nslot, A.rb,
+           Xt_pad.data_ptr(), Yt.data_ptr(), A.npad, A.L, A.shape[0],
+           Xt_pad.shape[0])
     LAUNCHES[name] += 1
     return Yt
 
@@ -880,8 +915,9 @@ def spmm_psdia_padded_t(A: PSDIA, Xt_pad: torch.Tensor) -> torch.Tensor:
     outside ``[L, L + nrow)`` come out zero (the row mask).
 
     CUDA tensor: launches K3b (``psdia_spmm`` in ``csrc/dia_stream.cu``)
-    with the tiling of :func:`psdia_spmm_plan`; CPU tensor:
-    :func:`spmm_psdia_padded_t_ref`."""
+    with the tiling of :func:`psdia_spmm_plan` (a bfloat16 pattern against
+    a float32 ``Xt_pad``: the float32 kernel on the pattern widened once,
+    as K2 runs it); CPU tensor: :func:`spmm_psdia_padded_t_ref`."""
     _check("spmm_psdia_padded_t", A.pattern, A, Xt_pad, A.rb, rhs_axis=True)
     if Xt_pad.is_cpu:
         return spmm_psdia_padded_t_ref(A, Xt_pad)

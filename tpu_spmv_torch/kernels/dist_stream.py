@@ -20,6 +20,12 @@ On a CUDA tensor the wrappers launch the hand-written Hopper kernels of
 launch in :data:`LAUNCHES`; on a CPU tensor they run the plain PyTorch
 versions beside them (``*_ref``).  Nothing falls back from one to the other.
 
+Both take bf16 coefficients against a float32 x and slivers (the
+reference's ring kernels on a shard of a bf16 pack keep x's type): K8a
+its bf16-data form (``sdia_ring<float, __nv_bfloat16>``, K1 bf16's
+arithmetic, which its plain version repeats bit for bit), K8b the float32
+kernel on the pattern widened once, as K2 runs a bf16 pattern.
+
 K8b runs K2's kernel body (``csrc/psdia_walk.cuh``) on the ring ``[left |
 x | right]``: windows and the pattern's rows staged in shared memory along
 the walk that :func:`.dia_stream.psdia_walk_plan` picks on the host, once
@@ -34,7 +40,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .dia_stream import _MAX_DIAGS, _offsets_on, _walk_args
+from .dia_stream import (_MAX_DIAGS, _in_type_of, _offsets_on, _walk_args,
+                         _widened, fma_f32)
 from .dia_stream import WALK_STAGES as RING_STAGES
 from .dia_stream import WALK_TILE as RING_TILE
 from .dia_stream import WalkPlan as RingWalkPlan
@@ -48,8 +55,9 @@ __all__ = ["LAUNCHES", "halo_size", "spmv_sdia_ring", "spmv_sdia_ring_ref",
            "spmv_psdia_ring", "spmv_psdia_ring_ref"]
 
 #: kernel launches by the wrappers on CUDA tensors, one per shard (plain-
-#: version calls on CPU tensors are not counted)
-LAUNCHES = {"sdia_ring": 0, "psdia_ring": 0}
+#: version calls on CPU tensors are not counted; ``"sdia_ring_bf16"``: K8a's
+#: bf16-data form)
+LAUNCHES = {"sdia_ring": 0, "sdia_ring_bf16": 0, "psdia_ring": 0}
 
 
 def halo_size(offsets, rb: int) -> int:
@@ -76,8 +84,15 @@ def _shifted(x: torch.Tensor, left: torch.Tensor, right: torch.Tensor,
 def spmv_sdia_ring_ref(data: torch.Tensor, offsets, x: torch.Tensor,
                        left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K8a: shifted windows of ``[left | x |
-    right]`` times the diagonal data, summed in ascending offset order."""
+    right]`` times the diagonal data, summed in ascending offset order; on
+    bf16 data the kernel's arithmetic bit for bit (each coefficient
+    widened, one :func:`.dia_stream.fma_f32` a diagonal from zero)."""
     xs = _shifted(x, left, right, offsets)
+    if data.dtype == torch.bfloat16:
+        acc = torch.zeros_like(x)
+        for d in range(len(offsets)):
+            acc = fma_f32(data[d].to(x.dtype), xs[d], acc)
+        return acc
     acc = data[0] * xs[0]
     for d in range(1, len(offsets)):
         acc = acc + data[d] * xs[d]
@@ -87,10 +102,11 @@ def spmv_sdia_ring_ref(data: torch.Tensor, offsets, x: torch.Tensor,
 def spmv_psdia_ring_ref(pattern: torch.Tensor, offsets, x: torch.Tensor,
                         left: torch.Tensor, right: torch.Tensor, *,
                         base: int, L: int, nrow: int) -> torch.Tensor:
-    """Plain PyTorch version of K8b: the same sum with the pattern tiled
-    over the shard's row tiles, then the row mask at the shard's origin
-    ``base``."""
+    """Plain PyTorch version of K8b: the same sum with the pattern (a bf16
+    one widened to x's type) tiled over the shard's row tiles, then the
+    row mask at the shard's origin ``base``."""
     reps = x.shape[0] // pattern.shape[1]
+    pattern = _in_type_of(pattern, x)
     xs = _shifted(x, left, right, offsets)
     acc = pattern[0].repeat(reps) * xs[0]
     for d in range(1, len(offsets)):
@@ -102,11 +118,13 @@ def spmv_psdia_ring_ref(pattern: torch.Tensor, offsets, x: torch.Tensor,
 
 def _check(name: str, coef: torch.Tensor, offsets, x: torch.Tensor,
            left: torch.Tensor, right: torch.Tensor, width: int) -> None:
-    """Raise on anything the kernels do not take."""
+    """Raise on anything the kernels do not take (bfloat16 coefficients
+    pair with a float32 x)."""
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: x must be float32 or float64, got {x.dtype}")
+    mixed = coef.dtype == torch.bfloat16 and x.dtype == torch.float32
     for what, t in (("matrix", coef), ("left", left), ("right", right)):
-        if t.dtype != x.dtype:
+        if t.dtype != x.dtype and not (t is coef and mixed):
             raise TypeError(f"{name}: {what} is {t.dtype} but x is {x.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name}: {what} on {t.device}, x on {x.device}")
@@ -134,18 +152,21 @@ def spmv_sdia_ring(data: torch.Tensor, offsets, x: torch.Tensor,
     """One shard of the sharded SDIA product: ``data [nd, cp]``, ``x
     [cp]``, slivers ``[h]`` -> ``y [cp]``.
 
-    CUDA tensor: launches K8a (``sdia_ring`` in ``csrc/dist_stream.cu``);
-    CPU tensor: :func:`spmv_sdia_ring_ref`."""
+    CUDA tensor: launches K8a (``sdia_ring`` in ``csrc/dist_stream.cu``;
+    on bfloat16 data against a float32 x its bf16-data form, counted
+    apart); CPU tensor: :func:`spmv_sdia_ring_ref`."""
     _check("spmv_sdia_ring", data, offsets, x, left, right, x.shape[0])
     if x.is_cpu:
         return spmv_sdia_ring_ref(data, offsets, x, left, right)
     offs = _offsets_on(tuple(offsets), x.device)
     y = torch.empty_like(x)
-    _build.launcher("sdia_ring", x.dtype)(
-        x, data.data_ptr(), offs.data_ptr(), len(offsets), x.data_ptr(),
-        left.data_ptr(), right.data_ptr(), y.data_ptr(), x.shape[0],
-        left.shape[0])
-    LAUNCHES["sdia_ring"] += 1
+    bf16 = data.dtype == torch.bfloat16
+    launch = (_build.launcher("sdia_ring_bf16f32") if bf16
+              else _build.launcher("sdia_ring", x.dtype))
+    launch(x, data.data_ptr(), offs.data_ptr(), len(offsets), x.data_ptr(),
+           left.data_ptr(), right.data_ptr(), y.data_ptr(), x.shape[0],
+           left.shape[0])
+    LAUNCHES["sdia_ring_bf16" if bf16 else "sdia_ring"] += 1
     return y
 
 
@@ -161,7 +182,8 @@ def spmv_psdia_ring(pattern: torch.Tensor, offsets, x: torch.Tensor,
 
     CUDA tensor: launches K8b (``psdia_walk_bulk``, ``psdia_walk_stride``
     or ``psdia_walk_clusters`` of ``csrc/psdia_walk.cuh``, from
-    ``csrc/dist_stream.cu``); CPU tensor: :func:`spmv_psdia_ring_ref`."""
+    ``csrc/dist_stream.cu``; a bfloat16 pattern widened once); CPU tensor:
+    :func:`spmv_psdia_ring_ref`."""
     rb = pattern.shape[1]
     _check("spmv_psdia_ring", pattern, offsets, x, left, right, rb)
     if x.shape[0] % rb:
@@ -178,7 +200,8 @@ def spmv_psdia_ring(pattern: torch.Tensor, offsets, x: torch.Tensor,
                          "(plan=ShardedPSDIA.ring_plan)")
     y = torch.empty_like(x)
     _build.launcher("psdia_ring", x.dtype)(
-        x, pattern.data_ptr(), _walk_args(plan, offsets, rb, x.device)[1],
+        x, _widened(pattern).data_ptr(),
+        _walk_args(plan, offsets, rb, x.device)[1],
         x.data_ptr(), left.data_ptr(), right.data_ptr(), y.data_ptr(),
         x.shape[0], left.shape[0], base, L, nrow)
     LAUNCHES["psdia_ring"] += 1

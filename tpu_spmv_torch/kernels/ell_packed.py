@@ -31,8 +31,10 @@ On a CPU tensor they run the plain versions :func:`spmv_ell_packed_ref` and
 COO's) in bf16, rounded once, for a float32 x: the SpMV runs the kernel's
 bf16-data form (``ell_spmv<float, __nv_bfloat16>``), whose plain version
 adds the float32 products of a row's slots one at a time in slot order, as
-the kernel does, so the two agree bit for bit.  The SpMM takes no bf16
-data yet and raises.
+the kernel does, so the two agree bit for bit.  The SpMM's bf16-data form
+(``ell_spmm<float, __nv_bfloat16, ...>``, a float32 ``X``) adds each row's
+rounded products in slot order too, so every column of it is bitwise the
+SpMV's, and so does its plain version.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ import torch
 from ..formats import COO
 from ..formats.base import as_values, sparse_dataclass
 from . import _build
-from .gpr import _check, _host_csr, _value_dtype
+from .gpr import _check, _host_csr, _value_dtype, rows_in_order
 
 __all__ = ["PackedELL", "SLICE", "MAX_WIDTH", "LAUNCHES", "pack_ell",
            "slice_slots", "spmv_ell_main", "spmv_ell_packed_ref",
@@ -54,10 +56,10 @@ __all__ = ["PackedELL", "SLICE", "MAX_WIDTH", "LAUNCHES", "pack_ell",
 SLICE = 32
 #: slots per row at most; the rest of a row goes to the side COO
 MAX_WIDTH = 128
-#: kernel launches by :func:`spmv_ell_main` (``"ell_bf16"``: its bf16-data
-#: form) and :func:`spmm_ell_main` on CUDA tensors (plain-version calls on
+#: kernel launches by :func:`spmv_ell_main` and :func:`spmm_ell_main` on
+#: CUDA tensors (``*_bf16``: their bf16-data forms; plain-version calls on
 #: CPU tensors are not counted)
-LAUNCHES = {"ell": 0, "ell_bf16": 0, "ell_spmm": 0}
+LAUNCHES = {"ell": 0, "ell_bf16": 0, "ell_spmm": 0, "ell_spmm_bf16": 0}
 
 
 @sparse_dataclass
@@ -162,7 +164,14 @@ def spmv_ell_packed_ref(A: PackedELL, x: torch.Tensor) -> torch.Tensor:
 def spmm_ell_packed_ref(A: PackedELL, X: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of ``ell_spmm``: :func:`spmv_ell_packed_ref`
     with a trailing RHS axis (``[ncol, nrhs] -> [nrow, nrhs]``, without
-    the side COO)."""
+    the side COO); on bf16 data the kernel's order, each row's rounded
+    products added slot by slot over its slice's width
+    (:func:`.gpr.rows_in_order`)."""
+    if A.vals.dtype == torch.bfloat16:
+        rows = torch.arange(A.shape[0], device=X.device)
+        begin = A.slice_ptr[rows // SLICE] + rows % SLICE
+        return rows_in_order(begin, A.slice_ptr[rows // SLICE + 1], A.vals,
+                             A.cols, X, step=SLICE)
     idx, valid = _slot_index(A, X.device)
     g = (A.vals[:, None] * X[A.cols])[idx]
     return torch.where(valid[..., None], g, torch.zeros_like(g)).sum(dim=1)
@@ -199,16 +208,19 @@ def spmm_ell_main(A: PackedELL, X: torch.Tensor) -> torch.Tensor:
     """The sliced-ELL part of ``A @ X`` (``[ncol, nrhs] -> [nrow, nrhs]``,
     without the side COO).
 
-    CUDA tensor: launches ``ell_spmm`` (``csrc/general.cu``); CPU tensor:
-    :func:`spmm_ell_packed_ref`."""
+    CUDA tensor: launches ``ell_spmm`` (``csrc/general.cu``; on bfloat16
+    data against a float32 ``X`` its bf16-data form, counted apart); CPU
+    tensor: :func:`spmm_ell_packed_ref`."""
     _check_ell("spmm_ell", A, X, ndim=2)
     if X.is_cpu:
         return spmm_ell_packed_ref(A, X)
+    bf16 = A.vals.dtype == torch.bfloat16
     Y = X.new_empty(A.shape[0], X.shape[1])
-    _build.launcher("ell_spmm", X.dtype)(
-        X, A.vals.data_ptr(), A.cols.data_ptr(), A.slice_ptr.data_ptr(),
-        X.data_ptr(), Y.data_ptr(), A.shape[0], X.shape[1])
-    LAUNCHES["ell_spmm"] += 1
+    launch = (_build.launcher("ell_spmm_bf16f32") if bf16
+              else _build.launcher("ell_spmm", X.dtype))
+    launch(X, A.vals.data_ptr(), A.cols.data_ptr(), A.slice_ptr.data_ptr(),
+           X.data_ptr(), Y.data_ptr(), A.shape[0], X.shape[1])
+    LAUNCHES["ell_spmm_bf16" if bf16 else "ell_spmm"] += 1
     return Y
 
 

@@ -47,7 +47,10 @@ values rounded once) for a float32 x: the SpMV then runs the kernel's
 bf16-data form (``gpr_spmv<float, __nv_bfloat16>``), whose plain version
 sums the float32 products in the kernel's own order (lanes, then the
 butterfly; :func:`gpr_rows_ordered`), so the two agree bit for bit.  The
-SpMM takes no bf16 data yet and raises.
+SpMM runs ``gpr_spmm<float, __nv_bfloat16, ...>`` on such a pack with a
+float32 ``X``: each product rounded, then added to its output in entry
+order from zero, which its plain version repeats
+(:func:`gpr_spmm_ordered`).
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ from . import _build
 __all__ = ["GPCSR", "CLASS_W", "LANES", "LAUNCHES", "pack_gpr", "supports",
            "spmv_gpr_rows", "spmv_gpr_ref", "gpr_rows_ordered",
            "fold_hub_rows", "spmv_gpr", "spmm_gpr_rows", "spmm_gpr_ref",
-           "spmm_gpr"]
+           "gpr_spmm_ordered", "spmm_gpr"]
 
 LANES = 128
 #: width-class budgets: a row of n entries goes to the first W >= n
@@ -71,10 +74,10 @@ CLASS_W = (8, 16, 32, 64, 128)
 #: lanes a row of each width class (a quarter of the class width), as the
 #: kernel gives them
 CLASS_LANES = tuple(w // 4 for w in CLASS_W)
-#: kernel launches by :func:`spmv_gpr_rows` (``"gpr_bf16"``: its bf16-data
-#: form) and :func:`spmm_gpr_rows` on CUDA tensors (plain-version calls on
+#: kernel launches by :func:`spmv_gpr_rows` and :func:`spmm_gpr_rows` on
+#: CUDA tensors (``*_bf16``: their bf16-data forms; plain-version calls on
 #: CPU tensors are not counted)
-LAUNCHES = {"gpr": 0, "gpr_bf16": 0, "gpr_spmm": 0}
+LAUNCHES = {"gpr": 0, "gpr_bf16": 0, "gpr_spmm": 0, "gpr_spmm_bf16": 0}
 #: the kernel's column indices are int32
 _MAX_NCOL = 2**31 - 1
 
@@ -257,7 +260,10 @@ def gpr_rows_ordered(A: GPCSR, x: torch.Tensor) -> torch.Tensor:
 
 def spmm_gpr_ref(A: GPCSR, X: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of ``gpr_spmm``: :func:`spmv_gpr_ref` with a
-    trailing RHS axis (``[ncol, nrhs] -> [nrow + nv, nrhs]``)."""
+    trailing RHS axis (``[ncol, nrhs] -> [nrow + nv, nrhs]``).  On bf16
+    data the bf16-data form's exact arithmetic, :func:`gpr_spmm_ordered`."""
+    if A.data.dtype == torch.bfloat16:
+        return gpr_spmm_ordered(A, X)
     sums = torch.segment_reduce(A.data[:, None] * X[A.indices], "sum",
                                 offsets=A.indptr, axis=0)
     Y = torch.empty(A.nrow_internal, X.shape[1], dtype=X.dtype,
@@ -266,24 +272,48 @@ def spmm_gpr_ref(A: GPCSR, X: torch.Tensor) -> torch.Tensor:
     return Y
 
 
+def rows_in_order(begin: torch.Tensor, end: torch.Tensor,
+                  data: torch.Tensor, indices: torch.Tensor, X: torch.Tensor,
+                  step: int = 1) -> torch.Tensor:
+    """Each row's products with ``X [ncol, nrhs]`` added in entry order
+    from zero, each product ``data·X`` rounded to ``X``'s type first (bf16
+    widens exactly): row ``r``'s entries are ``begin[r], begin[r] + step,
+    ...`` below ``end[r]``.  The SpMMs' bf16-data arithmetic, one entry of
+    every row a step."""
+    count = (end - begin + step - 1) // step
+    acc = X.new_zeros(begin.shape[0], X.shape[1])
+    for e in range(int(count.max()) if count.numel() else 0):
+        live = e < count
+        j = torch.where(live, begin + e * step, 0)
+        prod = data[j].to(X.dtype)[:, None] * X[indices[j]]
+        acc = torch.where(live[:, None], acc + prod, acc)
+    return acc
+
+
+def gpr_spmm_ordered(A: GPCSR, X: torch.Tensor) -> torch.Tensor:
+    """Every internal row's product with ``X`` in the bf16-data SpMM's own
+    order (``[ncol, nrhs] -> [nrow + nv, nrhs]``): each output adds its
+    row's rounded products in entry order from zero (:func:`rows_in_order`).
+    Bit for bit the kernel's result."""
+    Y = X.new_empty(A.nrow_internal, X.shape[1])
+    Y[A.rows.long()] = rows_in_order(A.indptr[:-1], A.indptr[1:], A.data,
+                                     A.indices, X)
+    return Y
+
+
 def _check(name: str, A, x: torch.Tensor, ndim: int = 1, *,
            values: torch.Tensor | None = None, arrays=None) -> None:
     """Raise on anything the kernels do not take: ``x`` is ``[ncol]``, or
     ``[ncol, nrhs]`` with ``ndim=2``, and matches the matrix ``values``
     (default: a :class:`GPCSR`'s data) in type and device, bfloat16
-    values pairing with a float32 x, and only where there is one vector
-    (the SpMVs' bf16-data forms); ``arrays`` (by default the GPCSR's) must
-    be contiguous."""
+    values pairing with a float32 x (the bf16-data forms); ``arrays`` (by
+    default the GPCSR's) must be contiguous."""
     values = A.data if values is None else values
     if arrays is None:
         arrays = (A.rows, A.indptr, A.indices, A.data)
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: x must be float32 or float64, "
                         f"got {x.dtype}")
-    if values.dtype == torch.bfloat16 and ndim != 1:
-        raise TypeError(f"{name}: no kernel for bfloat16 data (the SpMM's "
-                        f"bf16-data form is not ported yet); pack in "
-                        f"float32")
     mixed = values.dtype == torch.bfloat16 and x.dtype == torch.float32
     if values.dtype != x.dtype and not mixed:
         raise TypeError(f"{name}: matrix is {values.dtype} but x is "
@@ -323,17 +353,20 @@ def spmm_gpr_rows(A: GPCSR, X: torch.Tensor) -> torch.Tensor:
     """Every internal row's product with ``X [ncol, nrhs]``, in internal
     row order (``[nrow + nv, nrhs]``), before the virtual-row fold.
 
-    CUDA tensor: launches ``gpr_spmm`` (``csrc/general.cu``); CPU tensor:
-    :func:`spmm_gpr_ref`."""
+    CUDA tensor: launches ``gpr_spmm`` (``csrc/general.cu``; on bfloat16
+    data against a float32 ``X`` its bf16-data form, counted apart); CPU
+    tensor: :func:`spmm_gpr_ref`."""
     _check("spmm_gpr", A, X, ndim=2)
     if X.is_cpu:
         return spmm_gpr_ref(A, X)
+    bf16 = A.data.dtype == torch.bfloat16
     Y = X.new_empty(A.nrow_internal, X.shape[1])
-    _build.launcher("gpr_spmm", X.dtype)(
-        X, A.rows.data_ptr(), A.indptr.data_ptr(), A.indices.data_ptr(),
-        A.data.data_ptr(), X.data_ptr(), Y.data_ptr(), A.nrow_internal,
-        X.shape[1])
-    LAUNCHES["gpr_spmm"] += 1
+    launch = (_build.launcher("gpr_spmm_bf16f32") if bf16
+              else _build.launcher("gpr_spmm", X.dtype))
+    launch(X, A.rows.data_ptr(), A.indptr.data_ptr(), A.indices.data_ptr(),
+           A.data.data_ptr(), X.data_ptr(), Y.data_ptr(), A.nrow_internal,
+           X.shape[1])
+    LAUNCHES["gpr_spmm_bf16" if bf16 else "gpr_spmm"] += 1
     return Y
 
 

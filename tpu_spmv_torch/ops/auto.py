@@ -261,10 +261,13 @@ def plan_spmv(mat, *, dtype=None, device="cuda") -> SpmvPlan:
     run their kernels' bf16-data forms, the general arm's choice weighing
     2-byte values; ``dia``, ``bdia`` and ``csr`` are torch code whose bf16
     coefficients times a float32 x give float32 sums by type promotion.
-    The SpMMs of ``gpr`` and ``pallas_ell`` (and the streaming arms') take
-    no bf16 data yet: ``plan.spmm`` raises a ``TypeError`` that names the
-    kernel.  Duplicate entries are summed after the rounding, exactly,
-    then rounded again (the reference sums them in bf16)."""
+    ``plan.spmm`` takes a float32 ``X`` on such a plan, on every arm:
+    ``pdia_stream`` runs K3b on the pattern widened once, ``dia_stream``
+    K3a's bf16-data form, ``gpr`` and ``pallas_ell`` the bf16-data forms of
+    ``gpr_spmm`` and ``ell_spmm``, and the torch-code arms promote; a
+    float64 ``X`` raises a ``TypeError`` that names the kernel.  Duplicate
+    entries are summed after the rounding, exactly, then rounded again
+    (the reference sums them in bf16)."""
     bf16 = dtype in (torch.bfloat16, "bfloat16")
     hc = _host_coo(mat, None if bf16 else dtype)
     if bf16:

@@ -3,7 +3,8 @@
 Counterpart of ``tpu_spmv/solvers/block_cg.py``.  :func:`cg_multi` runs k
 independent CG recurrences in lockstep — one ``alpha``/``beta`` per column
 of ``B [n, k]``, coupled only through the shared SpMM, so each column
-follows the single-RHS CG.  Columns that converge first are frozen (their
+follows the single-RHS CG.  On a plan of bf16 coefficients ``B`` is
+float32, as for the plan's SpMV.  Columns that converge first are frozen (their
 ``alpha``/``beta`` forced to zero and their search direction kept) so that
 trailing iterations cannot un-converge them.  Loops are Python loops over
 tensors; the SpMM is the plan's kernel (``SpmvPlan.spmm``).
