@@ -197,7 +197,9 @@ Phases, in order; any failure raises and the script exits non-zero:
       ``gpr_spmm_bf16``, ``ell_spmm_bf16``, K8a ``sdia_ring_bf16`` at one
       shard) bitwise their plain versions at those shapes, timed beside
       the f32 kernel of the same matrix, their bounds, plain versions and
-      cuSPARSE on bf16 data where torch has the call; the CLI as a
+      cuSPARSE on bf16 data where torch has the call (K8a bf16 also as the
+      chain of four shards on the card, bitwise K1 bf16, replayed from a
+      CUDA graph beside the one shard); the CLI as a
       subprocess with ``--dtype bfloat16 --spmm 32 --dist 4 --solve cg
       --solve-nrhs 8`` (all shards on the card);
 5. the probe path first (``run_probes``: ``copy_scale`` and torch's
@@ -241,7 +243,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    f32 sums: ``library_ms`` null); K2 on its
    walk (the plan's stride walk by bulk copy), and the walks of K8b on the one shard and of K2 on
    the pack in turns (the plan's, the stride walk with the coefficients
-   per tile, the cluster walk), each bitwise K2;
+   per tile, the cluster walk), each bitwise K2; K8a on the one shard
+   also in f64 (bitwise K1 f64, beside it) and as the chain of four
+   shards on the card, bitwise K1, replayed from a CUDA graph beside the
+   one shard and four times a quarter shard;
    ``gpr_spmv`` and ``gpr_spmm`` on every general operand in turns with
    ``embedding_bag`` (and ``gpr_spmm`` with cuSPARSE), with
    ``gpr_spmm``'s rate of X lines; the GPR packs' rows per width class;
@@ -1503,6 +1508,58 @@ def main() -> int:
     for k in ("sdia_ring", "psdia_ring", "gpr"):
         require(dlaunches[k] > 0, f"{k} never launched")
 
+    def ring_extra(A1, S1, xv, xk, left, right, dname):
+        """K8a beside its record: in f64 at one shard (from the f32 record
+        only; bitwise K1 f64 on the same pack), and the chain of four
+        shards on this card (bitwise K1), replayed from a CUDA graph beside
+        the one shard and four times one of its quarter shards."""
+        t0 = time.perf_counter()
+        if dname == "f32":
+            S64 = dataclasses.replace(S1, data=S1.data.double())
+            A64 = tdist.ShardedSDIA.build(S64, 1)
+            xp64 = ds.pad_x(S64, xv.double())
+            x64 = A64.shard_xpad(xp64).chunks[0]
+            ring64 = (A64.data[0], A64.offsets, x64, x64[-A64.halo:],
+                      x64[:A64.halo])
+            y64 = dst.spmv_sdia_ring(*ring64)
+            same64 = torch.equal(y64[:S64.npad],
+                                 ds.spmv_sdia_padded(S64, xp64))
+            err64 = float((y64 - dst.spmv_sdia_ring_ref(*ring64)).abs().max())
+            require(same64, "K8a f64 at one shard not bitwise K1 f64")
+            ms64 = time_fn(dst.spmv_sdia_ring, *ring64,
+                           iters=50).median_s * 1e3
+            k1_64 = time_fn(ds.spmv_sdia_padded, S64, xp64,
+                            iters=50).median_s * 1e3
+            b64, by64 = bound(spmv_bytes(A64, torch.float64), 2 * S64.nnz)
+            print(f"    K8a f64, one shard: {ms64:.4f} ms | bound {b64:.4f} "
+                  f"ms ({by64}, {100 * b64 / ms64:.1f}%) | K1 f64 on the "
+                  f"same pack {k1_64:.4f} ms | bitwise K1 f64 {same64} | "
+                  f"max abs err vs plain {err64:.3e} ({card})")
+            del S64, A64, xp64, x64, ring64, y64
+        xp = ds.pad_x(S1, xv)
+        A4 = tdist.ShardedSDIA.build(S1, 4)
+        xs4 = A4.shard_xpad(xp)
+        chain = lambda: tdist.spmv_sdia_sharded(meshes[4], A4, xs4)  # noqa
+        same4 = torch.equal(torch.cat(chain().chunks)[:S1.npad],
+                            ds.spmv_sdia_padded(S1, xp))
+        require(same4, f"K8a {dname}: four shards not bitwise K1")
+        h4 = A4.halo
+        g = {"chain": graph_ms(chain, 10, 10),
+             "one": graph_ms(lambda: dst.spmv_sdia_ring(
+                 A1.data[0], A1.offsets, xk, left, right), 10, 10),
+             "quarter": graph_ms(lambda: dst.spmv_sdia_ring(
+                 A4.data[0], A4.offsets, xs4.chunks[0],
+                 xs4.chunks[3][-h4:], xs4.chunks[1][:h4]), 10, 10)}
+        b4 = bound(spmv_bytes(A4, torch.float32), 2 * A4.nnz)[0]
+        print(f"    K8a {dname}, four shards on one card (Cp="
+              f"{A4.rows_per_shard}), replayed from a CUDA graph: "
+              f"{g['chain']:.4f} ms a product (bound {b4:.4f}, "
+              f"{100 * b4 / g['chain']:.1f}%) | one shard of the whole "
+              f"{g['one']:.4f} ms | 4 x a quarter shard "
+              f"{4 * g['quarter']:.4f} ms | bitwise K1 {same4} "
+              f"({time.perf_counter() - t0:.1f} s; {card})")
+        del A4, xs4, xp
+
     # -- 4e. reorder and operator transforms at full width -----------------
     print("== 4e. reorder, transpose, gradients, screened Poisson (counters "
           "zeroed)")
@@ -2630,6 +2687,7 @@ def main() -> int:
             require(torch.equal(yk[:S1.npad], k1), "K8a bf16 at one shard "
                     "not bitwise K1 bf16")
             del k1
+            ring_extra(A1, S1, x, xk1, l1, r1, "bf16")
         del yk, yk2, yp
         ms = time_fn(kern, A16, v, iters=20).median_s * 1e3
         ms32 = time_fn(kern, A32, v, iters=20).median_s * 1e3
@@ -2862,6 +2920,8 @@ def main() -> int:
                                         "tpu_spmv_torch/csrc/dist_stream.cu"),
                              "replaces": src_line, "launches": dlaunches[key],
                              **nums})
+        if key == "sdia_ring":
+            ring_extra(A, S, x, xk, left, right, "f32")
         if key == "psdia_ring":
             # the walks of K8b on the one shard and of K2 on the pack, in
             # turns: the plan's pick (bulk copies), the stride walk with

@@ -442,12 +442,23 @@ def test_gpr_spmm_every_width_class_on_card(card, dtype, nrhs, name):
     assert np.max(np.abs(Y - ref)) <= gate * np.max(np.abs(ref))
 
 
+def _ring_fused(data, offsets, x, left, right):
+    """K8a's order on a float32 x (float32 or bf16 data): the plain
+    version's sum with one exact fma a diagonal from zero, as the kernel
+    fuses it."""
+    acc = torch.zeros_like(x)
+    for d, xs in enumerate(tdst._shifted(x, left, right, offsets)):
+        acc = tds.fma_f32(data[d].to(x.dtype), xs, acc)
+    return acc
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("ndev", [1, 2, 4])
+@pytest.mark.parametrize("ndev", [1, 2, 3, 4])
 def test_ring_kernels_match_plain_on_card(card, dtype, ndev):
     """K8a and K8b with ``ndev`` shards on one card: each shard's launch
-    against its plain version within the limits, bitwise reproducible and
+    against its plain version within the limits (K8a in float32 bitwise
+    the plain order fused, one fma a diagonal), bitwise reproducible and
     counted; the concatenated shards bitwise equal to K1 / K2 on the same
     pack (zero past it), the unpadded product against scipy."""
     m = utils.laplacian_2d(48)
@@ -472,6 +483,9 @@ def test_ring_kernels_match_plain_on_card(card, dtype, ndev):
             if key == "sdia_ring":
                 ref = tdst.spmv_sdia_ring_ref(A.data[s], A.offsets,
                                               xs.chunks[s], left, right)
+                if dtype == torch.float32:
+                    assert torch.equal(y1.chunks[s], _ring_fused(
+                        A.data[s], A.offsets, xs.chunks[s], left, right)), s
             else:
                 ref = tdst.spmv_psdia_ring_ref(
                     A.pattern[s], A.offsets, xs.chunks[s], left, right,
@@ -781,23 +795,88 @@ def test_tile_permute_random_programs_on_card(card, itype):
             (trial, prog.steps, prog.mode)
 
 
+def _diagonals(n, offsets, seed=0):
+    """An ``n``-square matrix of random values on ``offsets``."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    return sp.diags([rng.standard_normal(n - abs(o)) for o in offsets],
+                    offsets, shape=(n, n)).tocsr()
+
+
+#: K8a's split of a shard into the interior (rows that read x alone) and
+#: the edges, under the ``dia`` strategy (chunks of R = ceil(n / ndev)
+#: rows, odd at 1203 / 4 = 301 and 2003 / 4 = 501; the interior
+#: ``kernels/dist_stream.py:ring_interior``): none at 3 and 4 shards of
+#: "no interior", one row at 4 shards of "one row", one-sided bands, the
+#: main diagonal alone, and 15 and 17 diagonals (more than the kernel's
+#: diagonals a group)
+_DIA_SPLITS = {
+    "band": lambda: utils.banded(2003, 7, seed=6),
+    "no interior": lambda: _diagonals(1203, (-300, 0, 250)),
+    "one row": lambda: _diagonals(1203, (-150, 0, 150)),
+    "offsets >= 0": lambda: _diagonals(1203, (0, 3, 40)),
+    "offsets <= 0": lambda: _diagonals(1203, (-40, -3, 0)),
+    "main diagonal": lambda: _diagonals(1203, (0,)),
+    "17 diagonals": lambda: _diagonals(4099, tuple(range(-8, 9))),
+}
+
+
+def _bf16_rounded_f32(m):
+    """``m`` with its values rounded to bf16 (held in float32)."""
+    m = m.copy()
+    m.data = torch.from_numpy(m.data).to(torch.bfloat16).float().numpy()
+    return m
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("ndev", [1, 4])
-def test_sharded_dia_runs_ring_kernel_on_card(card, ndev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("ndev", [1, 2, 3, 4])
+@pytest.mark.parametrize("name", list(_DIA_SPLITS))
+def test_sharded_dia_runs_ring_kernel_on_card(card, name, ndev, dtype):
     """The ``dia`` strategy launches K8a once per shard with whole
-    neighbour chunks as slivers (a ragged last shard at 4): the product
-    against the same shards' plain versions on the CPU and scipy."""
-    m = utils.banded(2003, 7, seed=6)
+    neighbour chunks as slivers (chunks of any length; a ragged last
+    shard): every shard bitwise reproducible and against its plain
+    version (bitwise on bf16 data and, fused as the kernel fuses, in
+    float32; within the limit in float64), the product against the CPU
+    plan's and scipy, and at one shard bitwise K1 on the same matrix."""
+    m = _DIA_SPLITS[name]()
+    bf16 = dtype == torch.bfloat16
+    xt = torch.float64 if dtype == torch.float64 else torch.float32
     x = np.random.default_rng(4).standard_normal(m.shape[1])
+    x = x.astype(np.float64 if xt == torch.float64 else np.float32)
+    mesh = dist.make_mesh(ndev, device="cuda:0")
     plans = [dist.plan_dist_spmv(m, dist.make_mesh(ndev, device=d),
-                                 dtype=np.float64, strategy="dia")
+                                 dtype=dtype, strategy="dia")
              for d in ("cuda:0", "cpu")]
-    before = tdst.LAUNCHES["sdia_ring"]
-    y = plans[0].y_to_global(plans[0].spmv(plans[0].shard_x(x)))
-    assert tdst.LAUNCHES["sdia_ring"] == before + ndev
+    A = plans[0].matrix
+    key = "sdia_ring_bf16" if bf16 else "sdia_ring"
+    xs = plans[0].shard_x(x)
+    before = tdst.LAUNCHES[key]
+    y1, y2 = plans[0].spmv(xs), plans[0].spmv(xs)
+    assert tdst.LAUNCHES[key] == before + 2 * ndev
+    for s, (left, right) in enumerate(_ring_slivers(xs, A.rows_per_shard)):
+        args = (A.data[s], A.offsets, xs.chunks[s], left, right)
+        assert torch.equal(y1.chunks[s], y2.chunks[s]), s
+        if dtype == torch.float64:
+            ref = tdst.spmv_sdia_ring_ref(*args)
+            assert _rel(y1.chunks[s], ref) <= TOL[dtype], s
+        else:
+            assert torch.equal(y1.chunks[s], _ring_fused(*args)), s
+    y = plans[0].y_to_global(y1)
     ref = plans[1].y_to_global(plans[1].spmv(plans[1].shard_x(x)))
-    assert np.max(np.abs(y - ref)) <= TOL[torch.float64] * np.max(np.abs(ref))
-    assert np.max(np.abs(y - m @ x)) <= 1e-10 * np.max(np.abs(m @ x))
+    assert np.max(np.abs(y - ref)) <= TOL[xt] * np.max(np.abs(ref))
+    exact = (_bf16_rounded_f32(m) if bf16 else m) @ x.astype(np.float64)
+    gate = 1e-10 if dtype == torch.float64 else 2e-5
+    assert np.max(np.abs(y - exact)) <= gate * np.max(np.abs(exact))
+    if ndev == 1:
+        dia = convert(COO.from_scipy(_bf16_rounded_f32(m) if bf16 else m,
+                                     dtype=xt), "dia")
+        S = tds.pack_sdia(dia, device=card,
+                          data_dtype=torch.bfloat16 if bf16 else None)
+        k1 = tds.spmv_sdia(S, torch.from_numpy(x).to(card))
+        assert np.array_equal(y, k1.cpu().numpy())
 
 
 @pytest.mark.cuda
@@ -1631,17 +1710,33 @@ def test_ell_spmm_bf16_bitwise_plain_and_ell_spmv_on_card(card, nrhs):
     assert np.max(np.abs(Y - ref)) <= 2e-5 * np.max(np.abs(ref))
 
 
+#: K8a's split on SDIA packs (rows per shard a multiple of the tile rb):
+#: (matrix, rb); "no interior" has none at 4 shards (256 rows, a band of
+#: 500), "one row" one row there, "band" 15 diagonals
+_SDIA_SPLITS = {
+    "band": (lambda: utils.banded(5000, 7, seed=2), 512),
+    "no interior": (lambda: _diagonals(600, (-250, 0, 250), 1), 256),
+    "one row": (lambda: _diagonals(600, (-127, 0, 128), 1), 256),
+    "offsets >= 0": (lambda: _diagonals(1000, (0, 3, 40), 1), 256),
+    "offsets <= 0": (lambda: _diagonals(1000, (-40, -3, 0), 1), 256),
+    "main diagonal": (lambda: _diagonals(1000, (0,), 1), 256),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("ndev", [1, 2, 4])
-def test_sdia_ring_bf16_bitwise_plain_and_k1_on_card(card, ndev):
+@pytest.mark.parametrize("ndev", [1, 2, 3, 4])
+@pytest.mark.parametrize("name", list(_SDIA_SPLITS))
+def test_sdia_ring_bf16_bitwise_plain_and_k1_on_card(card, name, ndev):
     """K8a on bf16 data (``tsp_sdia_ring_bf16f32``) with ``ndev`` shards on
-    one card, on a random-valued band: each shard bitwise its plain
-    version, the concatenated shards bitwise K1 bf16 on the same pack,
-    counted apart; K8b on the bf16 pattern of the Poisson (widened once)
-    bitwise K8b on the float32 pattern of the same values."""
-    m = utils.banded(5000, 7, seed=2)
+    one card, on random values: each shard bitwise its plain version and
+    reproducible, the concatenated shards bitwise K1 bf16 on the same
+    pack, counted apart; on the band, K8b on the bf16 pattern of the
+    Poisson (widened once) bitwise K8b on the float32 pattern of the same
+    values."""
+    make, rb = _SDIA_SPLITS[name]
+    m = make()
     dia = convert(COO.from_scipy(m, dtype=torch.float32), "dia")
-    S = tds.pack_sdia(dia, rb=512, device=card, data_dtype=torch.bfloat16)
+    S = tds.pack_sdia(dia, rb=rb, device=card, data_dtype=torch.bfloat16)
     A = dist.ShardedSDIA.build(S, ndev)
     mesh = dist.make_mesh(ndev, device="cuda:0")    # all shards on one card
     x = torch.tensor(np.random.default_rng(ndev).random(m.shape[0]),
@@ -1649,14 +1744,19 @@ def test_sdia_ring_bf16_bitwise_plain_and_k1_on_card(card, ndev):
     xp = tds.pad_x(S, x)
     xs = A.shard_xpad(xp)
     before = dict(tdst.LAUNCHES)
-    y = dist.spmv_sdia_sharded(mesh, A, xs)
-    assert tdst.LAUNCHES["sdia_ring_bf16"] == before["sdia_ring_bf16"] + ndev
+    y, y2 = dist.spmv_sdia_sharded(mesh, A, xs), dist.spmv_sdia_sharded(
+        mesh, A, xs)
+    assert tdst.LAUNCHES["sdia_ring_bf16"] == \
+        before["sdia_ring_bf16"] + 2 * ndev
     assert tdst.LAUNCHES["sdia_ring"] == before["sdia_ring"]
     for s, (left, right) in enumerate(_ring_slivers(xs, A.halo)):
+        assert torch.equal(y.chunks[s], y2.chunks[s]), s
         assert torch.equal(y.chunks[s], tdst.spmv_sdia_ring_ref(
             A.data[s], A.offsets, xs.chunks[s], left, right)), s
     assert torch.equal(torch.cat(y.chunks)[:S.npad],
                        tds.spmv_sdia_padded(S, xp))
+    if name != "band":
+        return
     lap = utils.laplacian_2d(64)
     ldia = convert(COO.from_scipy(lap, dtype=torch.float32), "dia")
     P16 = tds.pack_psdia(ldia, period=64, rb=512, device=card,

@@ -203,6 +203,52 @@ def test_ring_kernels_plain_versions():
     assert tdst.halo_size((-1500, 0), 4096) == 2048
 
 
+def _interior_case(case, rng):
+    """A shard of ``cp`` rows and an offset set for ``case``."""
+    cp = int(rng.integers(1, 3000))
+    k = int(rng.integers(1, 20))
+    if case == "random":
+        offs = rng.integers(-cp, cp + 1, k)
+    elif case == "no interior":          # the band spans the shard
+        lo = int(rng.integers(-cp, 1))
+        offs = np.r_[lo, lo + cp + rng.integers(0, 40),
+                     rng.integers(lo, lo + cp, k)]
+    elif case == "one row":              # a span of cp - 1
+        lo = int(rng.integers(-cp + 1, 1))
+        offs = np.r_[lo, lo + cp - 1, rng.integers(lo, lo + cp, k)]
+    elif case == "offsets >= 0":
+        offs = rng.integers(0, cp + 1, k)
+    elif case == "offsets <= 0":
+        offs = rng.integers(-cp, 1, k)
+    else:                                # the main diagonal alone
+        offs = np.zeros(1, dtype=np.int64)
+    return cp, tuple(int(o) for o in offs)
+
+
+@pytest.mark.parametrize("case", ["random", "no interior", "one row",
+                                  "offsets >= 0", "offsets <= 0",
+                                  "main diagonal"])
+def test_ring_interior_matches_brute_force(case):
+    """``ring_interior``, the rows that K8a runs without the slivers: on
+    random shards and offset sets, exactly the rows whose every ``k +
+    off`` lies in ``[0, cp)`` (numpy over every row), an empty range
+    (``lo == hi``) where there are none."""
+    rng = np.random.default_rng(len(case))
+    for _ in range(40):
+        cp, offs = _interior_case(case, rng)
+        lo, hi = tdst.ring_interior(offs, cp)
+        j = np.arange(cp)[:, None] + np.array(offs)[None, :]
+        inside = np.flatnonzero(((j >= 0) & (j < cp)).all(axis=1))
+        assert 0 <= lo <= hi <= cp, (cp, offs, lo, hi)
+        assert np.array_equal(inside, np.arange(lo, hi)), (cp, offs, lo, hi)
+        if case == "no interior":
+            assert lo == hi
+        elif case == "one row":
+            assert hi == lo + 1
+        elif case != "random":
+            assert hi - lo == cp - max(abs(o) for o in offs)
+
+
 def test_sharded_dia_matches_reference():
     """ShardedDIA (K8a's plain version with whole chunks as slivers) on a
     band whose rows do not divide evenly: the reference's layout at 1, 2

@@ -17,6 +17,12 @@
     for r in PARENT . . PARENT; do
         python3 tpu_spmv_torch/bench/variant_ab.py --suite batched --root $r
     done
+    for r in PARENT . . PARENT; do
+        python3 tpu_spmv_torch/bench/variant_ab.py --suite ring --root $r
+    done
+    for v in none rows1 rows4 dahead4 hints interleave none; do
+        python3 tpu_spmv_torch/bench/variant_ab.py --suite ring --variant $v
+    done
 
 ``none`` times the package under ``--root`` (default: this checkout; any
 checkout since the probe kernels were ported prints what it has).  The
@@ -73,7 +79,15 @@ changes:
   a batch's X loads; ``ellpf1``: the same in L1 from the first lane of
   each row only; ``carry``: the SpMM body of ``gpr_spmm`` and
   ``ell_spmm`` loads the first entry of the next batch with each batch
-  (a row one entry wider than a batch then needs no second trip).
+  (a row one entry wider than a batch then needs no second trip);
+- ``rows1``, ``rows2``, ``rows4``: K8a (``csrc/dist_stream.cu:sdia_ring``)
+  gives 1, 2 or 4 rows a thread in every form (not 2 in f32, 1 in f64 and
+  2 on bf16 data); ``interleave``: a thread's interior rows 32 apart with
+  scalar loads wherever the launch allows consecutive rows and vector
+  loads; ``hints``: the coefficients and y with the streaming hints
+  (``__ldcs``, ``__stcs``), not plain loads and stores; ``dahead4``: the
+  loads of 4 diagonals, not 8, issued ahead of their fmas; ``ringocc4``:
+  its blocks under a register cap of four an SM.
 
 Each run builds its copy's kernels and prints one JSON line with a hash
 of each output (a variant changes no bit) and the card's name and power
@@ -122,7 +136,17 @@ on the 2048x2048-grid Poisson in a shuffled node order (seed 3) and in
 its natural order at 3, 32 and 40 right-hand sides (f64: 32), each with
 cuSPARSE ``torch.sparse.mm`` at 8 and 32; f32 and f64, per call and
 replayed, every input from its own seed (about 95 s a run);
-``--suite spmm-general``: the same without K3a and K3b.
+``--suite spmm-general``: the same without K3a and K3b; ``--suite ring``:
+K8a on one shard of the 4096x4096-grid Poisson's SDIA pack (16,777,216
+rows, 5 diagonals, ``pack_sdia``'s tile) in f32, f64 and on bf16 data,
+per call and replayed, beside K1 on the same pack, and the chains of 1 and
+4 shards on one card replayed from a CUDA graph, each chain's output
+against K1's (``... == K1``); every bound is ``bench/roofline.py:
+spmv_bytes`` at 3.35 TB/s (the coefficients, x and y once, and past one
+shard the band each side of a boundary); then, from ``cuobjdump`` on
+the library it ran, each ``sdia_ring`` instantiation's registers, local
+memory (spills) and the longest run of global loads with no fma between
+them (the loads a row issues ahead of its first fma).
 Run the variants in turns in one call, so that drift in the card's speed
 falls on all of them.  Needs a CUDA card.
 """
@@ -337,6 +361,25 @@ CHANGES = {
                 "  constexpr int kBatch = spmm_batch(G, V);",
                 "  constexpr int kBatch =\n"
                 "      spmm_batch(G, V) * (STEP == 1 ? 1 : 2);")],
+    "rows1": [("csrc/dist_stream.cu", f"constexpr int kRingRows{t} = {n};",
+               f"constexpr int kRingRows{t} = 1;")
+              for t, n in (("F32", 2), ("F64", 1), ("Bf16", 2))],
+    "rows2": [("csrc/dist_stream.cu", f"constexpr int kRingRows{t} = {n};",
+               f"constexpr int kRingRows{t} = 2;")
+              for t, n in (("F32", 2), ("F64", 1), ("Bf16", 2))],
+    "rows4": [("csrc/dist_stream.cu", f"constexpr int kRingRows{t} = {n};",
+               f"constexpr int kRingRows{t} = 4;")
+              for t, n in (("F32", 2), ("F64", 1), ("Bf16", 2))],
+    "interleave": [("csrc/dist_stream.cu",
+                    "  const bool vec = R > 1 && cp % R == 0 &&",
+                    "  const bool vec = false && cp % R == 0 &&")],
+    "hints": [("csrc/dist_stream.cu", "w[i] = q[i];", "w[i] = __ldcs(q + i);"),
+              ("csrc/dist_stream.cu", "q[i] = w[i];", "__stcs(q + i, w[i]);")],
+    "dahead4": [("csrc/dist_stream.cu", "constexpr int kRingAhead = 8;",
+                 "constexpr int kRingAhead = 4;")],
+    "ringocc4": [("csrc/dist_stream.cu",
+                  "__launch_bounds__(kThreads)\n    sdia_ring(",
+                  "__launch_bounds__(kThreads, 4)\n    sdia_ring(")],
     "last": _l2_policy("L2::evict_last", "1.0"),
     "last-half": _l2_policy("L2::evict_last.L2::evict_unchanged", "0.5"),
 }
@@ -800,13 +843,117 @@ def _spmm(out, dev, event_ms, graph_ms, general_only=False):
             del E, G, lib
 
 
+def _ring(out, dev, event_ms, graph_ms):
+    import torch
+
+    from tpu_spmv_torch import COO, DIA
+    from tpu_spmv_torch import dist as tdist
+    from tpu_spmv_torch import utils
+    from tpu_spmv_torch.bench.roofline import spmv_bytes
+    from tpu_spmv_torch.kernels import dia_stream as ds
+    from tpu_spmv_torch.kernels import dist_stream as dst
+
+    mc = utils.laplacian_2d(4096).tocoo()
+    S = ds.pack_sdia(DIA.from_coo(COO.from_arrays(
+        mc.row, mc.col, mc.data, mc.shape, dtype=torch.float32,
+        sort=False)), device=dev)
+    del mc
+    out["pack"] = (f"rb {S.rb} npad {S.npad} L {S.L} offsets "
+                   f"{tuple(S.offsets)}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand(S.shape[0], generator=gen, device=dev)
+    meshes = {nd: tdist.make_mesh(nd, device="cuda:0") for nd in (1, 4)}
+    for dname, data, xt in (("f32", S.data, x),
+                            ("f64", S.data.double(), x.double()),
+                            ("bf16", S.data.to(torch.bfloat16), x)):
+        Sd = dataclasses.replace(S, data=data)
+        xp = ds.pad_x(Sd, xt)
+        k1 = ds.spmv_sdia_padded(Sd, xp)
+        out[f"K1 {dname} hash"] = _hash(k1)
+        out[f"K1 {dname}"] = event_ms(lambda: ds.spmv_sdia_padded(Sd, xp),
+                                      50, 15)
+        for nd, mesh in meshes.items():
+            A = tdist.ShardedSDIA.build(Sd, nd)
+            xs = A.shard_xpad(xp)
+            out[f"bound {nd} {dname}"] = spmv_bytes(A, xt.dtype) / 3.35e9
+
+            def chain(mesh=mesh, A=A, xs=xs):
+                return tdist.spmv_sdia_sharded(mesh, A, xs)
+
+            y = torch.cat(chain().chunks)[:Sd.npad]
+            out[f"K8a chain {nd} {dname} hash"] = _hash(y)
+            out[f"K8a chain {nd} {dname} == K1"] = bool(torch.equal(y, k1))
+            out[f"K8a chain {nd} {dname}:graph"] = graph_ms(chain, 10, 10)
+            if nd == 1:
+                x0 = xs.chunks[0]
+                left, right = x0[-A.halo:], x0[:A.halo]
+
+                def one(A=A, x0=x0, left=left, right=right):
+                    return dst.spmv_sdia_ring(A.data[0], A.offsets, x0,
+                                              left, right)
+
+                out[f"K8a {dname} hash"] = _hash(one())
+                out[f"K8a {dname}"] = event_ms(one, 50, 15)
+                out[f"K8a {dname}:graph"] = graph_ms(one, 20, 10)
+            del A, xs, y
+        del Sd, xp, k1
+    _ring_sass(out)
+
+
+def _ring_sass(out):
+    """Registers, local memory and the longest run of global loads with no
+    fma between them, of each ``sdia_ring`` in the library just run."""
+    import re
+
+    from tpu_spmv_torch.kernels import _build
+
+    tools = Path(_build._nvcc()).parent
+    lib = str(_build.library_path())
+
+    def run(*cmd):
+        return subprocess.run(cmd, capture_output=True, text=True).stdout
+
+    def demangle(name):
+        """``sdia_ring<...>`` of a mangled name (its template arguments)."""
+        full = run(str(tools / "cu++filt"), name).strip() or name
+        i = full.find("sdia_ring<")
+        if i < 0:
+            return full
+        depth, j = 0, i + len("sdia_ring")
+        for j in range(j, len(full)):
+            depth += {"<": 1, ">": -1}.get(full[j], 0)
+            if depth == 0:
+                break
+        return full[i:j + 1]
+
+    usage = {}
+    for m in re.finditer(r"Function (\S*sdia_ring\S*):\s*\n?\s*(REG:\d+.*)",
+                         run(str(tools / "cuobjdump"), "-res-usage", lib)):
+        usage[m.group(1)] = " ".join(m.group(2).split())
+    sass = run(str(tools / "cuobjdump"), "-sass", lib)
+    for block in sass.split("Function : ")[1:]:
+        name = block.split(None, 1)[0]
+        if "sdia_ring" not in name:
+            continue
+        longest = run_ = 0
+        for line in block.splitlines():
+            if re.search(r"\bLDG\b|\bLDG\.", line):
+                run_ += 1
+                longest = max(longest, run_)
+            elif re.search(r"\b[FD]FMA\b|\b[FD]FMA\.", line):
+                run_ = 0
+        out[f"sass {demangle(name)}"] = (
+            f"{usage.get(name, '?')}; longest run of LDG before an fma "
+            f"{longest}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--suite",
                     choices=["walk", "tiles", "gpr_spmm", "gather",
                              "gather-quick", "batched", "batched-quick",
                              "spmm",
-                             "spmm-general"],
+                             "spmm-general", "ring"],
                     required=True)
     ap.add_argument("--variant", default="none")
     ap.add_argument("--root", default=str(_ROOT),
@@ -843,6 +990,8 @@ def main(argv=None) -> int:
     elif args.suite.startswith("batched"):
         _batched(out, dev, timing.event_ms, timing.graph_ms,
                  quick=args.suite == "batched-quick")
+    elif args.suite == "ring":
+        _ring(out, dev, timing.event_ms, timing.graph_ms)
     elif args.suite.startswith("gather"):
         _gather(out, dev, timing.event_ms, timing.graph_ms,
                 quick=args.suite == "gather-quick")

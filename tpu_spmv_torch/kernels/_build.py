@@ -77,9 +77,9 @@ _SIGNATURES = {
     "tsp_ell_spmm_f32": [_P] * 5 + [_I64, _I, _P],
     "tsp_ell_spmm_f64": [_P] * 5 + [_I64, _I, _P],
     "tsp_ell_spmm_bf16f32": [_P] * 5 + [_I64, _I, _P],
-    "tsp_sdia_ring_f32": [_P, _P, _I, _P, _P, _P, _P, _I64, _I64, _P],
-    "tsp_sdia_ring_f64": [_P, _P, _I, _P, _P, _P, _P, _I64, _I64, _P],
-    "tsp_sdia_ring_bf16f32": [_P, _P, _I, _P, _P, _P, _P, _I64, _I64, _P],
+    "tsp_sdia_ring_f32": [_P, _P, _I] + [_P] * 4 + [_I64] * 4 + [_P],
+    "tsp_sdia_ring_f64": [_P, _P, _I] + [_P] * 4 + [_I64] * 4 + [_P],
+    "tsp_sdia_ring_bf16f32": [_P, _P, _I] + [_P] * 4 + [_I64] * 4 + [_P],
     "tsp_psdia_ring_f32": [_P] * 6 + [_I64] * 5 + [_P],
     "tsp_psdia_ring_f64": [_P] * 6 + [_I64] * 5 + [_P],
     "tsp_permute_gather": [_P, _P, _I, _P, _I64, _I, _P],

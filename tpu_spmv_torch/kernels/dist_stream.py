@@ -49,7 +49,8 @@ from .dia_stream import check_walk as check_ring_walk
 from .dia_stream import psdia_cluster_walk as ring_cluster_walk
 from .dia_stream import psdia_walk_plan as psdia_ring_plan
 
-__all__ = ["LAUNCHES", "halo_size", "spmv_sdia_ring", "spmv_sdia_ring_ref",
+__all__ = ["LAUNCHES", "halo_size", "ring_interior", "spmv_sdia_ring",
+           "spmv_sdia_ring_ref",
            "RING_TILE", "RING_STAGES", "RingWalkPlan", "ring_cluster_walk",
            "psdia_ring_plan", "check_ring_walk",
            "spmv_psdia_ring", "spmv_psdia_ring_ref"]
@@ -70,6 +71,15 @@ def halo_size(offsets, rb: int) -> int:
     while (h < need or rb % h) and h < rb:
         h *= 2
     return h if rb % h == 0 and h >= need else rb
+
+
+def ring_interior(offsets, cp: int) -> tuple[int, int]:
+    """The rows ``[lo, hi)`` of a shard of ``cp`` rows that read ``x``
+    alone: every ``k + off`` in ``[0, cp)``.  ``lo == hi`` where no row
+    does (the band spans the shard); K8a runs its rows outside the range
+    through the slivers."""
+    lo = min(cp, max(0, -min(int(o) for o in offsets)))
+    return lo, max(lo, cp - max(0, max(int(o) for o in offsets)))
 
 
 def _shifted(x: torch.Tensor, left: torch.Tensor, right: torch.Tensor,
@@ -152,9 +162,10 @@ def spmv_sdia_ring(data: torch.Tensor, offsets, x: torch.Tensor,
     """One shard of the sharded SDIA product: ``data [nd, cp]``, ``x
     [cp]``, slivers ``[h]`` -> ``y [cp]``.
 
-    CUDA tensor: launches K8a (``sdia_ring`` in ``csrc/dist_stream.cu``;
-    on bfloat16 data against a float32 x its bf16-data form, counted
-    apart); CPU tensor: :func:`spmv_sdia_ring_ref`."""
+    CUDA tensor: launches K8a (``sdia_ring`` in ``csrc/dist_stream.cu``,
+    told the rows of :func:`ring_interior`; on bfloat16 data against a
+    float32 x its bf16-data form, counted apart); CPU tensor:
+    :func:`spmv_sdia_ring_ref`."""
     _check("spmv_sdia_ring", data, offsets, x, left, right, x.shape[0])
     if x.is_cpu:
         return spmv_sdia_ring_ref(data, offsets, x, left, right)
@@ -165,7 +176,7 @@ def spmv_sdia_ring(data: torch.Tensor, offsets, x: torch.Tensor,
               else _build.launcher("sdia_ring", x.dtype))
     launch(x, data.data_ptr(), offs.data_ptr(), len(offsets), x.data_ptr(),
            left.data_ptr(), right.data_ptr(), y.data_ptr(), x.shape[0],
-           left.shape[0])
+           left.shape[0], *ring_interior(offsets, x.shape[0]))
     LAUNCHES["sdia_ring_bf16" if bf16 else "sdia_ring"] += 1
     return y
 
