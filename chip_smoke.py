@@ -202,6 +202,28 @@ Phases, in order; any failure raises and the script exits non-zero:
       CUDA graph beside the one shard); the CLI as a
       subprocess with ``--dtype bfloat16 --spmm 32 --dist 4 --solve cg
       --solve-nrhs 8`` (all shards on the card);
+   j. the distributed solvers at full width, four shards on the card, f32
+      (``dist_solvers_phase``): ``dist_mg_preconditioner`` on the
+      2048x2048 Poisson (4,194,304 rows, 20,963,328 nonzeros) against the
+      serial ``mg_preconditioner`` on the same r (rel <= 2e-5); ``dist_cg``
+      with it over ``NeighborCSR`` (``balance="rows"``) to tol 1e-5,
+      converged, true relative residual <= 1e-4 and within one iteration
+      of the single card's ``cg(precond=mg_preconditioner)`` through K2,
+      and a profile of one V-cycle and one matvec; ``dist_gmres`` (restart
+      30) and ``dist_bicgstab`` with a sharded Jacobi on ``laplacian_2d
+      (2048) + 0.5 (P - P^T) + 2I`` (P: ``scipy.sparse.random`` at density
+      2/n), each converged with a true residual <= 1e-4, beside the single
+      card's ``gmres`` / ``bicgstab`` with the same Jacobi through the
+      planner's general kernel; ``dist_cg`` and ``dist_cg_ca`` with the
+      Jacobi on the Poisson within one iteration of the single card's
+      ``cg`` with it, and their true residuals within 2x of its;
+      ``bench/dist_bench.py --sweep --device cuda:0 --iters 20`` in process
+      (its JSON on a line of its own, its gates passed), the counters
+      zeroed just before it and read just after, its GPR leg's
+      ``gpr_spmv`` launches required and reported apart;
+      the cost model's two constants (``predict_dist_costs``): the CSR
+      local product's values/s at one shard, and the copy rate of one
+      shard's chunk on the card;
 5. the probe path first (``run_probes``: ``copy_scale`` and torch's
    ``copy_`` over 256 MiB, whose higher rate is the roofline's peak, the
    launch probe once and four in a row, ``segsum8`` and every
@@ -633,6 +655,258 @@ def host_breakdown(dev, n: int = 10_000) -> dict:
         us[label] = (time.perf_counter() - t0) / n * 1e6
         torch.cuda.synchronize()
     return us
+
+
+DIST_GRID = 2048                # phase 4j's Poisson, the width of mgpcg_x_2048
+DIST_BENCH_ARGS = ("--sweep", "--device", "cuda:0", "--iters", "20")
+
+
+def dist_solvers_phase(card: str, counters) -> dict:
+    """Phase 4j: the distributed solvers at full width, four shards on
+    ``cuda:0`` (module docstring).  Returns the launch counts of the phase,
+    those of the benchmark's sweep alone, and the cost model's two
+    measured constants."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from tpu_spmv_torch import dist as tdist
+    from tpu_spmv_torch import utils
+    from tpu_spmv_torch.bench import dist_bench
+    from tpu_spmv_torch.bench.harness import time_fn
+    from tpu_spmv_torch.ops.auto import plan_spmv
+    from tpu_spmv_torch.solvers import (bicgstab, cg, dist_bicgstab,
+                                        dist_cg, dist_cg_ca, dist_gmres,
+                                        dist_mg_preconditioner, gmres,
+                                        mg_preconditioner)
+
+    t4j = time.perf_counter()
+    dev = torch.device("cuda:0")
+    sync = torch.cuda.synchronize
+    grid = DIST_GRID
+    print(f"== 4j. distributed solvers at full width: 4 shards on {dev}, "
+          f"f32 (counters zeroed; {card})")
+    n = grid * grid
+    mesh = tdist.make_mesh(4, device=dev)
+    rng = np.random.default_rng(42)
+    zero(*counters)
+
+    def on_mesh(v, plan):
+        return tdist.place(tdist.ShardedVector.from_global(v, plan), mesh)
+
+    def true_rel(m, b, x) -> float:
+        return float(np.linalg.norm(b - m @ x.astype(np.float64))
+                     / np.linalg.norm(b))
+
+    def solve(fn, iters_of):
+        """Run one solve, host clock around it with a synchronize: the
+        result, its iterations, ms an iteration and seconds."""
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        sec = time.perf_counter() - t0
+        it = iters_of(res)
+        return res, it, sec * 1e3 / max(it, 1), sec
+
+    t0 = time.perf_counter()
+    lap = utils.laplacian_2d(grid).astype(np.float32).tocsr()
+    A = tdist.place(tdist.NeighborCSR.build(lap, 4, balance="rows",
+                                            square=True), mesh)
+    build_s = time.perf_counter() - t0
+    print(f"  laplacian_2d({grid}): {n} rows, {lap.nnz} nnz; NeighborCSR "
+          f"at 4 shards (balance rows) built in {build_s:.2f} s")
+
+    # (a) the V-cycle against the serial one on the same r
+    r64 = rng.standard_normal(n)
+    r = torch.tensor(r64, dtype=torch.float32, device=dev)
+    Ms = mg_preconditioner((grid, grid))
+    Md = dist_mg_preconditioner(mesh, (grid, grid))
+    rs = on_mesh(r64.astype(np.float32), tdist.plan_uniform(n, 4))
+    z_ser = Ms(r).cpu().numpy()
+    z_dist = Md(rs).to_global()
+    vrel = rel_err(z_dist, z_ser.astype(np.float64))
+    same = bool(np.array_equal(z_dist, z_ser))
+    ser_ms = time_fn(Ms, r, iters=3, warmup=1).median_s * 1e3
+    dist_ms = time_fn(Md, rs, iters=3, warmup=1).median_s * 1e3
+    print(f"  (a) dist_mg_preconditioner(({grid}, {grid})) at 4 shards vs "
+          f"the serial mg_preconditioner: rel {vrel:.2e} (bitwise "
+          f"{same}) | one V-cycle {dist_ms:.4f} ms on 4 shards, "
+          f"{ser_ms:.4f} ms serial ({card})")
+    require(vrel <= 2e-5, f"dist V-cycle vs serial rel {vrel:.2e}")
+
+    # (b) distributed MG-PCG beside the single-card MG-PCG on K2's plan
+    b64 = rng.standard_normal(n)
+    b32 = b64.astype(np.float32)
+    bs = on_mesh(b32, A.row_plan)
+    bt = torch.tensor(b32, device=dev)
+    t0 = time.perf_counter()
+    plan = plan_spmv(lap, dtype=torch.float32, device=dev)
+    sync()
+    plan_s = time.perf_counter() - t0
+    dres, dit, dms, dsec = solve(lambda: dist_cg(
+        mesh, A, bs, tol=1e-5, maxiter=200, precond=Md),
+        lambda o: o.iterations)
+    sres, sit, sms, ssec = solve(lambda: cg(
+        plan, bt, tol=1e-5, maxiter=200, precond=Ms),
+        lambda o: o.iterations)
+    drel = true_rel(lap, b64, dres.x.to_global())
+    srel = true_rel(lap, b64, sres.x.cpu().numpy())
+    print(f"  (b) dist_cg + dist_mg_preconditioner over csr_neighbor: "
+          f"{dit} iterations, converged {bool(dres.converged)}, "
+          f"{dms:.4f} ms/iteration ({dsec:.3f} s), true rel residual "
+          f"{drel:.3e} | single card cg + mg_preconditioner via "
+          f"{plan.strategy} (planned in {plan_s:.2f} s): {sit} "
+          f"iterations, {sms:.4f} ms/iteration ({ssec:.3f} s), true rel "
+          f"{srel:.3e} ({card})")
+    require(bool(dres.converged) and drel <= 1e-4,
+            f"dist MG-PCG: converged {bool(dres.converged)}, rel {drel:.2e}")
+    require(abs(dit - sit) <= 1, f"dist MG-PCG {dit} iterations against "
+            f"the single card's {sit}")
+
+    # where one dist MG-PCG iteration's time goes: a profile of one
+    # V-cycle and one matvec at 4 shards
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            tdist.spmv_neighbor(mesh, A, Md(bs))
+        sync()
+        wall = (time.perf_counter() - t0) / 3
+    ka = [e for e in prof.key_averages()
+          if getattr(e, "device_time_total", 0) > 0]
+    busy = sum(getattr(e, "self_device_time_total", 0) for e in ka)
+    busy_ms = busy / 1e3 / 3
+    top = sorted(ka, key=lambda e: -getattr(e, "self_device_time_total",
+                                            0))[:5]
+    print(f"  profile of one V-cycle + one matvec at 4 shards: "
+          f"{wall * 1e3:.3f} ms wall, device busy "
+          + (f"{busy_ms:.3f} ms ({100 * busy_ms / (wall * 1e3):.1f}%; "
+             f"idle {100 - 100 * busy_ms / (wall * 1e3):.1f}%), "
+             f"{sum(e.count for e in ka) // 3} device ops; top: "
+             + "; ".join(f"{e.key[:40]} "
+                         f"{e.self_device_time_total / 1e3 / 3:.3f} ms"
+                         for e in top)
+             if busy else "not measured (no device time in the trace)"))
+
+    # (c) GMRES(30) and BiCGSTAB with a sharded Jacobi on the reference
+    # tests' nonsymmetric operand at full width; P from a Generator seeded
+    # 7 (a RandomState, the reference tests' int seed, draws a permutation
+    # of all n^2 positions, 128 TiB at this n)
+    P = sp.random(n, n, density=2 / n, random_state=np.random.default_rng(7),
+                  format="csr")
+    ns = (lap.astype(np.float64) + 0.5 * (P - P.T)
+          + 2.0 * sp.eye(n, format="csr")).tocsr()
+    ns32 = ns.astype(np.float32)
+    t0 = time.perf_counter()
+    An = tdist.place(tdist.NeighborCSR.build(ns32, 4, square=True), mesh)
+    dinv = (1.0 / ns.diagonal()).astype(np.float32)
+    jac = dist_bench.sharded_jacobi(on_mesh(dinv, An.row_plan))
+    bn = on_mesh(b32, An.row_plan)
+    nplan = plan_spmv(ns32, dtype=torch.float32, device=dev)
+    sync()
+    nbuild_s = time.perf_counter() - t0
+    dinv_t = torch.tensor(dinv, device=dev)
+    print(f"  (c) laplacian_2d({grid}) + 0.5 (P - P^T) + 2I: {ns.nnz} nnz; "
+          f"NeighborCSR at 4 shards and the single-card plan "
+          f"({nplan.strategy}) built in {nbuild_s:.2f} s")
+    for name, dfn, sfn in (
+            ("gmres(restart=30)",
+             lambda: dist_gmres(mesh, An, bn, tol=1e-5, restart=30,
+                                maxiter=1000, precond=jac),
+             lambda: gmres(nplan, bt, tol=1e-5, restart=30, maxiter=1000,
+                           precond=lambda v: v * dinv_t)),
+            ("bicgstab",
+             lambda: dist_bicgstab(mesh, An, bn, tol=1e-5, maxiter=1000,
+                                   precond=jac),
+             lambda: bicgstab(nplan, bt, tol=1e-5, maxiter=1000,
+                              precond=lambda v: v * dinv_t))):
+        dres, dit, dms, dsec = solve(dfn, lambda o: o.iterations)
+        sres, sit, sms, ssec = solve(sfn, lambda o: o.iterations)
+        drel = true_rel(ns, b64, dres.x.to_global())
+        srel = true_rel(ns, b64, sres.x.cpu().numpy())
+        print(f"      dist_{name} + Jacobi: {dit} iterations, converged "
+              f"{bool(dres.converged)}, {dms:.4f} ms/iteration ({dsec:.3f} "
+              f"s), true rel {drel:.3e} | single card {name} via "
+              f"{nplan.strategy}: {sit} iterations, converged "
+              f"{bool(sres.converged)}, {sms:.4f} ms/iteration, true rel "
+              f"{srel:.3e}")
+        require(bool(dres.converged) and drel <= 1e-4,
+                f"dist_{name}: converged {bool(dres.converged)}, rel "
+                f"{drel:.2e}")
+    del An, bn, nplan, ns, ns32, P
+    # dist_cg and dist_cg_ca with the Jacobi on the SPD Poisson, beside the
+    # single-card cg with the same Jacobi: the iteration counts within one
+    # and the true residuals within 2x of each other (both float32 CG
+    # recurrences drift from the true residual over thousands of steps)
+    jl = dist_bench.sharded_jacobi(on_mesh(
+        (1.0 / lap.diagonal()).astype(np.float32), A.row_plan))
+    dl = torch.tensor(1.0 / lap.diagonal(), dtype=torch.float32, device=dev)
+    sres, sit, sms, _ = solve(lambda: cg(
+        plan, bt, tol=1e-5, maxiter=20_000, precond=lambda v: v * dl),
+        lambda o: o.iterations)
+    srel = true_rel(lap, b64, sres.x.cpu().numpy())
+    for name, fn in (("dist_cg", dist_cg), ("dist_cg_ca", dist_cg_ca)):
+        dres, dit, dms, dsec = solve(lambda fn=fn: fn(
+            mesh, A, bs, tol=1e-5, maxiter=20_000, precond=jl),
+            lambda o: o.iterations)
+        drel = true_rel(lap, b64, dres.x.to_global())
+        print(f"      {name} + Jacobi: {dit} iterations, converged "
+              f"{bool(dres.converged)}, {dms:.4f} ms/iteration ({dsec:.3f} "
+              f"s), true rel {drel:.3e} | single card cg + Jacobi: {sit} "
+              f"iterations, {sms:.4f} ms/iteration, true rel {srel:.3e}")
+        require(bool(dres.converged) and abs(dit - sit) <= 1,
+                f"{name} + Jacobi: {dit} iterations against the single "
+                f"card's {sit}")
+        require(drel <= 2 * srel, f"{name} + Jacobi: true rel {drel:.3e} "
+                f"against the single card's {srel:.3e}")
+    del plan, sres, dres
+
+    sync()
+    launches = {k: v for c in counters for k, v in c.items() if v}
+    print(f"launch counts on the 4j solvers' path: {launches}")
+
+    # (d) the benchmark's sweep, in process, its counts read apart: its GPR
+    # leg (spmv_gpr_sharded) is the slice's one kernel path
+    zero(*counters)
+    t0 = time.perf_counter()
+    require(dist_bench.main(list(DIST_BENCH_ARGS)) == 0, "dist_bench --sweep")
+    sync()
+    bench_launches = {k: v for c in counters for k, v in c.items() if v}
+    print(f"  (d) dist_bench {' '.join(DIST_BENCH_ARGS)}: "
+          f"{time.perf_counter() - t0:.1f} s; launch counts of the sweep "
+          f"alone: {bench_launches}")
+    require(bench_launches.get("gpr", 0) > 0,
+            "dist_bench's GPR leg never launched gpr_spmv")
+    for k, v in bench_launches.items():
+        launches[k] = launches.get(k, 0) + v
+
+    # (e) the cost model's constants: the CSR local product's values/s on
+    # the Poisson at one shard, and the copy rate of one shard's chunk
+    mesh1 = tdist.make_mesh(1, device=dev)
+    A1 = tdist.place(tdist.NeighborCSR.build(lap, 1, square=True), mesh1)
+    x1 = tdist.place(tdist.ShardedVector.from_global(b32, A1.row_plan),
+                     mesh1)
+    g_ms = time_fn(tdist.spmv_neighbor, mesh1, A1, x1,
+                   iters=20).median_s * 1e3
+    gather_gvals = lap.nnz / (g_ms * 1e-3) / 1e9
+    src = bs.chunks[1]
+    dst = torch.empty_like(src)
+    c_ms = time_fn(dst.copy_, src, iters=50).median_s * 1e3
+    link_gbps = src.numel() * src.element_size() / (c_ms * 1e-3) / 1e9
+    print(f"  (e) predict_dist_costs constants: GATHER_GVALS = "
+          f"{gather_gvals:.4f} G values/s (spmv_neighbor at one shard, "
+          f"{lap.nnz} values in {g_ms:.4f} ms) | LINK_GBPS = "
+          f"{link_gbps:.1f} GB/s (copy_ of one shard's chunk, "
+          f"{src.numel() * src.element_size()} B in {c_ms:.4f} ms, a "
+          f"copy between two buffers on {dev}) | {card}")
+    print(f"launch counts on the 4j path (solvers and sweep): {launches}")
+    print(f"  (phase 4j {time.perf_counter() - t4j:.1f} s)")
+    return {"launches": launches, "bench_launches": bench_launches,
+            "gather_gvals": gather_gvals, "link_gbps": link_gbps}
 
 
 def main() -> int:
@@ -2741,6 +3015,9 @@ def main() -> int:
         require(want in out.stdout, f"the bf16 CLI printed no {want!r}")
     print(f"  (phase 4i {time.perf_counter() - t4i:.1f} s)")
 
+    # -- 4j. the distributed solvers at full width --------------------------
+    j4 = dist_solvers_phase(card, counters)
+
     # -- 5. kernels vs plain at the main paths' shapes, timed ---------------
     print("== 5. kernels vs plain versions at the main paths' shapes")
     # the probe path first (its bandwidth probes set the roofline's peak),
@@ -3067,8 +3344,14 @@ def main() -> int:
                     "replaces": ("tpu_spmv/kernels/gpr.py:684"
                                  if strategy == "gpr" else
                                  "tpu_spmv/kernels/ell_pallas.py:299"),
-                    "launches": glaunches["gpr" if strategy == "gpr"
-                                          else "ell"],
+                    # 4b's launches and the distributed solvers' (4j),
+                    # dist_bench's sweep also apart
+                    "launches": sum(d.get("gpr" if strategy == "gpr"
+                                          else "ell", 0)
+                                    for d in (glaunches, j4["launches"])),
+                    **({"dist_bench_launches":
+                        j4["bench_launches"].get("gpr", 0)}
+                       if strategy == "gpr" else {}),
                     **nums})
             del A
         pms = time_fn(p, xg, iters=20).median_s * 1e3

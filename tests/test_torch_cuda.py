@@ -1830,3 +1830,71 @@ def test_bf16_plan_spmm_on_card(card, strategy):
                          dtype=torch.float32, device=card)
         res = cg_multi(plan, B, tol=1e-5, maxiter=2000)
         assert bool(res.converged.all()) and res.x.dtype == torch.float32
+
+
+def _dist_on(device, fn):
+    """``fn(mesh)`` on a 4-shard mesh whose shards all lie on ``device``."""
+    return fn(dist.make_mesh(4, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dist_gmres", "dist_bicgstab"])
+def test_dist_krylov_on_card_matches_cpu(card, solver):
+    """``dist_gmres`` (restart 30) and ``dist_bicgstab`` with a sharded
+    Jacobi over NeighborCSR at 4 shards on ``cuda:0``, float32, against
+    the same call on the CPU: both converged, x within 1e-5 (tol 1e-6 on
+    an operand of condition about 5)."""
+    import scipy.sparse as sp
+
+    from tpu_spmv_torch import solvers as T
+    from tpu_spmv_torch.bench.dist_bench import sharded_jacobi
+
+    lap = utils.laplacian_2d(48)
+    n = lap.shape[0]
+    P = sp.random(n, n, density=2 / n, random_state=7, format="csr")
+    m = (lap + 0.5 * (P - P.T) + 2.0 * sp.eye(n)).tocsr().astype(np.float32)
+    b = np.random.default_rng(4).standard_normal(n).astype(np.float32)
+    kw = {"restart": 30} if solver == "dist_gmres" else {}
+
+    def run(mesh):
+        A = dist.place(dist.NeighborCSR.build(m, 4, square=True), mesh)
+        bs = dist.place(dist.ShardedVector.from_global(b, A.row_plan), mesh)
+        dinv = dist.place(dist.ShardedVector.from_global(
+            1.0 / m.diagonal(), A.row_plan), mesh)
+        return getattr(T, solver)(mesh, A, bs, tol=1e-6, maxiter=1000,
+                                  precond=sharded_jacobi(dinv), **kw)
+
+    on_card, on_cpu = _dist_on("cuda:0", run), _dist_on("cpu", run)
+    assert on_card.x.chunks[0].is_cuda
+    assert bool(on_card.converged) and bool(on_cpu.converged)
+    x, xc = on_card.x.to_global(), on_cpu.x.to_global()
+    assert np.max(np.abs(x - xc)) <= 1e-5 * np.max(np.abs(xc))
+
+
+@pytest.mark.cuda
+def test_dist_vcycle_on_card_matches_cpu(card):
+    """``dist_mg_preconditioner`` at 4 shards on ``cuda:0`` (two sharded
+    levels, then the tail on shard 0) against the same V-cycle on the CPU,
+    float32, within 1e-5; and ``dist_cg`` with it converges on the card."""
+    from tpu_spmv_torch import solvers as T
+
+    g = 128
+    r = np.random.default_rng(6).standard_normal(g * g).astype(np.float32)
+    plan = dist.plan_uniform(g * g, 4)
+
+    def vcycle(mesh):
+        rs = dist.place(dist.ShardedVector.from_global(r, plan), mesh)
+        return T.dist_mg_preconditioner(mesh, (g, g))(rs)
+
+    z, zc = _dist_on("cuda:0", vcycle), _dist_on("cpu", vcycle)
+    assert z.chunks[3].is_cuda
+    zg, zcg = z.to_global(), zc.to_global()
+    assert np.max(np.abs(zg - zcg)) <= 1e-5 * np.max(np.abs(zcg))
+    mesh = dist.make_mesh(4, device="cuda:0")
+    lap = utils.laplacian_2d(g).astype(np.float32)
+    A = dist.place(dist.NeighborCSR.build(lap, 4, balance="rows",
+                                          square=True), mesh)
+    bs = dist.place(dist.ShardedVector.from_global(r, A.row_plan), mesh)
+    res = T.dist_cg(mesh, A, bs, tol=1e-5, maxiter=100,
+                    precond=T.dist_mg_preconditioner(mesh, (g, g)))
+    assert bool(res.converged) and res.iterations < 30

@@ -75,12 +75,19 @@ def _result(times: list[float], iters: int) -> TimingResult:
                         best_s=min(times) / iters, iters=iters)
 
 
+def _is_cuda(v) -> bool:
+    """Whether a tensor or a :class:`~..dist.sharded.ShardedVector` (the
+    device of its first chunk) is on the card."""
+    return (v.chunks[0] if hasattr(v, "chunks") else v).is_cuda
+
+
 def time_fn(fn: Callable, *args, iters: int = DEFAULT_ITERS,
             warmup: int = 2, repeats: int = 5) -> TimingResult:
-    """Per-call time of ``fn(*args)`` (``iters`` calls per repeat)."""
+    """Per-call time of ``fn(*args)`` (``iters`` calls per repeat), which
+    returns a tensor or a :class:`~..dist.sharded.ShardedVector`."""
     for _ in range(max(warmup, 1)):
         out = fn(*args)
-    on_cuda = out.is_cuda
+    on_cuda = _is_cuda(out)
 
     def run():
         for _ in range(iters):
@@ -94,7 +101,7 @@ def time_chained(step: Callable, v0, *, iters: int = DEFAULT_ITERS,
     """Per-step time of the dependent chain ``v ← step(v)``; ``v0`` is a
     tensor or a :class:`~..dist.sharded.ShardedVector` (timed on the
     device of its first chunk)."""
-    on_cuda = (v0.chunks[0] if hasattr(v0, "chunks") else v0).is_cuda
+    on_cuda = _is_cuda(v0)
     v = v0
     for _ in range(warmup):
         v = step(v)

@@ -23,8 +23,9 @@ from .mesh import Mesh, device_count, make_mesh
 from .partition import RowPlan, plan_even, plan_rows, plan_uniform
 from .planned import (DistPlan, ShardedBDIA, ShardedDIA, ShardedGPR,
                       ShardedPSDIA, ShardedSDIA, bench_dist_spmv,
-                      plan_dist_spmv, spmv_bdia_sharded, spmv_dia_sharded,
-                      spmv_gpr_sharded, spmv_psdia_sharded, spmv_sdia_sharded)
+                      plan_dist_spmv, predict_dist_costs, spmv_bdia_sharded,
+                      spmv_dia_sharded, spmv_gpr_sharded, spmv_psdia_sharded,
+                      spmv_sdia_sharded)
 from .sharded import (ColShardedCSR, HaloCSR, NeighborCSR, ShardedCSR,
                       ShardedVector)
 from .spmv import (place, spmm_allgather, spmm_halo, spmm_neighbor,
@@ -39,7 +40,7 @@ __all__ = [
     "ShardedDIA", "ShardedBDIA", "ShardedSDIA", "ShardedPSDIA", "ShardedGPR",
     "spmv_dia_sharded", "spmv_bdia_sharded", "spmv_sdia_sharded",
     "spmv_psdia_sharded", "spmv_gpr_sharded",
-    "DistPlan", "plan_dist_spmv", "bench_dist_spmv",
+    "DistPlan", "plan_dist_spmv", "bench_dist_spmv", "predict_dist_costs",
     "place",
     "Mesh", "make_mesh", "device_count",
     "blas",

@@ -14,7 +14,7 @@ import torch
 
 from .sharded import ShardedVector
 
-__all__ = ["dot", "dot_stack", "axpby", "axpy", "scale", "norm2",
+__all__ = ["dot", "dot_stack", "psum", "axpby", "axpy", "scale", "norm2",
            "check_aligned"]
 
 
@@ -27,8 +27,9 @@ def _on(alpha, device):
     return alpha.to(device) if isinstance(alpha, torch.Tensor) else alpha
 
 
-def _psum(partials) -> torch.Tensor:
-    """The partials added in shard order on the first one's device."""
+def psum(partials) -> torch.Tensor:
+    """The shards' partials (one tensor each, any shape) added in shard
+    order on the first one's device."""
     dev = partials[0].device
     total = partials[0]
     for p in partials[1:]:
@@ -44,7 +45,7 @@ def _like(x: ShardedVector, chunks) -> ShardedVector:
 def dot(x: ShardedVector, y: ShardedVector) -> torch.Tensor:
     """``x · y`` (0-d, on shard 0's device)."""
     check_aligned(x, y)
-    return _psum([torch.vdot(a.reshape(-1), b.reshape(-1))
+    return psum([torch.vdot(a.reshape(-1), b.reshape(-1))
                   for a, b in zip(x.chunks, y.chunks)])
 
 
@@ -55,7 +56,7 @@ def dot_stack(*pairs) -> torch.Tensor:
     for x, y in pairs:
         check_aligned(x, y)
     ndev = pairs[0][0].ndev
-    return _psum([torch.stack([(x.chunks[s] * y.chunks[s]).sum()
+    return psum([torch.stack([(x.chunks[s] * y.chunks[s]).sum()
                                for x, y in pairs]) for s in range(ndev)])
 
 

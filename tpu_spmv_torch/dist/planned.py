@@ -26,9 +26,12 @@ port's single-chip planner (streaming at every size): a square periodic
 band gets ``"pdia_stream"``, then ``"dia_stream"``, then ``"dia"``; a
 square block-banded pattern (8x8 block-DIA storage at most 4x nnz)
 ``"bdia"``; every other nonempty pattern ``"gpr"``; the CSR strategies are
-taken when forced, and ``"csr_neighbor"`` when GPR cannot pack or the
-matrix is empty.  The reference's VMEM size rule, its GPR envelope and
-``predict_dist_costs`` (TPU constants) are not ported.
+taken when forced, and when GPR cannot pack or the matrix is empty the
+general-CSR fallback takes :func:`predict_dist_costs`' pick, as the
+reference's planner does.  That model is the reference's (its counts and
+formulas) with constants measured on the H100 (``GATHER_GVALS``,
+``LINK_GBPS``).  The reference's VMEM size rule and its GPR envelope are
+not ported.
 
 ``plan_dist_spmv(dtype=torch.bfloat16)`` stores the coefficients in bf16
 (rounded once, as the single-chip planner rounds them) for float32
@@ -57,14 +60,15 @@ from ..ops.auto import _host_coo, _stats
 from ..ops.spmv import bdia_blocks
 from . import blas
 from .mesh import Mesh, make_mesh
-from .partition import RowPlan, plan_uniform
+from .partition import RowPlan, plan_even, plan_rows, plan_uniform
 from .sharded import HaloCSR, NeighborCSR, ShardedCSR, ShardedVector
 from .spmv import place, spmv_allgather, spmv_halo, spmv_neighbor
 
 __all__ = ["ShardedDIA", "ShardedBDIA", "ShardedSDIA", "ShardedPSDIA",
            "ShardedGPR", "spmv_dia_sharded", "spmv_bdia_sharded",
            "spmv_sdia_sharded", "spmv_psdia_sharded", "spmv_gpr_sharded",
-           "DistPlan", "plan_dist_spmv", "bench_dist_spmv"]
+           "DistPlan", "GATHER_GVALS", "LINK_GBPS", "predict_dist_costs",
+           "plan_dist_spmv", "bench_dist_spmv"]
 
 
 def _band(offsets) -> int:
@@ -524,6 +528,82 @@ class DistPlan:
         return _SPMV[self.strategy](self.mesh, self.matrix, x)
 
 
+#: the distributed cost model's constants, measured by ``chip_smoke.py``
+#: (phase 4j) on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit.
+#: ``GATHER_GVALS``: G values/s of the CSR strategies' local product (the
+#: per-shard gather and ``segment_reduce`` of :mod:`.spmv`) on the 2048^2
+#: Poisson at one shard (20,963,328 values in 5.21 ms).  ``LINK_GBPS``:
+#: GB/s of a copy between two shards' buffers; with every shard on one
+#: card that is a device-to-device copy (``copy_`` of one shard's 4 MiB
+#: chunk of that Poisson at 4 shards, one launch a copy: 12.3 us), not a
+#: link between cards, which no run has measured.
+GATHER_GVALS = 4.03
+LINK_GBPS = 341.2
+
+
+def predict_dist_costs(sp_csr, ndev: int, *, balance: str = "nnz",
+                       square: bool = False, itemsize: int = 4,
+                       link_gbps: float = LINK_GBPS,
+                       gather_gvals: float = GATHER_GVALS) -> dict:
+    """The reference's analytic per-SpMV cost model of the general-CSR
+    strategies (``csr_neighbor``, ``csr_allgather``, ``csr_halo``).
+
+    All three run the same gather and segment-sum local product, so each
+    strategy costs its padded gather work (values at ``gather_gvals`` G
+    values/s) and its x-chunk traffic (bytes at ``link_gbps`` GB/s); the
+    neighbour strategy's halo transfer counts as overlapped with its
+    interior bucket, and the ring pays ``ndev x`` its largest bucket.
+    Returns ``{strategy: {"predicted_us", "work_vals", "comm_bytes"}}``
+    (``csr_neighbor`` also ``"halo_offsets"``) and ``"pick"``, the
+    argmin."""
+    import scipy.sparse as sp
+
+    csr = (sp_csr if sp.issparse(sp_csr)
+           else to_coo(sp_csr).to_scipy()).tocsr()
+    nrow, ncol = csr.shape
+    indptr = np.asarray(csr.indptr, dtype=np.int64)
+    rplan = plan_rows(indptr, ndev, balance=balance)
+    cplan = rplan if (square and nrow == ncol) else plan_even(ncol, ndev)
+    C = max(cplan.max_count, 1)
+    cols = np.asarray(csr.indices, dtype=np.int64)
+    row_ids = np.repeat(np.arange(nrow, dtype=np.int64), np.diff(indptr))
+    shard = rplan.owner_of(row_ids)
+    owner = cplan.owner_of(cols)
+    delta = (owner - shard) % ndev
+    interior = delta == 0
+    nnzp = max(int(np.bincount(shard, minlength=ndev).max()), 1)
+    nnzi = max(int(np.bincount(shard[interior], minlength=ndev).max()), 1)
+    nnzb = max(int(np.bincount(shard[~interior], minlength=ndev).max()), 0)
+    k = len(np.unique(delta[~interior]))              # halo offsets
+    ring_bucket = max(int(np.bincount(shard * ndev + delta,
+                                      minlength=ndev * ndev).max()), 1)
+    rate = gather_gvals * 1e9
+    bw = link_gbps * 1e9
+    chunk_bytes = C * itemsize
+    ag_work, ag_comm = nnzp, (ndev - 1) * chunk_bytes
+    t_ag = ag_work / rate + ag_comm / bw              # x lands, then compute
+    nb_comm = k * chunk_bytes
+    # the halo transfers overlap the interior bucket's compute
+    t_nb = max(nnzi / rate, nb_comm / bw) + nnzb / rate
+    ring_work = ndev * ring_bucket
+    t_ring = max(ring_work / rate, (ndev - 1) * chunk_bytes / bw)
+    out = {
+        "csr_allgather": {"predicted_us": round(t_ag * 1e6, 2),
+                          "work_vals": int(ag_work),
+                          "comm_bytes": int(ag_comm)},
+        "csr_neighbor": {"predicted_us": round(t_nb * 1e6, 2),
+                         "work_vals": int(nnzi + nnzb),
+                         "comm_bytes": int(nb_comm),
+                         "halo_offsets": int(k)},
+        "csr_halo": {"predicted_us": round(t_ring * 1e6, 2),
+                     "work_vals": int(ring_work),
+                     "comm_bytes": int((ndev - 1) * chunk_bytes)},
+    }
+    out["pick"] = min(("csr_neighbor", "csr_allgather", "csr_halo"),
+                      key=lambda s: out[s]["predicted_us"])
+    return out
+
+
 def plan_dist_spmv(host_mat, mesh, *, dtype=None, strategy: str | None = None,
                    sdia_rb: int | None = None) -> DistPlan:
     """Analyze ``host_mat`` (scipy or a port format) on the host, shard it
@@ -608,7 +688,9 @@ def plan_dist_spmv(host_mat, mesh, *, dtype=None, strategy: str | None = None,
         except ValueError:
             if strategy == "gpr":
                 raise
-    strategy = strategy or "csr_neighbor"
+    if strategy is None:
+        # the general-CSR fallback: the cost model's pick
+        strategy = predict_dist_costs(sp_csr, ndev, square=square)["pick"]
     cls = {"csr_neighbor": NeighborCSR, "csr_allgather": ShardedCSR,
            "csr_halo": HaloCSR}[strategy]
     A = cls.build(sp_csr, ndev, square=square)

@@ -8,7 +8,9 @@ row partition equals its column partition (square, built with
 every dot product sums over the shards in shard order.  Where the reference
 runs one jitted ``while_loop``, the port's loop is Python over the shards'
 tensors and reads the residual on the host once per iteration, as the
-port's :func:`~.cg.cg` does.
+port's :func:`~.cg.cg` does.  Both solvers take an optional SPD
+preconditioner ``precond(r: ShardedVector) -> ShardedVector``, such as
+:func:`~.dist_multigrid.dist_mg_preconditioner`.
 """
 
 from __future__ import annotations
@@ -61,25 +63,33 @@ def _zeros(b: ShardedVector) -> ShardedVector:
 
 
 def dist_cg(mesh, A, b: ShardedVector, *, tol: float = 1e-8,
-            maxiter: int = 500) -> DistCGResult:
+            maxiter: int = 500, precond=None) -> DistCGResult:
     """CG with a mesh-sharded matrix until ``||r|| <= tol·||b||`` or
-    ``maxiter``.  The reference's ``precond=`` waits for its one caller,
-    ``dist_multigrid``."""
+    ``maxiter``.
+
+    ``precond``: optional SPD ``M(r: ShardedVector) -> ShardedVector``
+    (e.g. :func:`~.dist_multigrid.dist_mg_preconditioner`, or a sharded
+    Jacobi scale): ``z = M(r)``, ``rz = (r, z)`` steers the step, and the
+    stop reads ``(r, r)``."""
     matvec = _dist_matvec(mesh, A, b, "dist_cg")
     x = _zeros(b)
     r = blas.axpby(1.0, b, -1.0, matvec(x))
-    p = r
+    z = r if precond is None else precond(r)
     rr = blas.dot(r, r)
+    rz = rr if precond is None else blas.dot(r, z)
+    p = z
     limit = tol * torch.clamp(blas.norm2(b), min=1e-300)
     it = 0
     while it < maxiter and bool(torch.sqrt(rr) > limit):
         Ap = matvec(p)
-        alpha = rr / _nonzero(blas.dot(p, Ap))
+        alpha = rz / _nonzero(blas.dot(p, Ap))
         x = blas.axpy(alpha, p, x)
         r = blas.axpy(-alpha, Ap, r)
-        rr_new = blas.dot(r, r)
-        p = blas.axpby(1.0, r, rr_new / _nonzero(rr), p)
-        rr = rr_new
+        z = r if precond is None else precond(r)
+        rr = blas.dot(r, r)
+        rz_new = rr if precond is None else blas.dot(r, z)
+        p = blas.axpby(1.0, z, rz_new / _nonzero(rz), p)
+        rz = rz_new
         it += 1
     rnorm = torch.sqrt(rr)
     return DistCGResult(x=x, iterations=it, residual_norm=rnorm,
@@ -87,34 +97,47 @@ def dist_cg(mesh, A, b: ShardedVector, *, tol: float = 1e-8,
 
 
 def dist_cg_ca(mesh, A, b: ShardedVector, *, tol: float = 1e-8,
-               maxiter: int = 500) -> DistCGResult:
+               maxiter: int = 500, precond=None) -> DistCGResult:
     """Communication-avoiding (single-reduction) distributed CG: the
-    Chronopoulos–Gear recurrence, whose dots ``gamma = (r, r)`` and
-    ``delta = (w, r)`` (``w = A r``) are available together and reduce in
-    one :func:`~..dist.blas.dot_stack` per iteration.  ``alpha = gamma /
-    (delta - beta·gamma/alpha_prev)``; in exact arithmetic the iterates are
-    CG's.  Same contract as :func:`dist_cg`."""
+    Chronopoulos–Gear recurrence, whose dots ``gamma = (r, u)`` and
+    ``delta = (w, u)`` (``u = M r``, ``w = A u``) are available together
+    and reduce with the stop's ``(r, r)`` in one
+    :func:`~..dist.blas.dot_stack` per iteration (without ``precond``,
+    ``u = r`` and ``gamma`` is the stop's dot).  ``alpha = gamma / (delta -
+    beta·gamma/alpha_prev)``; in exact arithmetic the iterates are CG's.
+    Same contract as :func:`dist_cg`."""
     matvec = _dist_matvec(mesh, A, b, "dist_cg_ca")
+
+    def dots(r, u, w, *extra):
+        """``gamma, delta, (r, r)`` and the ``extra`` pairs' dots, in one
+        reduction."""
+        if precond is None:
+            gamma, delta, *rest = blas.dot_stack((r, r), (w, r), *extra)
+            return (gamma, delta, gamma, *rest)
+        return tuple(blas.dot_stack((r, u), (w, u), (r, r), *extra))
+
     x, r = _zeros(b), b                  # x0 = 0, so r0 = b
-    w = matvec(r)
-    gamma, delta, bb = blas.dot_stack((r, r), (w, r), (b, b))
+    u = r if precond is None else precond(r)
+    w = matvec(u)
+    gamma, delta, rr, bb = dots(r, u, w, (b, b))
     limit = tol * torch.clamp(torch.sqrt(bb), min=1e-300)
     alpha = gamma / _nonzero(delta)
     beta = torch.zeros_like(gamma)
     p = s = _zeros(b)
     it = 0
-    while it < maxiter and bool(torch.sqrt(gamma) > limit):
-        p = blas.axpby(1.0, r, beta, p)
+    while it < maxiter and bool(torch.sqrt(rr) > limit):
+        p = blas.axpby(1.0, u, beta, p)
         s = blas.axpby(1.0, w, beta, s)
         x = blas.axpy(alpha, p, x)
         r = blas.axpy(-alpha, s, r)
-        w = matvec(r)
-        gamma_new, delta = blas.dot_stack((r, r), (w, r))
+        u = r if precond is None else precond(r)
+        w = matvec(u)
+        gamma_new, delta, rr = dots(r, u, w)
         beta = gamma_new / _nonzero(gamma)
         alpha = gamma_new / _nonzero(delta - beta * gamma_new
                                      / _nonzero(alpha))
         gamma = gamma_new
         it += 1
-    rnorm = torch.sqrt(gamma)
+    rnorm = torch.sqrt(rr)
     return DistCGResult(x=x, iterations=it, residual_norm=rnorm,
                         converged=rnorm <= limit)

@@ -97,6 +97,67 @@ def bicgstab(A, b: torch.Tensor, *, x0=None, tol: float = 1e-8,
                         converged=rnorm <= limit)
 
 
+def _restarted_gmres(residual, start, arnoldi, update, x, limit_t, *,
+                     m: int, maxiter: int, eps: float):
+    """The host half of restarted GMRES(m), shared by :func:`gmres` and
+    :func:`~.dist_gmres.dist_gmres`, which supply the vector operations:
+
+    - ``residual(x) -> (r, ||r||)``;
+    - ``start(r, ||r||) -> V``, a basis whose first vector is ``r / ||r||``;
+    - ``arnoldi(V, j) -> col``: one step against the filled basis
+      ``V[:j + 1]``, which stores the next basis vector (zero where its
+      norm is at most ``eps``) and returns the new Hessenberg column on the
+      host, ``j + 2`` values whose last is that norm;
+    - ``update(x, V, y) -> x + M(V[:m]^T y)``.
+
+    Each cycle rotates its columns with Givens on the host in the vectors'
+    type, stops at convergence or breakdown, and updates ``x`` through the
+    triangular solve of the rotated Hessenberg; cycles repeat while the
+    true residual (the next cycle's start) stays above the limit and
+    falls.  Returns ``x``, the inner steps and the true ``||r||``."""
+    # the host recurrence's type: the vectors' (numpy scalars of it keep
+    # every rotation in it)
+    ht = np.float32 if limit_t.dtype == torch.float32 else np.float64
+    limit = ht(limit_t.item())
+    r, beta_t = residual(x)
+    beta = ht(beta_t.item())
+    prev = ht(math.inf)
+    it = 0
+    while beta > limit and it < maxiter and beta < prev:
+        V = start(r, beta_t)
+        H = np.zeros((m + 1, m), ht)
+        cs, sn = np.ones(m, ht), np.zeros(m, ht)
+        g = np.zeros(m + 1, ht)
+        g[0] = beta
+        for j in range(m):
+            col = arnoldi(V, j).astype(ht)
+            hnext = col[-1]
+            h = np.zeros(m + 1, ht)
+            h[:j + 2] = col
+            for i in range(j):          # the accumulated rotations
+                h[i], h[i + 1] = (cs[i] * h[i] + sn[i] * h[i + 1],
+                                  -sn[i] * h[i] + cs[i] * h[i + 1])
+            denom = np.sqrt(h[j] * h[j] + hnext * hnext)
+            c, s = ((h[j] / denom, hnext / denom) if denom > eps
+                    else (ht(1), ht(0)))
+            h[j], h[j + 1] = c * h[j] + s * hnext, 0
+            g[j], g[j + 1] = c * g[j], -s * g[j]
+            H[:, j], cs[j], sn[j] = h, c, s
+            it += 1
+            if not (abs(g[j + 1]) > limit and hnext > eps):
+                break
+        # R y = g on the top m x m block; columns never filled get a unit
+        # diagonal and a zero right-hand side, so their y is exactly zero
+        filled = np.abs(np.diagonal(H[:m])) > eps
+        R = H[:m] + np.diag(~filled).astype(ht)
+        y = scipy.linalg.solve_triangular(R, g[:m] * filled, lower=False)
+        x = update(x, V, y)
+        prev = beta
+        r, beta_t = residual(x)
+        beta = ht(beta_t.item())
+    return x, it, beta_t
+
+
 def gmres(A, b: torch.Tensor, *, x0=None, tol: float = 1e-8,
           restart: int = 30, maxiter: int = 1000,
           precond: Callable | None = None) -> KrylovResult:
@@ -116,58 +177,33 @@ def gmres(A, b: torch.Tensor, *, x0=None, tol: float = 1e-8,
     M = precond if precond is not None else _identity
     x = torch.zeros_like(b) if x0 is None else x0
     m = int(restart)
-    dt = b.dtype
-    # the host recurrence's type: the vectors' (numpy scalars of it keep
-    # every rotation in it)
-    ht = np.float32 if dt == torch.float32 else np.float64
-    eps = torch.finfo(dt).tiny
+    eps = torch.finfo(b.dtype).tiny
     limit_t = _limit(tol, b)
-    limit = ht(limit_t.item())
-    r = b - matvec(x)
-    beta_t = _norm(r)
-    beta = ht(beta_t.item())
-    prev = ht(math.inf)
-    it = 0
-    while beta > limit and it < maxiter and beta < prev:
-        V = torch.zeros((m + 1, b.shape[0]), dtype=dt, device=b.device)
-        V[0] = r / torch.clamp(beta_t, min=eps)
-        H = np.zeros((m + 1, m), ht)
-        cs, sn = np.ones(m, ht), np.zeros(m, ht)
-        g = np.zeros(m + 1, ht)
-        g[0] = beta
-        alive = True
-        for j in range(m):
-            if not alive:
-                break
-            w = matvec(M(V[j]))
-            h_t = torch.mv(V[:j + 1], w)
-            w = w - torch.mv(V[:j + 1].T, h_t)
-            hn_t = _norm(w)
-            col = torch.cat([h_t, hn_t[None]]).cpu().numpy().astype(ht)
-            hnext = col[-1]
-            V[j + 1] = w / hn_t if hnext > eps else torch.zeros_like(w)
-            h = np.zeros(m + 1, ht)
-            h[:j + 2] = col
-            for i in range(j):          # the accumulated rotations
-                h[i], h[i + 1] = (cs[i] * h[i] + sn[i] * h[i + 1],
-                                  -sn[i] * h[i] + cs[i] * h[i + 1])
-            denom = np.sqrt(h[j] * h[j] + hnext * hnext)
-            c, s = ((h[j] / denom, hnext / denom) if denom > eps
-                    else (ht(1), ht(0)))
-            h[j], h[j + 1] = c * h[j] + s * hnext, 0
-            g[j], g[j + 1] = c * g[j], -s * g[j]
-            H[:, j], cs[j], sn[j] = h, c, s
-            it += 1
-            alive = abs(g[j + 1]) > limit and hnext > eps
-        # R y = g on the top m x m block; columns never filled get a unit
-        # diagonal and a zero right-hand side, so their y is exactly zero
-        filled = np.abs(np.diagonal(H[:m])) > eps
-        R = H[:m] + np.diag(~filled).astype(ht)
-        y = scipy.linalg.solve_triangular(R, g[:m] * filled, lower=False)
-        x = x + M(torch.mv(V[:m].T, torch.from_numpy(y).to(V)))
-        prev = beta
+
+    def residual(x):
         r = b - matvec(x)
-        beta_t = _norm(r)
-        beta = ht(beta_t.item())
+        return r, _norm(r)
+
+    def start(r, beta_t):
+        V = torch.zeros((m + 1, b.shape[0]), dtype=b.dtype, device=b.device)
+        V[0] = r / torch.clamp(beta_t, min=eps)
+        return V
+
+    def arnoldi(V, j):
+        # classical Gram-Schmidt: one product with the basis, one with
+        # its transpose
+        w = matvec(M(V[j]))
+        h_t = torch.mv(V[:j + 1], w)
+        w = w - torch.mv(V[:j + 1].T, h_t)
+        hn_t = _norm(w)
+        col = torch.cat([h_t, hn_t[None]]).cpu().numpy()
+        V[j + 1] = w / hn_t if col[-1] > eps else torch.zeros_like(w)
+        return col
+
+    def update(x, V, y):
+        return x + M(torch.mv(V[:m].T, torch.from_numpy(y).to(V)))
+
+    x, it, beta_t = _restarted_gmres(residual, start, arnoldi, update, x,
+                                     limit_t, m=m, maxiter=maxiter, eps=eps)
     return KrylovResult(x=x, iterations=it, residual_norm=beta_t,
                         converged=beta_t <= limit_t)

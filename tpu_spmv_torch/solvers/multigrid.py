@@ -127,41 +127,36 @@ def _cheby_solve(b: torch.Tensor, matvec: Callable, lmin: float,
     return x
 
 
-def mg_preconditioner(grid_shape: Sequence[int], *, shift: float = 0.0,
-                      nu1: int = 2, nu2: int = 2, omega: float = 0.8,
-                      coarsest: int = 8, coarse_degree: int = 16,
-                      cycles: int = 1) -> Callable:
-    """V-cycle geometric-multigrid preconditioner for the grid operator
-    ``laplacian_2d/_3d(g) + shift I``: ``apply(r_flat) -> z_flat``, ``z ~
-    A^-1 r``, an SPD linear map valid as ``precond=`` of
-    :func:`~.cg.cg`; it runs on ``r``'s device and type.
-
-    ``grid_shape`` is the grid, e.g. ``(1024, 1024)``; every axis halves
-    while all are even and above ``coarsest``.  ``nu1`` / ``nu2`` Jacobi
-    sweeps before and after the coarse correction (equal counts keep the
-    cycle symmetric), ``cycles`` V-cycles an application."""
-    grid_shape = tuple(int(g) for g in grid_shape)
-    d = len(grid_shape)
-    if d not in (2, 3):
-        raise ValueError(f"mg_preconditioner supports 2-D/3-D grids, "
-                         f"got {grid_shape}")
-    if any(g < 2 for g in grid_shape):
-        raise ValueError(f"grid too small: {grid_shape}")
+def _check_sweeps(nu1: int, nu2: int) -> None:
+    """The sweep counts' checks (called by the preconditioners' factories,
+    so the warning points at their caller)."""
     if nu1 < 0 or nu2 < 0 or nu1 + nu2 == 0:
         raise ValueError("need nu1 + nu2 >= 1 smoothing sweeps")
     if nu1 != nu2:
         warnings.warn(
             f"nu1={nu1} != nu2={nu2} makes the V-cycle non-symmetric; "
             "the result is not a valid PCG preconditioner (fine for "
-            "standalone smoothing / flexible methods)", stacklevel=2)
+            "standalone smoothing / flexible methods)", stacklevel=3)
+
+
+def _levels(grid_shape: tuple[int, ...], shift: float, coarsest: int):
+    """The hierarchy's grid shapes and shifts: every axis halves while all
+    are even and above ``coarsest``."""
     shapes = [grid_shape]
     shifts = [float(shift)]
     while (all(g % 2 == 0 for g in shapes[-1])
            and min(shapes[-1]) > coarsest):
         shapes.append(tuple(g // 2 for g in shapes[-1]))
         shifts.append(shifts[-1] * 4.0)   # the mass term grows x4 a level
+    return shapes, shifts
+
+
+def _vcycle(shapes, shifts, *, nu1: int, nu2: int, omega: float,
+            coarse_degree: int) -> Callable:
+    """``vcycle(lvl, b)``: the V-cycle from level ``lvl`` down on a level
+    grid ``b``."""
+    d = len(shapes[0])
     nlev = len(shapes)
-    n = math.prod(grid_shape)
 
     def smooth(u, b, lvl, sweeps):
         dinv = omega / (2 * d + shifts[lvl])
@@ -183,6 +178,35 @@ def mg_preconditioner(grid_shape: Sequence[int], *, shift: float = 0.0,
         # Galerkin R A P = A_coarse / 4 on smooth modes: correction x4
         u = u + 4.0 * _prolong(e)
         return smooth(u, b, lvl, nu2)
+
+    return vcycle
+
+
+def mg_preconditioner(grid_shape: Sequence[int], *, shift: float = 0.0,
+                      nu1: int = 2, nu2: int = 2, omega: float = 0.8,
+                      coarsest: int = 8, coarse_degree: int = 16,
+                      cycles: int = 1) -> Callable:
+    """V-cycle geometric-multigrid preconditioner for the grid operator
+    ``laplacian_2d/_3d(g) + shift I``: ``apply(r_flat) -> z_flat``, ``z ~
+    A^-1 r``, an SPD linear map valid as ``precond=`` of
+    :func:`~.cg.cg`; it runs on ``r``'s device and type.
+
+    ``grid_shape`` is the grid, e.g. ``(1024, 1024)``; every axis halves
+    while all are even and above ``coarsest``.  ``nu1`` / ``nu2`` Jacobi
+    sweeps before and after the coarse correction (equal counts keep the
+    cycle symmetric), ``cycles`` V-cycles an application."""
+    grid_shape = tuple(int(g) for g in grid_shape)
+    d = len(grid_shape)
+    if d not in (2, 3):
+        raise ValueError(f"mg_preconditioner supports 2-D/3-D grids, "
+                         f"got {grid_shape}")
+    if any(g < 2 for g in grid_shape):
+        raise ValueError(f"grid too small: {grid_shape}")
+    _check_sweeps(nu1, nu2)
+    shapes, shifts = _levels(grid_shape, shift, coarsest)
+    vcycle = _vcycle(shapes, shifts, nu1=nu1, nu2=nu2, omega=omega,
+                     coarse_degree=coarse_degree)
+    n = math.prod(grid_shape)
 
     def apply(r):
         if tuple(r.shape) != (n,):
