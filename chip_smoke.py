@@ -215,15 +215,35 @@ Phases, in order; any failure raises and the script exits non-zero:
       2/n), each converged with a true residual <= 1e-4, beside the single
       card's ``gmres`` / ``bicgstab`` with the same Jacobi through the
       planner's general kernel; ``dist_cg`` and ``dist_cg_ca`` with the
-      Jacobi on the Poisson within one iteration of the single card's
-      ``cg`` with it, and their true residuals within 2x of its;
-      ``bench/dist_bench.py --sweep --device cuda:0 --iters 20`` in process
+      Jacobi on the Poisson to tol 1e-3 within one iteration of the single
+      card's ``cg`` with it, and their true residuals within 2x of its;
+      ``bench/dist_bench.py --sweep --device cuda:0 --iters 20 --grid 256``
+      in process
       (its JSON on a line of its own, its gates passed), the counters
       zeroed just before it and read just after, its GPR leg's
       ``gpr_spmv`` launches required and reported apart;
       the cost model's two constants (``predict_dist_costs``): the CSR
       local product's values/s at one shard, and the copy rate of one
       shard's chunk on the card;
+   k. the distribution layer across processes (``multihost_phase``; each
+      group of ranks spawned by ``tpu_spmv_torch.dist.dryrun.spawn`` with a
+      deadline and a process-group timeout, its kernels' launches counted
+      by the ranks from their start): one NCCL rank on the card (world
+      size 1) running every exchange of the process mesh, K8a, K8b and
+      GPR through ``plan_dist_spmv`` (f64) and the reference's dry run,
+      bitwise the single controller's one shard; two NCCL ranks on the one
+      card, refused by ``make_mesh`` with its error (not a hang); four Gloo
+      ranks sharing the card (``init_multihost(backend="gloo")``, the
+      exchanges staged through host memory, the staged calls printed):
+      the dry run (GPR), ``plan_dist_spmv`` of the 4096x4096 Poisson
+      (the planner's ``pdia_stream``, K8b) and forced to ``dia_stream``
+      (K8a), f32, each rank's y bitwise the single controller's four
+      shards on the card and within 2e-5 of scipy float64, timed (ms a
+      product by the host clock, beside the single controller's); Jacobi
+      ``dist_cg`` on 4j's 2048x2048 system across the four ranks, its
+      iterations and iterate those of 4j's single-controller ``dist_cg``
+      (bitwise) and its true residual within 2x the single card's, ms an
+      iteration beside 4j's;
 5. the probe path first (``run_probes``: ``copy_scale`` and torch's
    ``copy_`` over 256 MiB, whose higher rate is the roofline's peak, the
    launch probe once and four in a row, ``segsum8`` and every
@@ -658,7 +678,12 @@ def host_breakdown(dev, n: int = 10_000) -> dict:
 
 
 DIST_GRID = 2048                # phase 4j's Poisson, the width of mgpcg_x_2048
-DIST_BENCH_ARGS = ("--sweep", "--device", "cuda:0", "--iters", "20")
+DIST_BENCH_ARGS = ("--sweep", "--device", "cuda:0", "--iters", "20", "--grid",
+                   "256")
+#: the Jacobi CG legs' tolerance (4j's on the single controller, 4k's across
+#: processes; 2531 iterations at 2048^2, 4096 at 1e-5: cut for the script's
+#: 1200 s)
+JACOBI_TOL = 1e-3
 
 
 def dist_solvers_phase(card: str, counters) -> dict:
@@ -846,12 +871,14 @@ def dist_solvers_phase(card: str, counters) -> dict:
         (1.0 / lap.diagonal()).astype(np.float32), A.row_plan))
     dl = torch.tensor(1.0 / lap.diagonal(), dtype=torch.float32, device=dev)
     sres, sit, sms, _ = solve(lambda: cg(
-        plan, bt, tol=1e-5, maxiter=20_000, precond=lambda v: v * dl),
-        lambda o: o.iterations)
+        plan, bt, tol=JACOBI_TOL, maxiter=20_000,
+        precond=lambda v: v * dl), lambda o: o.iterations)
     srel = true_rel(lap, b64, sres.x.cpu().numpy())
+    jacobi_cg = {"b64": b64, "b32": b32, "single_card_rel": srel,
+                 "single_card_ms": sms}
     for name, fn in (("dist_cg", dist_cg), ("dist_cg_ca", dist_cg_ca)):
         dres, dit, dms, dsec = solve(lambda fn=fn: fn(
-            mesh, A, bs, tol=1e-5, maxiter=20_000, precond=jl),
+            mesh, A, bs, tol=JACOBI_TOL, maxiter=20_000, precond=jl),
             lambda o: o.iterations)
         drel = true_rel(lap, b64, dres.x.to_global())
         print(f"      {name} + Jacobi: {dit} iterations, converged "
@@ -863,6 +890,10 @@ def dist_solvers_phase(card: str, counters) -> dict:
                 f"card's {sit}")
         require(drel <= 2 * srel, f"{name} + Jacobi: true rel {drel:.3e} "
                 f"against the single card's {srel:.3e}")
+        if name == "dist_cg":       # phase 4k's single-controller reference
+            jacobi_cg.update(iterations=dit, rel=drel, ms=dms,
+                             starts=dres.x.starts,
+                             x=[c.cpu().numpy() for c in dres.x.chunks])
     del plan, sres, dres
 
     sync()
@@ -906,7 +937,186 @@ def dist_solvers_phase(card: str, counters) -> dict:
     print(f"launch counts on the 4j path (solvers and sweep): {launches}")
     print(f"  (phase 4j {time.perf_counter() - t4j:.1f} s)")
     return {"launches": launches, "bench_launches": bench_launches,
-            "gather_gvals": gather_gvals, "link_gbps": link_gbps}
+            "gather_gvals": gather_gvals, "link_gbps": link_gbps,
+            "jacobi_cg": jacobi_cg}
+
+
+MULTIHOST_GRID = 4096           # phase 4k's products: the headline Poisson
+MULTIHOST_TIMEOUT = 600.0       # s: each spawned group's deadline and its
+#                                 process group's collective timeout
+#: phase 4k's NCCL world-1 cases (parity_cases): every exchange, K8a, K8b
+#: and GPR through plan_dist_spmv, the reductions
+NCCL_CASES = ("exchanges", "dia_stream", "pdia_stream", "gpr", "dots")
+
+
+def multihost_phase(card: str, cg_ref: dict) -> dict:
+    """Phase 4k: the distribution layer across processes on ``cuda:0``
+    (module docstring).  ``cg_ref`` is phase 4j's single-controller
+    ``dist_cg`` + Jacobi on the 2048^2 Poisson (its right-hand side,
+    iterations, iterate chunks and true residuals).  Returns the ranks'
+    kernel launches, summed."""
+    import numpy as np
+    import torch
+
+    from tpu_spmv_torch import dist as tdist
+    from tpu_spmv_torch import utils
+    from tpu_spmv_torch.dist import dryrun
+
+    t4k = time.perf_counter()
+    dev = torch.device("cuda:0")
+    sync = torch.cuda.synchronize
+    print(f"== 4k. the distribution layer across processes on {dev} "
+          f"(the ranks' own counters, zeroed at their start; {card})")
+    launches, staged = {}, {}
+
+    def tally(results):
+        for res in results:
+            for k, v in res["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            for k, v in res["staged"].items():
+                staged[k] = staged.get(k, 0) + v
+
+    def same(a, b) -> bool:
+        return a.dtype == b.dtype and np.array_equal(a, b)
+
+    # (a) NCCL at world size 1: the exchanges, K8a, K8b and GPR through
+    # plan_dist_spmv and the dry run against the single controller
+    t0 = time.perf_counter()
+    (got,) = dryrun.spawn(dryrun.parity_rank, 1, kwargs=dict(
+        sizes=(1,), device="cuda:0", only=NCCL_CASES), backend="nccl",
+        timeout=MULTIHOST_TIMEOUT, threads=2).join()
+    mesh1 = tdist.make_mesh(1, device=dev)
+    want = dryrun.parity_cases(mesh1, only=NCCL_CASES)
+    dry1 = dryrun.dryrun_multichip(1, mesh=mesh1)
+    bad = [c for c in NCCL_CASES if c != "dots"
+           and not same(got[1][c][0], want[c][0])]
+    bad += ["dots"] * (not all(same(a, b) for a, b
+                               in zip(got[1]["dots"], want["dots"])))
+    bad += [c for c in ("halo", "allgather", "colsplit", "dia", "gpr",
+                        "pdia_stream", "axpy", "vcycle")
+            if not same(got["dryrun"][c][0], dry1[c][0])]
+    tally([got])
+    print(f"  (a) NCCL, world size 1 on {dev}: {got['dryrun']['line']} | "
+          f"f64 exchanges, K8a, K8b and GPR plans, dots bitwise the single "
+          f"controller's at one shard: {not bad} | launches "
+          f"{got['launches']} ({time.perf_counter() - t0:.1f} s)")
+    require(not bad, f"NCCL world 1 differs from the single controller: "
+            f"{bad}")
+
+    # (b) two NCCL ranks on the one card: refused by make_mesh, no hang
+    t0 = time.perf_counter()
+    try:
+        dryrun.spawn(dryrun.parity_rank, 2, kwargs=dict(
+            sizes=(2,), device="cuda:0", only=("exchanges",), dryrun=False),
+            backend="nccl", timeout=120.0).join()
+    except Exception as e:          # the refusal this step expects
+        msg = str(e)
+        require("NCCL needs one card a rank" in msg,
+                f"two NCCL ranks on one card failed otherwise: {msg[-400:]}")
+        print(f"  (b) two NCCL ranks on {dev}: refused in "
+              f"{time.perf_counter() - t0:.1f} s: "
+              f"{msg.strip().splitlines()[-1][:220]}")
+    else:
+        require(False, "two NCCL ranks on one card were accepted")
+
+    # (c) four Gloo ranks sharing the card, full width: the 4096^2
+    # Poisson's planner pick (K8b) and dia_stream (K8a), the dry run (GPR)
+    # and Jacobi dist_cg on 4j's 2048^2 system; meanwhile this process
+    # plans the single controller's four shards on the same card
+    grid = MULTIHOST_GRID
+    t0 = time.perf_counter()
+    ranks = dryrun.spawn(dryrun.full_width, 4,
+                         args=(cg_ref["b32"], JACOBI_TOL),
+                         kwargs=dict(device="cuda:0", spmv_grid=grid,
+                                     cg_grid=DIST_GRID),
+                         backend="gloo", timeout=MULTIHOST_TIMEOUT, threads=2)
+    lap = utils.laplacian_2d(grid)
+    x = np.random.default_rng(0).random(lap.shape[1]).astype(np.float32)
+    mesh4 = tdist.make_mesh(4, device=dev)
+    singles = []
+    for strategy in dryrun.FULL_WIDTH_STRATEGIES:
+        plan = tdist.plan_dist_spmv(lap, mesh4, dtype=torch.float32,
+                                    strategy=strategy)
+        xs = plan.shard_x(x)
+        singles.append((plan, xs, [c.cpu().numpy()
+                                   for c in plan.spmv(xs).chunks]))
+    dry4 = dryrun.dryrun_multichip(4, mesh=mesh4)
+    sync()
+    results = ranks.join()
+    wall = time.perf_counter() - t0
+    tally(results)
+    print(f"  (c) 4 Gloo ranks on {dev}, full width, f32 ({wall:.1f} s "
+          f"with the single controller's planning beside): "
+          f"{results[0]['dryrun']['line']}")
+    bad = [(r, c) for r in range(4) for c in ("halo", "allgather",
+                                               "colsplit", "dia", "gpr",
+                                               "pdia_stream", "axpy",
+                                               "vcycle")
+           if not same(results[r]["dryrun"][c][0], dry4[c][r])]
+    require(not bad, f"the 4-rank dry run differs from the single "
+            f"controller's: {bad}")
+    for i, (plan, xs, ys) in enumerate(singles):
+        recs = [res["spmv"][i] for res in results]
+        bitwise = all(same(rec["y"], ys[r]) for r, rec in enumerate(recs))
+        rel = recs[0]["rel"]
+        plan.spmv(xs)               # the single controller, host clock
+        sync()
+        ts = time.perf_counter()
+        for _ in range(dryrun.FULL_WIDTH_ITERS):
+            plan.spmv(xs)
+        sync()
+        s_ms = (time.perf_counter() - ts) * 1e3 / dryrun.FULL_WIDTH_ITERS
+        print(f"      plan_dist_spmv(laplacian_2d({grid})) -> "
+              f"{recs[0]['strategy']} (single controller: {plan.strategy}): "
+              f"each rank's y bitwise the single controller's 4-shard "
+              f"product {bitwise} | rel vs scipy {rel:.2e} | ms per "
+              f"distributed SpMV (host clock) rank 0 {recs[0]['ms']:.4f}, "
+              f"slowest rank {max(r['ms'] for r in recs):.4f} | single "
+              f"controller 4 shards {s_ms:.4f} | planned in "
+              f"{max(r['plan_s'] for r in recs):.1f} s a rank")
+        require(recs[0]["strategy"] == plan.strategy and bitwise,
+                f"{plan.strategy} across processes: not bitwise the single "
+                f"controller's")
+        require(rel <= ORACLE_TOL["float32"], f"{plan.strategy} across "
+                f"processes: rel {rel:.2e} against scipy")
+    del singles, plan, xs, lap, dry4
+    cg = [res["cg"] for res in results]
+    x_bits = all(same(c["x"], cg_ref["x"][r]) for r, c in enumerate(cg))
+    xs_cg = tdist.ShardedVector(
+        chunks=tuple(torch.from_numpy(c["x"]) for c in cg),
+        starts=cg_ref["starts"], length=DIST_GRID * DIST_GRID).to_global()
+    lap2 = utils.laplacian_2d(DIST_GRID)
+    b64 = cg_ref["b64"]
+    drel = float(np.linalg.norm(b64 - lap2 @ xs_cg.astype(np.float64))
+                 / np.linalg.norm(b64))
+    print(f"      dist_cg + Jacobi on laplacian_2d({DIST_GRID}) over "
+          f"csr_neighbor: {cg[0]['iterations']} iterations (the single "
+          f"controller's {cg_ref['iterations']}), converged "
+          f"{all(c['converged'] for c in cg)}, x bitwise the single "
+          f"controller's {x_bits}, true rel {drel:.3e} (4j: "
+          f"{cg_ref['rel']:.3e}, single card cg "
+          f"{cg_ref['single_card_rel']:.3e})"
+          f" | ms per iteration (host clock) rank 0 {cg[0]['ms']:.4f}, "
+          f"slowest {max(c['ms'] for c in cg):.4f} | single controller 4 "
+          f"shards {cg_ref['ms']:.4f}, single card "
+          f"{cg_ref['single_card_ms']:.4f} ({card})")
+    require(all(c["iterations"] == cg_ref["iterations"] and c["converged"]
+                for c in cg) and x_bits, "dist_cg across processes: "
+            "iterations, convergence or iterate differ from the single "
+            "controller's")
+    require(drel <= 2 * cg_ref["single_card_rel"], f"dist_cg across "
+            f"processes: true rel {drel:.3e} against the single card's "
+            f"{cg_ref['single_card_rel']:.3e}")
+    print(f"  exchanges staged through host memory (Gloo on the card), "
+          f"calls summed over the ranks: {staged}")
+    require(staged.get("ring", 0) > 0 and staged.get("all_gather", 0) > 0,
+            "Gloo ranks on the card staged no exchange")
+    print(f"launch counts on the 4k path (the ranks', summed): {launches}")
+    for k in ("psdia_ring", "sdia_ring", "gpr"):
+        require(launches.get(k, 0) > 0, f"{k} never launched across "
+                f"processes")
+    print(f"  (phase 4k {time.perf_counter() - t4k:.1f} s)")
+    return {"launches": launches, "staged": staged}
 
 
 def main() -> int:
@@ -3018,6 +3228,9 @@ def main() -> int:
     # -- 4j. the distributed solvers at full width --------------------------
     j4 = dist_solvers_phase(card, counters)
 
+    # -- 4k. the distribution layer across processes --------------------------
+    k4 = multihost_phase(card, j4.pop("jacobi_cg"))
+
     # -- 5. kernels vs plain at the main paths' shapes, timed ---------------
     print("== 5. kernels vs plain versions at the main paths' shapes")
     # the probe path first (its bandwidth probes set the roofline's peak),
@@ -3195,7 +3408,10 @@ def main() -> int:
                              "source": ("tpu_spmv_torch/csrc/psdia_walk.cuh"
                                         if key == "psdia_ring" else
                                         "tpu_spmv_torch/csrc/dist_stream.cu"),
-                             "replaces": src_line, "launches": dlaunches[key],
+                             "replaces": src_line,
+                             # 4d's launches and the ranks' of 4k
+                             "launches": (dlaunches[key]
+                                          + k4["launches"].get(key, 0)),
                              **nums})
         if key == "sdia_ring":
             ring_extra(A, S, x, xk, left, right, "f32")
@@ -3344,11 +3560,12 @@ def main() -> int:
                     "replaces": ("tpu_spmv/kernels/gpr.py:684"
                                  if strategy == "gpr" else
                                  "tpu_spmv/kernels/ell_pallas.py:299"),
-                    # 4b's launches and the distributed solvers' (4j),
-                    # dist_bench's sweep also apart
+                    # 4b's launches, the distributed solvers' (4j) and
+                    # the ranks' of 4k, dist_bench's sweep also apart
                     "launches": sum(d.get("gpr" if strategy == "gpr"
                                           else "ell", 0)
-                                    for d in (glaunches, j4["launches"])),
+                                    for d in (glaunches, j4["launches"],
+                                              k4["launches"])),
                     **({"dist_bench_launches":
                         j4["bench_launches"].get("gpr", 0)}
                        if strategy == "gpr" else {}),

@@ -125,7 +125,8 @@ def test_cli_drops_explosive_dia():
 def test_import_leaves_jax_out():
     code = ("import sys, tpu_spmv_torch, tpu_spmv_torch.cli, "
             "tpu_spmv_torch.ops.spmm, tpu_spmv_torch.solvers.block_cg, "
-            "tpu_spmv_torch.dist, tpu_spmv_torch.solvers.dist_cg; "
+            "tpu_spmv_torch.dist, tpu_spmv_torch.solvers.dist_cg, "
+            "tpu_spmv_torch.dist.dryrun; "
             "assert 'jax' not in sys.modules; "
             "assert 'tpu_spmv' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

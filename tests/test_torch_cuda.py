@@ -1898,3 +1898,63 @@ def test_dist_vcycle_on_card_matches_cpu(card):
     res = T.dist_cg(mesh, A, bs, tol=1e-5, maxiter=100,
                     precond=T.dist_mg_preconditioner(mesh, (g, g)))
     assert bool(res.converged) and res.iterations < 30
+
+
+def _same(a, b) -> bool:
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_multihost_nccl_world1_on_card(card):
+    """One NCCL rank on ``cuda:0`` (a process group of one): every exchange
+    of the process mesh, K8a, K8b and GPR through ``plan_dist_spmv``, the
+    reductions and the reference's dry run, bitwise the single controller's
+    one shard on the card (f64; the dry run f32)."""
+    from tpu_spmv_torch.dist import dryrun
+
+    cases = ("exchanges", "dia_stream", "pdia_stream", "gpr", "dots")
+    (got,) = dryrun.spawn(dryrun.parity_rank, 1, kwargs=dict(
+        sizes=(1,), device="cuda:0", only=cases), backend="nccl",
+        timeout=300).join()
+    mesh = dist.make_mesh(1, device="cuda:0")
+    want = dryrun.parity_cases(mesh, only=cases)
+    for c in cases[:-1]:
+        assert _same(got[1][c][0], want[c][0]), c
+    assert all(_same(a, b) for a, b in zip(got[1]["dots"], want["dots"]))
+    dry = dryrun.dryrun_multichip(1, mesh=mesh)
+    for c in ("halo", "allgather", "colsplit", "dia", "gpr", "pdia_stream",
+              "axpy", "vcycle"):
+        assert _same(got["dryrun"][c][0], dry[c][0]), c
+    assert got["staged"] == {}
+    assert got["launches"]["sdia_ring"] and got["launches"]["psdia_ring"]
+
+
+@pytest.mark.cuda
+def test_multihost_gloo_two_ranks_share_card(card):
+    """Two Gloo ranks sharing ``cuda:0``: K8a (``dia_stream``) and K8b
+    (``pdia_stream``) products of each rank bitwise the single controller's
+    two shards on the card, the exchanges staged through host memory."""
+    from tpu_spmv_torch.dist import dryrun
+
+    cases = ("dia_stream", "pdia_stream")
+    got = dryrun.spawn(dryrun.parity_rank, 2, kwargs=dict(
+        sizes=(2,), device="cuda:0", only=cases, dryrun=False),
+        backend="gloo", timeout=300).join()
+    want = dryrun.parity_cases(dist.make_mesh(2, device="cuda:0"),
+                               only=cases)
+    for rank in range(2):
+        for c in cases:
+            assert _same(got[rank][2][c][0], want[c][rank]), (rank, c)
+        assert got[rank]["staged"]["ring"] > 0
+
+
+@pytest.mark.cuda
+def test_multihost_nccl_refuses_two_ranks_on_one_card(card):
+    """Two NCCL ranks on one card: ``make_mesh`` raises on both ranks before
+    any NCCL collective, and the group fails instead of hanging."""
+    from tpu_spmv_torch.dist import dryrun
+
+    with pytest.raises(Exception, match="NCCL needs one card a rank"):
+        dryrun.spawn(dryrun.parity_rank, 2, kwargs=dict(
+            sizes=(2,), device="cuda:0", only=("exchanges",),
+            dryrun=False), backend="nccl", timeout=120).join()

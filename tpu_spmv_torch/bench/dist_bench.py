@@ -60,9 +60,7 @@ def sharded_jacobi(d: dist.ShardedVector):
     """The sharded Jacobi scale ``r -> d * r`` (``d`` the inverse
     diagonal, on the mesh)."""
     def apply(r: dist.ShardedVector) -> dist.ShardedVector:
-        return dist.ShardedVector(
-            chunks=tuple(c * s for c, s in zip(r.chunks, d.chunks)),
-            starts=r.starts, length=r.length)
+        return r.map(lambda c, s: c * s, d)
     return apply
 
 

@@ -77,8 +77,8 @@ def _result(times: list[float], iters: int) -> TimingResult:
 
 def _is_cuda(v) -> bool:
     """Whether a tensor or a :class:`~..dist.sharded.ShardedVector` (the
-    device of its first chunk) is on the card."""
-    return (v.chunks[0] if hasattr(v, "chunks") else v).is_cuda
+    device of its first local chunk) is on the card."""
+    return (v.chunks[v.local[0]] if hasattr(v, "chunks") else v).is_cuda
 
 
 def time_fn(fn: Callable, *args, iters: int = DEFAULT_ITERS,

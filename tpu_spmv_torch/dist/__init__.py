@@ -1,13 +1,18 @@
 """Distribution layer: row-partitioned sharding over a mesh of devices.
 
-Counterpart of ``tpu_spmv/dist``, with its single-controller model: one
-process drives every shard, a :class:`Mesh` names each shard's device (one
-device may hold several shards), halo exchanges are copies to a
-neighbour's device and reductions sum in shard order.
+Counterpart of ``tpu_spmv/dist``.  One distributed code runs on two kinds
+of mesh (:mod:`.mesh`): the single controller's :class:`Mesh`, where one
+process drives every shard and names each shard's device (one device may
+hold several shards), and the :class:`ProcessMesh` of one process a shard
+over ``torch.distributed`` (:func:`init_multihost`, then
+:func:`make_mesh`).  Only the mesh's exchanges differ — copies to a
+neighbour's device, or collectives — and every reduction sums in shard
+order, so both give the same bits.
 
 | reference (NUMA/pthreads)              | here                              |
 |----------------------------------------|-----------------------------------|
 | ``numa_num_configured_nodes`` topology | ``make_mesh``                     |
+| (single process)                       | ``init_multihost`` → process mesh |
 | even row split                         | ``plan_rows`` (nnz-balanced)      |
 | ``numa_alloc_onnode`` + memcpy slices  | ``ShardedCSR.build`` + ``place``  |
 | full-x replication per thread          | ``spmv_allgather``                |
@@ -19,7 +24,7 @@ neighbour's device and reductions sum in shard order.
 """
 
 from . import blas
-from .mesh import Mesh, device_count, make_mesh
+from .mesh import Mesh, ProcessMesh, device_count, init_multihost, make_mesh
 from .partition import RowPlan, plan_even, plan_rows, plan_uniform
 from .planned import (DistPlan, ShardedBDIA, ShardedDIA, ShardedGPR,
                       ShardedPSDIA, ShardedSDIA, bench_dist_spmv,
@@ -42,6 +47,6 @@ __all__ = [
     "spmv_psdia_sharded", "spmv_gpr_sharded",
     "DistPlan", "plan_dist_spmv", "bench_dist_spmv", "predict_dist_costs",
     "place",
-    "Mesh", "make_mesh", "device_count",
+    "Mesh", "ProcessMesh", "make_mesh", "device_count", "init_multihost",
     "blas",
 ]

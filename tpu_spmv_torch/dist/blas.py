@@ -2,16 +2,21 @@
 
 Counterpart of ``tpu_spmv/dist/blas.py``.  The chunks are zero-padded, so
 elementwise ops and reductions over them are exact.  Elementwise ops run
-per shard on the shard's device; a reduction takes each shard's partial on
-its device and adds the partials in shard order on shard 0's device (the
-``psum``), so it gives the same bits on every run.  A scalar argument may
-be a number or a 0-d tensor on any device.
+per local shard on the shard's device (:meth:`~.sharded.ShardedVector.map`:
+on a process mesh the other shards' ``meta`` placeholders are left
+alone); a reduction takes each
+local shard's partial on its device and adds the partials in shard order
+(the ``psum`` of the vector's mesh: on shard 0's device on the single
+controller, on every rank alike on a process mesh), so it gives the same
+bits on every run and every rank.  A scalar argument may be a number or a
+0-d tensor on any device.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .mesh import sum_in_order
 from .sharded import ShardedVector
 
 __all__ = ["dot", "dot_stack", "psum", "axpby", "axpy", "scale", "norm2",
@@ -27,26 +32,19 @@ def _on(alpha, device):
     return alpha.to(device) if isinstance(alpha, torch.Tensor) else alpha
 
 
-def psum(partials) -> torch.Tensor:
-    """The shards' partials (one tensor each, any shape) added in shard
-    order on the first one's device."""
-    dev = partials[0].device
-    total = partials[0]
-    for p in partials[1:]:
-        total = total + p.to(dev)
-    return total
-
-
-def _like(x: ShardedVector, chunks) -> ShardedVector:
-    return ShardedVector(chunks=tuple(chunks), starts=x.starts,
-                         length=x.length)
+def psum(partials, mesh=None) -> torch.Tensor:
+    """The local shards' partials (one tensor each, any shape) added in
+    shard order: over ``mesh`` (its :meth:`~.mesh.Mesh.psum`), or, with no
+    mesh, on the first one's device."""
+    return sum_in_order(partials) if mesh is None else mesh.psum(partials)
 
 
 def dot(x: ShardedVector, y: ShardedVector) -> torch.Tensor:
-    """``x · y`` (0-d, on shard 0's device)."""
+    """``x · y`` (0-d, on shard 0's device; on a process mesh on every
+    rank)."""
     check_aligned(x, y)
-    return psum([torch.vdot(a.reshape(-1), b.reshape(-1))
-                  for a, b in zip(x.chunks, y.chunks)])
+    return psum([torch.vdot(x.chunks[s].reshape(-1), y.chunks[s].reshape(-1))
+                 for s in x.local], x.mesh)
 
 
 def dot_stack(*pairs) -> torch.Tensor:
@@ -55,25 +53,24 @@ def dot_stack(*pairs) -> torch.Tensor:
     reduction of the communication-avoiding solvers).  Real dtypes."""
     for x, y in pairs:
         check_aligned(x, y)
-    ndev = pairs[0][0].ndev
+    x0 = pairs[0][0]
     return psum([torch.stack([(x.chunks[s] * y.chunks[s]).sum()
-                               for x, y in pairs]) for s in range(ndev)])
+                              for x, y in pairs]) for s in x0.local], x0.mesh)
 
 
 def axpby(alpha, x: ShardedVector, beta, y: ShardedVector) -> ShardedVector:
     check_aligned(x, y)
-    return _like(x, (_on(alpha, a.device) * a + _on(beta, a.device) * b
-                     for a, b in zip(x.chunks, y.chunks)))
+    return x.map(lambda a, b: _on(alpha, a.device) * a
+                 + _on(beta, a.device) * b, y)
 
 
 def axpy(alpha, x: ShardedVector, y: ShardedVector) -> ShardedVector:
     check_aligned(x, y)
-    return _like(x, (b + _on(alpha, a.device) * a
-                     for a, b in zip(x.chunks, y.chunks)))
+    return x.map(lambda a, b: b + _on(alpha, a.device) * a, y)
 
 
 def scale(x: ShardedVector, alpha) -> ShardedVector:
-    return _like(x, (_on(alpha, a.device) * a for a in x.chunks))
+    return x.map(lambda a: _on(alpha, a.device) * a)
 
 
 def norm2(x: ShardedVector) -> torch.Tensor:

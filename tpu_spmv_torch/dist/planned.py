@@ -19,9 +19,13 @@ static slice of ``[left | own | right]`` neighbour chunks:
 - :class:`ShardedGPR` packs each shard's row block with the port's
   ``pack_gpr`` and runs ``gpr_spmv`` over the all-gathered x.
 
-The single controller lets every shard pack its own rows, so the
-reference's forced per-shard pack shapes and its 900k-entry routing cap
-(SPMD and Clos facts) are not ported.  :func:`plan_dist_spmv` follows the
+Every shard packs its own rows, so the reference's forced per-shard pack
+shapes and its 900k-entry routing cap (SPMD and Clos facts) are not
+ported.  On a process mesh (:class:`~.mesh.ProcessMesh`) every rank
+plans the same host matrix deterministically and :func:`.spmv.place`
+keeps its own shard; the ring slivers and GPR's gathered x come from the
+mesh's exchanges (:meth:`~.mesh.Mesh.ring`,
+:meth:`~.mesh.Mesh.all_gather`).  :func:`plan_dist_spmv` follows the
 port's single-chip planner (streaming at every size): a square periodic
 band gets ``"pdia_stream"``, then ``"dia_stream"``, then ``"dia"``; a
 square block-banded pattern (8x8 block-DIA storage at most 4x nnz)
@@ -91,13 +95,17 @@ def _pad_plan(ndev: int, C: int) -> RowPlan:
 
 
 def _ring(mesh: Mesh, x: ShardedVector, h: int):
-    """For each shard ``s``: the last ``h`` values of the previous shard's
-    chunk and the first ``h`` of the next one's, on ``s``'s device (the two
-    ``ppermute``s; at one shard, both are the shard's own)."""
-    n, C = x.ndev, x.chunk_size
-    return [(x.chunks[(s - 1) % n][C - h:].to(dev),
-             x.chunks[(s + 1) % n][:h].to(dev))
-            for s, dev in enumerate(mesh.devices)]
+    """For each local shard ``s``: ``(s, own chunk, (left, right))``, the
+    last ``h`` values of the previous shard's chunk and the first ``h`` of
+    the next one's, on ``s``'s device (the two ``ppermute``s of
+    :meth:`~.mesh.Mesh.ring`; at one shard, both are the shard's own)."""
+    own = [x.chunks[s] for s in mesh.local]
+    return zip(mesh.local, own, mesh.ring(own, own, h))
+
+
+def _out(mesh: Mesh, ys, plan: RowPlan, length: int) -> ShardedVector:
+    return ShardedVector(chunks=mesh.shards(ys), starts=plan.starts,
+                         length=length, mesh=mesh)
 
 
 def _check_x(A, x: ShardedVector, plan: RowPlan) -> None:
@@ -156,12 +164,10 @@ def spmv_dia_sharded(mesh: Mesh, A: ShardedDIA,
     slivers (``h = R``; global row ``s*R + r`` reads ``[left | own |
     right]`` at ``R + r + off``)."""
     _check_x(A, x, A.x_plan)
-    ys = []
-    for s, (left, right) in enumerate(_ring(mesh, x, A.rows_per_shard)):
-        ys.append(spmv_sdia_ring(A.data[s], A.offsets, x.chunks[s], left,
-                                 right))
-    return ShardedVector(chunks=tuple(ys), starts=A.row_plan.starts,
-                         length=A.shape[0])
+    return _out(mesh, [spmv_sdia_ring(A.data[s], A.offsets, xs, left, right)
+                       for s, xs, (left, right)
+                       in _ring(mesh, x, A.rows_per_shard)],
+                A.row_plan, A.shape[0])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,15 +249,13 @@ def spmv_bdia_sharded(mesh: Mesh, A: ShardedBDIA,
     Rb, bs = A.blocks_per_shard, A.block_size
     C, band, size = Rb * bs, _band(A.offsets), x.chunk_size
     if size < C:                # the matrix ends inside a shard's last block
-        x = dataclasses.replace(x, chunks=tuple(F.pad(c, (0, C - size))
-                                                for c in x.chunks))
+        x = x.map(lambda c: F.pad(c, (0, C - size)))
     ys = []
-    for s, (left, right) in enumerate(_ring(mesh, x, band * bs)):
-        xw = torch.cat([left, x.chunks[s], right]).reshape(-1, bs)
+    for s, xs, (left, right) in _ring(mesh, x, band * bs):
+        xw = torch.cat([left, xs, right]).reshape(-1, bs)
         y = bdia_blocks(A.data[s], A.offsets, xw, band, Rb).reshape(-1)
         ys.append(y[:size])
-    return ShardedVector(chunks=tuple(ys), starts=A.row_plan.starts,
-                         length=A.shape[0])
+    return _out(mesh, ys, A.row_plan, A.shape[0])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -330,12 +334,9 @@ def spmv_sdia_sharded(mesh: Mesh, A: ShardedSDIA,
     receives the tail of the previous shard's chunk and the head of the
     next one's (``h`` values each) and runs K8a on its chunk."""
     _check_x(A, x, A.pad_plan)
-    ys = []
-    for s, (left, right) in enumerate(_ring(mesh, x, A.halo)):
-        ys.append(spmv_sdia_ring(A.data[s], A.offsets, x.chunks[s], left,
-                                 right))
-    return ShardedVector(chunks=tuple(ys), starts=A.pad_plan.starts,
-                         length=A.npad)
+    return _out(mesh, [spmv_sdia_ring(A.data[s], A.offsets, xs, left, right)
+                       for s, xs, (left, right) in _ring(mesh, x, A.halo)],
+                A.pad_plan, A.npad)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -408,13 +409,11 @@ def spmv_psdia_sharded(mesh: Mesh, A: ShardedPSDIA,
     ``s * Cp`` as the row mask's origin."""
     _check_x(A, x, A.pad_plan)
     Cp = A.rows_per_shard
-    ys = []
-    for s, (left, right) in enumerate(_ring(mesh, x, A.halo)):
-        ys.append(spmv_psdia_ring(A.pattern[s], A.offsets, x.chunks[s], left,
-                                  right, base=s * Cp, L=A.L, nrow=A.shape[0],
-                                  plan=A.ring_plan))
-    return ShardedVector(chunks=tuple(ys), starts=A.pad_plan.starts,
-                         length=A.npad)
+    return _out(mesh, [spmv_psdia_ring(A.pattern[s], A.offsets, xs, left,
+                                       right, base=s * Cp, L=A.L,
+                                       nrow=A.shape[0], plan=A.ring_plan)
+                       for s, xs, (left, right) in _ring(mesh, x, A.halo)],
+                A.pad_plan, A.npad)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -471,12 +470,10 @@ def spmv_gpr_sharded(mesh: Mesh, A: ShardedGPR,
     """Row-sharded GPR SpMV: each shard gathers all x chunks and runs
     ``gpr_spmv`` and the virtual-row fold on its pack."""
     _check_x(A, x, A.x_plan)
-    ys = []
-    for s, dev in enumerate(mesh.devices):
-        xg = torch.cat([c.to(dev) for c in x.chunks])[:A.shape[1]]
-        ys.append(gpr.spmv_gpr(A.gpcsr[s], xg))
-    return ShardedVector(chunks=tuple(ys), starts=A.row_starts,
-                         length=A.shape[0])
+    loc = mesh.local
+    xgs = mesh.all_gather([x.chunks[s] for s in loc])
+    return _out(mesh, [gpr.spmv_gpr(A.gpcsr[s], torch.cat(xg)[:A.shape[1]])
+                       for s, xg in zip(loc, xgs)], A.row_plan, A.shape[0])
 
 
 # ---------------------------------------------------------------------------

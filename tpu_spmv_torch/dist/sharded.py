@@ -4,8 +4,10 @@ Counterpart of ``tpu_spmv/dist/sharded.py``.  The reference stacks every
 leaf as one ``[ndev, ...]`` array that a ``NamedSharding`` spreads over
 the mesh; here each array field is a tuple of per-shard tensors, shard
 ``s``'s on the device that holds shard ``s`` (:func:`.spmv.place` moves
-them there).  The builders are host numpy and lay the entries out as the
-reference does, bucket for bucket:
+them there; on a process mesh the shards of other processes become
+``meta`` placeholders, which keep their shapes and hold no data).  The
+builders are host numpy and lay the entries out as the reference does,
+bucket for bucket:
 
 - :class:`ShardedCSR` — the all-gather strategy: column ids in padded
   gathered-x space (``owner * C + local``);
@@ -95,10 +97,33 @@ class ShardedVector:
     chunks: tuple[torch.Tensor, ...]
     starts: tuple[int, ...]
     length: int
+    #: the mesh it was placed on (:func:`.spmv.place`); on a process mesh
+    #: the other shards' chunks are ``meta`` placeholders, and the sums and
+    #: :meth:`to_global` run the mesh's collectives
+    mesh: object = dataclasses.field(default=None, compare=False,
+                                     repr=False)
 
     @property
     def ndev(self) -> int:
         return len(self.chunks)
+
+    @property
+    def local(self) -> tuple[int, ...]:
+        """The shards whose chunks this process holds."""
+        return (tuple(range(self.ndev)) if self.mesh is None
+                else self.mesh.local)
+
+    def with_chunks(self, chunks) -> "ShardedVector":
+        """A vector of this one's partition and mesh with other chunks."""
+        return dataclasses.replace(self, chunks=tuple(chunks))
+
+    def map(self, fn, *others: "ShardedVector") -> "ShardedVector":
+        """``fn(chunk, *other chunks)`` on each local shard (on a process
+        mesh the others stay placeholders: nothing runs on them)."""
+        out = [fn(self.chunks[s], *(o.chunks[s] for o in others))
+               for s in self.local]
+        return self.with_chunks(out if self.mesh is None
+                                else self.mesh.shards(out))
 
     @property
     def chunk_size(self) -> int:
@@ -129,10 +154,18 @@ class ShardedVector:
                              length=plan.length)
 
     def to_global(self) -> np.ndarray:
-        """Strip the padding and concatenate the chunks (host numpy)."""
+        """Strip the padding and concatenate the chunks (host numpy); on a
+        process mesh, all-gathered from every rank."""
+        chunks = self.chunks
+        if self.mesh is not None and self.mesh.is_process:
+            chunks = self.mesh.all_gather(
+                [chunks[s] for s in self.mesh.local])[0]
+        elif any(c.is_meta for c in chunks):
+            raise ValueError("a vector with other processes' chunks: place "
+                             "it on its process mesh")
         s = self.starts
         return np.concatenate([c[:s[i + 1] - s[i]].cpu().numpy()
-                               for i, c in enumerate(self.chunks)])
+                               for i, c in enumerate(chunks)])
 
 
 def _plans(indptr, ncol: int, ndev: int, balance: str, square: bool):
@@ -264,7 +297,10 @@ class NeighborCSR:
     """Row-partitioned CSR with a neighbour halo: per shard an interior
     bucket (column ids in the own chunk) and a boundary bucket (column ids
     in the window ``[chunk of s + offsets[0] | chunk of s + offsets[1] |
-    ...]``, ``offsets`` the ring deltas any shard's columns touch)."""
+    ...]``, ``offsets`` the ring deltas any shard's columns touch).
+    ``spans[s][i]`` is the ``[lo, hi)`` of the columns shard ``s`` reads in
+    the chunk of shard ``s + offsets[i]`` (``(0, 0)`` for none): a process
+    mesh sends only that span (``None``: whole chunks)."""
 
     data_int: tuple[torch.Tensor, ...]
     cols_int: tuple[torch.Tensor, ...]
@@ -279,6 +315,7 @@ class NeighborCSR:
     row_starts: tuple[int, ...]
     col_starts: tuple[int, ...]
     nnz: int
+    spans: tuple | None = None            # [ndev][len(offsets)] (lo, hi)
 
     @property
     def ndev(self) -> int:
@@ -326,6 +363,15 @@ class NeighborCSR:
             return dd, cc, rr
 
         interior = delta == 0
+        # the span of each neighbour chunk that each shard reads
+        key = shard[~interior] * ndev + delta[~interior]
+        lo = np.full(ndev * ndev, C, dtype=np.int64)
+        hi = np.zeros(ndev * ndev, dtype=np.int64)
+        np.minimum.at(lo, key, cols_local[~interior])
+        np.maximum.at(hi, key, cols_local[~interior] + 1)
+        spans = tuple(tuple((int(lo[s * ndev + d]), int(hi[s * ndev + d]))
+                            if hi[s * ndev + d] else (0, 0) for d in offs)
+                      for s in range(ndev))
         di, ci, ri = bucket(interior, cols_local)
         db, cb, rb = bucket(~interior, hidx[delta] * C + cols_local)
         return NeighborCSR(
@@ -334,7 +380,7 @@ class NeighborCSR:
             cols_bnd=_split(cb, True), rows_bnd=_split(rb, True),
             rowptr_int=rowptrs(ri, di, R), rowptr_bnd=rowptrs(rb, db, R),
             offsets=offs, shape=(nrow, ncol), row_starts=rplan.starts,
-            col_starts=cplan.starts, nnz=int(indptr[-1]))
+            col_starts=cplan.starts, nnz=int(indptr[-1]), spans=spans)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,25 +1,27 @@
 """Distributed SpMV over a mesh: the general-CSR strategies.
 
 Counterpart of ``tpu_spmv/dist/spmv.py``.  Where the reference runs one
-``shard_map`` SPMD program, the port's single controller loops over the
-shards and runs each shard's work on that shard's device:
+``shard_map`` SPMD program, each function here loops over the mesh's local
+shards (every shard on the single controller, the own one on a process
+mesh) and runs each shard's work on that shard's device; the exchanges are
+the mesh's (:mod:`.mesh`):
 
-- ``lax.all_gather`` becomes every chunk copied to the shard's device and
-  concatenated (:func:`spmv_allgather`);
-- ``lax.ppermute`` becomes a copy of a chunk to the neighbour's device — a
-  no-op on one device (:func:`spmv_halo` ships one chunk per ring step to
-  the next shard, :func:`spmv_neighbor` brings the touched neighbour
-  chunks);
-- ``lax.psum_scatter`` becomes a sum of the partial y slices in shard order
-  (:func:`spmv_colsplit`).
+- ``lax.all_gather`` becomes :meth:`~.mesh.Mesh.all_gather` and a
+  concatenation (:func:`spmv_allgather`);
+- ``lax.ppermute`` becomes :meth:`~.mesh.Mesh.shift` (:func:`spmv_halo`
+  ships one chunk per ring step to the next shard) and
+  :meth:`~.mesh.Mesh.neighbors` (:func:`spmv_neighbor` brings the touched
+  neighbour chunks);
+- ``lax.psum_scatter`` becomes :meth:`~.mesh.Mesh.reduce_scatter`, a sum
+  of the partial y slices in shard order (:func:`spmv_colsplit`).
 
 Each shard's product is a gather and one ``torch.segment_reduce`` per
 bucket over the bucket's row pointer (row-owned, deterministic).  The
 SpMMs (:func:`spmm_allgather`, :func:`spmm_halo`, :func:`spmm_neighbor`)
 run the same strategies on a block of right-hand sides: ``X``'s chunks
-are ``[C, nrhs]``, the values ride along the trailing axis of the copies
-and of the segment sums, and the result's chunks are ``[R, nrhs]``.
-Overlapping the copies with compute is later work.
+are ``[C, nrhs]``, the values ride along the trailing axis of the
+exchanges and of the segment sums, and the result's chunks are ``[R,
+nrhs]``.  Overlapping the exchanges with compute is later work.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ def _per_shard(value, ndev: int) -> bool:
 def place(obj, mesh: Mesh):
     """``obj`` (a sharded container or :class:`~.sharded.ShardedVector`)
     with shard ``s``'s tensors on ``mesh.devices[s]`` (no copy where they
-    already are)."""
+    already are): on a process mesh the other shards' tensors become
+    ``meta`` placeholders.  A vector also records the mesh."""
     n = obj.ndev
     if n != mesh.ndev:
         raise ValueError(f"{type(obj).__name__} has {n} shards, the mesh "
@@ -54,6 +57,8 @@ def place(obj, mesh: Mesh):
                                                    mesh.devices))
              for f in dataclasses.fields(obj)
              if _per_shard(getattr(obj, f.name), n)}
+    if isinstance(obj, ShardedVector):
+        moved["mesh"] = mesh
     return dataclasses.replace(obj, **moved)
 
 
@@ -63,9 +68,10 @@ def _segsum(prod: torch.Tensor, ptr: torch.Tensor) -> torch.Tensor:
     return torch.segment_reduce(prod, "sum", offsets=ptr, axis=0)
 
 
-def _vector(A, chunks) -> ShardedVector:
-    return ShardedVector(chunks=tuple(chunks), starts=A.row_starts,
-                         length=A.shape[0])
+def _vector(mesh: Mesh, A, ys) -> ShardedVector:
+    """The result vector of ``A`` from the local shards' chunks."""
+    return ShardedVector(chunks=mesh.shards(ys), starts=A.row_starts,
+                         length=A.shape[0], mesh=mesh)
 
 
 def _times(data: torch.Tensor, xg: torch.Tensor) -> torch.Tensor:
@@ -79,11 +85,11 @@ def spmv_allgather(mesh: Mesh, A: ShardedCSR,
     """Row-sharded SpMV with x replicated: every shard gathers all chunks
     (the padded ``[ndev * C]`` x), multiplies its row block and keeps its y
     slice — no reduction."""
-    ys = []
-    for s, dev in enumerate(mesh.devices):
-        xg = torch.cat([c.to(dev) for c in x.chunks])
-        ys.append(_segsum(_times(A.data[s], xg[A.cols[s]]), A.rowptr[s]))
-    return _vector(A, ys)
+    loc = mesh.local
+    xgs = mesh.all_gather([x.chunks[s] for s in loc])
+    return _vector(mesh, A, [
+        _segsum(_times(A.data[s], torch.cat(xg)[A.cols[s]]), A.rowptr[s])
+        for s, xg in zip(loc, xgs)])
 
 
 def spmv_halo(mesh: Mesh, A: HaloCSR, x: ShardedVector) -> ShardedVector:
@@ -91,17 +97,17 @@ def spmv_halo(mesh: Mesh, A: HaloCSR, x: ShardedVector) -> ShardedVector:
     bucket ``t`` with the chunk it holds (shard ``(s - t) mod ndev``'s),
     then ships that chunk to the next shard.  After ``ndev`` steps every
     shard has seen every chunk once."""
-    n, devs = A.ndev, mesh.devices
-    cur = list(x.chunks)
-    ys = [None] * n
+    n, loc = A.ndev, mesh.local
+    cur = [x.chunks[s] for s in loc]
+    ys = [None] * len(loc)
     for t in range(n):
-        for s in range(n):
-            part = _segsum(_times(A.data[s][t], cur[s][A.cols[s][t]]),
+        for i, s in enumerate(loc):
+            part = _segsum(_times(A.data[s][t], cur[i][A.cols[s][t]]),
                            A.rowptr[s][t])
-            ys[s] = part if ys[s] is None else ys[s] + part
+            ys[i] = part if ys[i] is None else ys[i] + part
         if t + 1 < n:
-            cur = [cur[(s - 1) % n].to(devs[s]) for s in range(n)]
-    return _vector(A, ys)
+            cur = mesh.shift(cur)
+    return _vector(mesh, A, ys)
 
 
 def spmv_neighbor(mesh: Mesh, A: NeighborCSR,
@@ -110,17 +116,19 @@ def spmv_neighbor(mesh: Mesh, A: NeighborCSR,
     chunks of shards ``s + d`` for the ring deltas ``d`` in ``A.offsets``,
     multiplies its interior bucket against its own chunk and its boundary
     bucket against the window of the received ones."""
-    n, ys = A.ndev, []
-    for s, dev in enumerate(mesh.devices):
-        y = _segsum(_times(A.data_int[s], x.chunks[s][A.cols_int[s]]),
+    loc = mesh.local
+    own = [x.chunks[s] for s in loc]
+    wins = mesh.neighbors(own, A.offsets, A.spans) if A.offsets else None
+    ys = []
+    for i, s in enumerate(loc):
+        y = _segsum(_times(A.data_int[s], own[i][A.cols_int[s]]),
                     A.rowptr_int[s])
         if A.offsets:
-            xwin = torch.cat([x.chunks[(s + d) % n].to(dev)
-                              for d in A.offsets])
+            xwin = torch.cat(wins[i])
             y = y + _segsum(_times(A.data_bnd[s], xwin[A.cols_bnd[s]]),
                             A.rowptr_bnd[s])
         ys.append(y)
-    return _vector(A, ys)
+    return _vector(mesh, A, ys)
 
 
 def spmv_colsplit(mesh: Mesh, A: ColShardedCSR,
@@ -129,16 +137,9 @@ def spmv_colsplit(mesh: Mesh, A: ColShardedCSR,
     from its column slab and own x chunk; shard ``s`` then receives the sum
     of the partials' rows ``[s*R, (s+1)*R)``, added in shard order (the
     reduce-scatter)."""
-    R = A.rows_per_shard
     parts = [_segsum(A.data[s] * x.chunks[s][A.cols[s]], A.rowptr[s])
-             for s in range(A.ndev)]
-    ys = []
-    for s, dev in enumerate(mesh.devices):
-        y = parts[0][s * R:(s + 1) * R].to(dev)
-        for p in parts[1:]:
-            y = y + p[s * R:(s + 1) * R].to(dev)
-        ys.append(y)
-    return _vector(A, ys)
+             for s in mesh.local]
+    return _vector(mesh, A, mesh.reduce_scatter(parts, A.rows_per_shard))
 
 
 def _check_rhs(X: ShardedVector) -> None:

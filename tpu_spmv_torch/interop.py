@@ -167,7 +167,7 @@ def _from_dist(obj, cls, mesh, dtype):
                          f"not fit a mesh of {mesh.ndev}")
     fields, stacked = {}, {}
     for f in dataclasses.fields(cls):
-        if f.name in _ROWPTR:
+        if f.name in _ROWPTR or f.name in ("mesh", "spans"):  # port's own
             continue
         value = getattr(obj, f.name)
         if hasattr(value, "shape") and hasattr(value, "dtype"):

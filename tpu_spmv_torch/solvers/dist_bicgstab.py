@@ -35,10 +35,7 @@ class DistBiCGSTABResult(NamedTuple):
 def _select(cond: torch.Tensor, a: ShardedVector,
             b: ShardedVector) -> ShardedVector:
     """``a`` where the 0-d ``cond`` holds, else ``b``, shard by shard."""
-    return ShardedVector(
-        chunks=tuple(torch.where(cond.to(x.device), x, y)
-                     for x, y in zip(a.chunks, b.chunks)),
-        starts=a.starts, length=a.length)
+    return a.map(lambda x, y: torch.where(cond.to(x.device), x, y), b)
 
 
 def dist_bicgstab(mesh, A, b: ShardedVector, *, tol: float = 1e-8,

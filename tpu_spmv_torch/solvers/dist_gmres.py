@@ -5,8 +5,8 @@ square systems with a row-sharded matrix (:func:`~.dist_cg.dist_cg`'s
 containers and matvec), right-preconditioned (``A M^-1 u = b``), so the
 Givens recurrence tracks the true residual.
 
-The Krylov basis is one ``[m + 1, C]`` tensor per shard (row ``j`` is the
-shard's chunk of the ``j``-th basis vector).  Each Arnoldi step runs
+The Krylov basis is one ``[m + 1, C]`` tensor per local shard (row ``j``
+is the shard's chunk of the ``j``-th basis vector).  Each Arnoldi step runs
 one-shot classical Gram-Schmidt against the filled basis rows: every shard
 takes its ``[j + 1]`` dots with one product against its basis block, and
 the shards' dots add in shard order in one reduction (the reference's
@@ -64,32 +64,37 @@ def dist_gmres(mesh, A, b: ShardedVector, *, tol: float = 1e-8,
     eps = torch.finfo(b.dtype).tiny
     limit_t = tol * torch.clamp(blas.norm2(b), min=1e-300)
 
+    loc = mesh.local
+
     def sv(chunks) -> ShardedVector:
-        return ShardedVector(chunks=tuple(chunks), starts=b.starts,
-                             length=b.length)
+        """A vector from the local shards' chunks."""
+        return b.with_chunks(mesh.shards(list(chunks)))
 
     def residual(x):
         r = blas.axpby(1.0, b, -1.0, matvec(x))
         return r, blas.norm2(r)
 
     def start(r, beta_t):
-        V = [c.new_zeros((m + 1,) + c.shape) for c in b.chunks]
-        for Vs, rs in zip(V, r.chunks):
+        V = [b.chunks[s].new_zeros((m + 1,) + b.chunks[s].shape) for s in loc]
+        for Vs, s in zip(V, loc):
+            rs = r.chunks[s]
             Vs[0] = rs / torch.clamp(beta_t.to(rs.device), min=eps)
         return V
 
     def arnoldi(V, j):
         w = matvec(M(sv(Vs[j] for Vs in V)))
+        ws = [w.chunks[s] for s in loc]
         # one-shot CGS: the shards' [j + 1] dots in one reduction
-        h_t = blas.psum([torch.mv(Vs[:j + 1], ws)
-                         for Vs, ws in zip(V, w.chunks)])
-        w = sv(ws - torch.mv(Vs[:j + 1].T, h_t.to(ws.device))
-               for Vs, ws in zip(V, w.chunks))
+        h_t = blas.psum([torch.mv(Vs[:j + 1], c) for Vs, c in zip(V, ws)],
+                        mesh)
+        w = sv(c - torch.mv(Vs[:j + 1].T, h_t.to(c.device))
+               for Vs, c in zip(V, ws))
         hn_t = blas.norm2(w)
         col = torch.cat([h_t, hn_t[None]]).cpu().numpy()
-        for Vs, ws in zip(V, w.chunks):
-            Vs[j + 1] = (ws / hn_t.to(ws.device) if col[-1] > eps
-                         else torch.zeros_like(ws))
+        for Vs, s in zip(V, loc):
+            c = w.chunks[s]
+            Vs[j + 1] = (c / hn_t.to(c.device) if col[-1] > eps
+                         else torch.zeros_like(c))
         return col
 
     def update(x, V, y):

@@ -8,25 +8,27 @@ So each shard holds a ``[gx / ndev, ...]`` slab of the grid (the flat
 vector's uniform split lands on slab boundaries when ``gx % ndev == 0``)
 and runs the serial arithmetic on it:
 
-- **halos**: the stencil reads one row from each neighbour, copied from
-  the neighbour's slab to the shard's device (the reference's
-  ``ppermute``); a shard at a global edge gets zeros, the Dirichlet
-  closure;
+- **halos**: the stencil reads one row from each neighbour, through the
+  mesh's :meth:`~..dist.mesh.Mesh.ring` (the reference's ``ppermute``: a
+  copy on the single controller, a collective on a process mesh); a shard
+  at a global edge gets zeros, the Dirichlet closure;
 - **prolongation** along axis 0 reads the same halos, and a shard at a
   global edge clamps to its own boundary row, as the serial
   :func:`.multigrid._interp1d` clamps; the other axes are local;
 - **restriction** is the exact adjoint of that sharded prolongation,
   written out from :func:`.multigrid._interp1d_adjoint`: the fine rows
   whose prolongation read a neighbour's row go back to that neighbour (the
-  transpose of the halo copy), which adds them into its own coarse rows.
+  transpose of the halo exchange, one more ring), which adds them into its
+  own coarse rows.
   Exact adjointness across shards keeps the V-cycle symmetric, so a valid
   PCG preconditioner;
 - **replicated tail**: once a level's slab would be thinner than
-  ``max(min_local, 2)`` rows (or odd), the slabs are gathered once on
-  shard 0's device and the serial cycle (:func:`.multigrid._vcycle`) runs
-  the remaining levels there; each shard's slab of the correction is then
-  copied back.  One controller computes the tail once, where the
-  reference computes it on every device; the numbers are the same.
+  ``max(min_local, 2)`` rows (or odd), the slabs are all-gathered and the
+  serial cycle (:func:`.multigrid._vcycle`) runs the remaining levels;
+  each shard keeps its slab of the correction.  The single controller
+  computes the tail once, on shard 0's device, and copies the slabs out;
+  on a process mesh every rank computes it, as the reference does on
+  every device.  The numbers are the same.
 
 Each sharded step does the serial step's elementwise operations in the
 serial order on the shard's rows, so the cycle is the serial
@@ -49,26 +51,22 @@ from .multigrid import (_check_sweeps, _interp1d, _interp1d_adjoint,
 __all__ = ["dist_mg_preconditioner"]
 
 
-def _halos(us, devices):
-    """``(row above, row below)`` of each shard's slab: the neighbours'
-    boundary rows copied to the shard's device; a global edge gets
-    ``None``."""
-    n = len(us)
-    return ([us[s - 1][-1:].to(devices[s]) if s > 0 else None
-             for s in range(n)],
-            [us[s + 1][:1].to(devices[s]) if s < n - 1 else None
-             for s in range(n)])
+def _halos(mesh, tails, heads):
+    """For each local slab: ``(last row of tails[s - 1], first row of
+    heads[s + 1])`` on its device, ``None`` past a global edge."""
+    n = mesh.ndev
+    return [(lo if s > 0 else None, hi if s < n - 1 else None)
+            for s, (lo, hi) in zip(mesh.local, mesh.ring(tails, heads, 1))]
 
 
-def _stencil(us, shift: float, devices):
+def _stencil(us, shift: float, mesh):
     """The serial :func:`.multigrid.poisson_stencil_apply` on axis-0
     slabs: ``(2d + shift) u`` minus the neighbours, axis 0 first (its
     reads past the slab from the halos, zero at a global edge), then the
     local axes, each subtraction in the serial order."""
     d = us[0].dim()
-    ups, dns = _halos(us, devices)
     ys = []
-    for u, up, dn in zip(us, ups, dns):
+    for u, (up, dn) in zip(us, _halos(mesh, us, us)):
         y = (2 * d + shift) * u
         lx = u.shape[0]
         y.narrow(0, 0, lx - 1).sub_(u.narrow(0, 1, lx - 1))
@@ -85,12 +83,11 @@ def _stencil(us, shift: float, devices):
     return ys
 
 
-def _prolong(us, devices):
+def _prolong(us, mesh):
     """d-linear prolongation of axis-0 slabs: axis 0 with the halos (a
     global edge clamps to its own boundary row), then the local axes."""
-    ups, dns = _halos(us, devices)
     fs = []
-    for u, up, dn in zip(us, ups, dns):
+    for u, (up, dn) in zip(us, _halos(mesh, us, us)):
         lx = u.shape[0]
         um = torch.cat([u[:1] if up is None else up, u.narrow(0, 0, lx - 1)])
         uq = torch.cat([u.narrow(0, 1, lx - 1), u[-1:] if dn is None else dn])
@@ -104,7 +101,7 @@ def _prolong(us, devices):
     return fs
 
 
-def _restrict(rs, devices):
+def _restrict(rs, mesh):
     """The exact adjoint of :func:`_prolong`, scaled by ``2^-d``: the local
     axes' adjoints in reverse order, then axis 0's with each shard's
     boundary fine rows sent back to the neighbour whose row their
@@ -112,20 +109,19 @@ def _restrict(rs, devices):
     d = rs[0].dim()
     for ax in reversed(range(1, d)):
         rs = [_interp1d_adjoint(r, ax) for r in rs]
-    n = len(rs)
+    n = mesh.ndev
     pairs = [r.reshape((r.shape[0] // 2, 2) + tuple(r.shape[1:]))
              for r in rs]
     es = [p.select(1, 0) for p in pairs]
     os_ = [p.select(1, 1) for p in pairs]
     out = []
-    for s, (e, o) in enumerate(zip(es, os_)):
+    for s, e, o, (prv, nxt) in zip(mesh.local, es, os_,
+                                   _halos(mesh, os_, es)):
         g = e.shape[0]
         # e[i] read u[i-1] and o[i] read u[i+1]: u[i] gets e[i+1] / 4 and
         # o[i-1] / 4; past the slab they are the neighbours' rows
-        nxt = (es[s + 1][:1].to(devices[s]) if s < n - 1
-               else torch.zeros_like(e[:1]))
-        prv = (os_[s - 1][-1:].to(devices[s]) if s > 0
-               else torch.zeros_like(o[:1]))
+        nxt = torch.zeros_like(e[:1]) if nxt is None else nxt
+        prv = torch.zeros_like(o[:1]) if prv is None else prv
         e_back = torch.cat([e.narrow(0, 1, g - 1), nxt])
         o_fwd = torch.cat([prv, o.narrow(0, 0, g - 1)])
         u = 0.75 * (e + o) + 0.25 * (e_back + o_fwd)
@@ -159,8 +155,7 @@ def dist_mg_preconditioner(mesh, grid_shape: Sequence[int], *,
         raise ValueError(f"dist_mg_preconditioner supports 2-D/3-D "
                          f"grids, got {gshape}")
     gx = gshape[0]
-    devices = mesh.devices
-    ndev = len(devices)
+    ndev = mesh.ndev
     if gx % ndev:
         raise ValueError(f"gx={gx} must be divisible by ndev={ndev}")
     _check_sweeps(nu1, nu2)
@@ -183,21 +178,21 @@ def dist_mg_preconditioner(mesh, grid_shape: Sequence[int], *,
     def smooth(us, bs, lvl, sweeps):
         dinv = omega / (2 * d + shifts[lvl])
         for _ in range(sweeps):
-            st = _stencil(us, shifts[lvl], devices)
+            st = _stencil(us, shifts[lvl], mesh)
             us = [u + dinv * (b - y) for u, b, y in zip(us, bs, st)]
         return us
 
     def vcycle(lvl, bs):
         if lvl == nshard:
-            # gather the (small) level grid once, run the serial tail,
-            # and copy each shard's slab back
-            dev0 = devices[0]
-            z = tail(lvl, torch.cat([b.to(dev0) for b in bs]))
-            return [c.to(dev) for c, dev in zip(z.chunk(ndev), devices)]
+            # all-gather the (small) level grid, run the serial tail on the
+            # first local shard's device, and keep each local shard's slab
+            full = torch.cat(mesh.all_gather(bs)[0])
+            zs = tail(lvl, full).chunk(ndev)
+            return [zs[s].to(mesh.devices[s]) for s in mesh.local]
         us = smooth([torch.zeros_like(b) for b in bs], bs, lvl, nu1)
-        rs = [b - y for b, y in zip(bs, _stencil(us, shifts[lvl], devices))]
-        es = vcycle(lvl + 1, _restrict(rs, devices))
-        us = [u + 4.0 * p for u, p in zip(us, _prolong(es, devices))]
+        rs = [b - y for b, y in zip(bs, _stencil(us, shifts[lvl], mesh))]
+        es = vcycle(lvl + 1, _restrict(rs, mesh))
+        us = [u + 4.0 * p for u, p in zip(us, _prolong(es, mesh))]
         return smooth(us, bs, lvl, nu2)
 
     starts = tuple(i * C for i in range(ndev + 1))
@@ -209,8 +204,7 @@ def dist_mg_preconditioner(mesh, grid_shape: Sequence[int], *,
                 f"{'x'.join(map(str, gshape))} grid split over {ndev} "
                 f"shards (chunks of {C}); got length={r.length} "
                 f"chunk={r.chunk_size}")
-        zs = vcycle(0, [c.reshape(local0) for c in r.chunks])
-        return ShardedVector(chunks=tuple(z.reshape(C) for z in zs),
-                             starts=r.starts, length=r.length)
+        zs = vcycle(0, [r.chunks[s].reshape(local0) for s in mesh.local])
+        return r.with_chunks(mesh.shards([z.reshape(C) for z in zs]))
 
     return apply
